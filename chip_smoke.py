@@ -1,0 +1,233 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch port (unidepth_tpu_torch) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Run from the root of a checkout on a machine with a CUDA card and nvcc. It
+fails (non-zero exit, no result line) without CUDA or outside a checkout.
+
+1. Prints the card's name and power limit and builds the CUDA kernels from
+   ``unidepth_tpu_torch/csrc`` with nvcc.
+2. One phase per kernel at the shapes the main path gives it. In bf16 I/O
+   it runs the tensor-core kernels that the main path launches
+   (attn_fwd_bf16, ln_dense_bf16) and holds them against the plain PyTorch
+   version computed in fp32 on the same bf16 inputs: elementwise at rtol
+   1.6e-2, atol 1e-2 (bf16 output rounding), and at a relative RMS error
+   ||out - ref|| / ||ref|| <= 5e-3, which rounding alone keeps near 2e-3
+   and a 2% error in the softmax denominator (the ragged-tile mask lost)
+   exceeds. In fp32 I/O it runs the CUDA-core kernels of the same sources
+   (attn_fwd_simt, ln_dense_simt), which the main path does not launch, at
+   1e-4 (attention) and 2e-4 (ln_dense). It times kernel and plain version
+   in bf16 (median of CUDA-event-timed calls).
+3. Builds UniDepthV2 ViT-L/14 from configs/config_v2_vitl14.json with
+   random weights (``init_params(seed=0)``), runs ``infer()`` on 8 seeded
+   518x518 images in bf16, checks shapes, finiteness and depth > 0, checks
+   that the forward launched K1 (flash_attention_qkv) 24 times, K2
+   (ln_dense) 24 times and K3 (flash_attention) 4 times, and holds depth
+   against the same model run on the plain path in fp32 on the card
+   (median relative error <= 1e-2). Then times depth-only ``infer()`` in
+   three rounds and prints each.
+
+The last two lines are the kernels' JSON record and
+``{"ok": true, "device": {...}}``. Any failing phase raises.
+"""
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+import warnings
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent
+CONFIG = ROOT / "configs" / "config_v2_vitl14.json"
+BATCH, SIDE, SEED = 8, 518, 0
+TOL_BF16 = dict(rtol=1.6e-2, atol=1e-2)
+REL_RMS_BF16 = 5e-3
+
+
+def log(*args):
+    print(*args, flush=True)
+
+
+def time_ms(fn, iters=20, warmup=3):
+    """Median milliseconds of ``fn()`` over ``iters`` runs, by CUDA events."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(iters):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def check_close(name, out, ref, **tol):
+    err = (out.float() - ref.float()).abs().max().item()
+    torch.testing.assert_close(out.float(), ref.float(), **tol, msg=lambda m: f"{name}: {m}")
+    return err
+
+
+def kernel_phase(name, kernel, plain, make_inputs, fp32_tol):
+    """Compare ``kernel`` with ``plain`` in bf16 and fp32 I/O; time both in bf16."""
+    args = make_inputs(torch.bfloat16)
+    out = kernel(*args)
+    torch.cuda.synchronize()
+    ref = plain(*[a.float() if torch.is_tensor(a) else a for a in args])
+    err = check_close(f"{name} bf16", out, ref, **TOL_BF16)
+    rel_rms = ((out.float() - ref).norm() / ref.norm()).item()
+    if not rel_rms <= REL_RMS_BF16:
+        raise RuntimeError(f"{name} bf16: relative RMS error {rel_rms:.3e} > {REL_RMS_BF16}")
+    args32 = make_inputs(torch.float32)
+    err32 = check_close(f"{name} fp32", kernel(*args32), plain(*args32), rtol=fp32_tol, atol=fp32_tol)
+    ms = time_ms(lambda: kernel(*args))
+    plain_ms = time_ms(lambda: plain(*args))
+    log(f"{name}: bf16 max_abs_err {err:.3e} rel_rms {rel_rms:.3e}, fp32 max_abs_err {err32:.3e}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (bf16)")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+
+
+def main():
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this test has no CPU path")
+    if not CONFIG.is_file():
+        raise SystemExit(f"chip_smoke: {CONFIG} not found; run from the root of a checkout")
+    sys.path.insert(0, str(ROOT))
+    from unidepth_tpu_torch.models.unidepthv2.model import UniDepthV2
+    from unidepth_tpu_torch.ops import _cuda
+    from unidepth_tpu_torch.ops.flash_attention import (
+        flash_attention,
+        flash_attention_plain,
+        flash_attention_qkv,
+        flash_attention_qkv_plain,
+    )
+    from unidepth_tpu_torch.ops.fused_block import ln_dense, ln_dense_plain
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip()
+    log(smi)
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+
+    # --- build -------------------------------------------------------------
+    t0 = time.perf_counter()
+    _cuda.library()
+    log(f"build: {time.perf_counter() - t0:.1f} s (nvcc {_cuda.build_seconds} s)")
+
+    # --- kernels at the main path's shapes -----------------------------------
+    gen = torch.Generator(device=dev)
+
+    def randn(*shape, dtype, std=1.0, mean=0.0):
+        return (torch.randn(shape, generator=gen, device=dev) * std + mean).to(dtype)
+
+    def k1_inputs(dtype):
+        gen.manual_seed(1)
+        return randn(BATCH, 1370, 3 * 1024, dtype=dtype), 16, 64**-0.5
+
+    def k2_inputs(dtype):
+        gen.manual_seed(2)
+        c, f = 1024, 4096
+        return (
+            randn(BATCH * 1370, c, dtype=dtype, std=2.0, mean=0.5),
+            randn(f, c, dtype=dtype, std=c**-0.5),
+            randn(f, dtype=dtype, std=0.1),
+            randn(c, dtype=dtype, std=0.1, mean=1.0),
+            randn(c, dtype=dtype, std=0.1),
+            1e-6,
+            "gelu",
+        )
+
+    def k3_inputs(dtype):
+        gen.manual_seed(3)
+        return tuple(randn(BATCH * 8, 1369, 64, dtype=dtype) for _ in range(3)) + (64**-0.5,)
+
+    kernels = [
+        ("flash_attention_qkv", flash_attention_qkv, "unidepth_tpu_torch/csrc/attention.cu",
+         "unidepth_tpu/ops/flash_attention.py:471",
+         kernel_phase("K1 flash_attention_qkv", flash_attention_qkv, flash_attention_qkv_plain, k1_inputs, 1e-4)),
+        ("ln_dense", ln_dense, "unidepth_tpu_torch/csrc/ln_dense.cu",
+         "unidepth_tpu/ops/fused_block.py:102",
+         kernel_phase("K2 ln_dense", ln_dense, ln_dense_plain, k2_inputs, 2e-4)),
+        ("flash_attention", flash_attention, "unidepth_tpu_torch/csrc/attention.cu",
+         "unidepth_tpu/ops/flash_attention.py:159",
+         kernel_phase("K3 flash_attention", flash_attention, flash_attention_plain, k3_inputs, 1e-4)),
+    ]
+    expected = {"flash_attention_qkv": 24, "ln_dense": 24, "flash_attention": 4}
+
+    # --- the main path: ViT-L/14 infer() at B=8, 518x518 ----------------------
+    warnings.simplefilter("ignore")  # resolution_level unset: default budget
+    config = json.loads(CONFIG.read_text())
+    t0 = time.perf_counter()
+    model = UniDepthV2.from_config(config, device=dev).init_params(seed=SEED).eval()
+    log(f"model: ViT-L/14 {sum(p.numel() for p in model.parameters()) / 1e6:.1f} M params, "
+        f"{next(model.parameters()).dtype}, built in {time.perf_counter() - t0:.1f} s")
+    rgb = np.random.default_rng(SEED).integers(0, 256, (BATCH, SIDE, SIDE, 3), dtype=np.uint8)
+
+    for _, fn, *_rest in kernels:
+        fn.launches = 0
+    out = model.infer(rgb)
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn, *_rest in kernels}
+    log(f"launches in one infer(): {launches}")
+    if launches != expected:
+        raise RuntimeError(f"kernel launches {launches} != expected {expected}")
+
+    shapes = {"depth": 1, "points": 3, "rays": 3, "confidence": 1, "radius": 1}
+    for key, ch in shapes.items():
+        if tuple(out[key].shape) != (BATCH, SIDE, SIDE, ch):
+            raise RuntimeError(f"{key} has shape {tuple(out[key].shape)}")
+        if not torch.isfinite(out[key]).all():
+            raise RuntimeError(f"{key} is not finite")
+    if tuple(out["intrinsics"].shape) != (BATCH, 3, 3) or not torch.isfinite(out["intrinsics"]).all():
+        raise RuntimeError("intrinsics malformed")
+    if not (out["depth"] > 0).all():
+        raise RuntimeError("depth is not positive everywhere")
+
+    ref_model = UniDepthV2.from_config(config, device=dev, dtype=torch.float32).init_params(seed=SEED)
+    ref_model.set_kernels(False).eval()
+    ref = ref_model.infer(rgb, outputs=("depth",))
+    torch.cuda.synchronize()
+    if {name: fn.launches for name, fn, *_rest in kernels} != launches:
+        raise RuntimeError("the plain reference run launched a kernel")
+    rel = ((out["depth"] - ref["depth"]).abs() / ref["depth"].abs()).flatten()
+    med, mx = rel.median().item(), rel.max().item()
+    log(f"depth vs fp32 plain path: median rel err {med:.3e}, max rel err {mx:.3e}")
+    if not med <= 1e-2:
+        raise RuntimeError(f"depth median relative error {med} > 1e-2")
+    del ref_model, ref
+
+    iters, rounds = 5, []
+    for _ in range(2):
+        model.infer(rgb, outputs=("depth",))
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            model.infer(rgb, outputs=("depth",))
+        torch.cuda.synchronize()
+        rounds.append(BATCH * iters / (time.perf_counter() - t0))
+    rate = statistics.median(rounds)
+    log(f"infer depth-only B={BATCH} {SIDE}x{SIDE} bf16: {BATCH / rate * 1e3:.2f} ms/batch, "
+        f"{rate:.2f} images/s, median of rounds {', '.join(f'{r:.2f}' for r in rounds)} ({smi})")
+
+    record = [
+        {"name": name, "route": "cuda", "source": src, "replaces": rep, "launches": launches[name], **m}
+        for name, _fn, src, rep, m in kernels
+    ]
+    log(json.dumps({"kernels": record}))
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,122 @@
+"""unidepth_tpu_torch's CUDA kernels against their plain PyTorch versions.
+
+These need an NVIDIA Hopper card and nvcc; without a card they skip. On the
+card, run them alone (the suite's conftest imports JAX, which that machine
+need not have):
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py -q
+
+bf16 I/O runs the tensor-core kernels the model launches (attn_fwd_bf16,
+ln_dense_bf16). Each is held against its plain version computed in fp32
+from the same bf16 inputs, elementwise at rtol 1.6e-2, atol 1e-2 (bf16
+output rounding) and, tighter, at a relative RMS error
+||out - ref|| / ||ref|| <= 5e-3. The attention outputs here are ~0.05 in
+size, so the elementwise bound alone would pass a kernel whose softmax
+denominator is off by 2%; the RMS bound would not (rounding alone gives
+~2e-3). fp32 I/O runs the CUDA-core kernels (attn_fwd_simt,
+ln_dense_simt), held at 1e-4 (attention) and 2e-4 (ln_dense, a 1024-long
+fp32 dot product per output).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from unidepth_tpu_torch.ops.flash_attention import (
+    flash_attention,
+    flash_attention_plain,
+    flash_attention_qkv,
+    flash_attention_qkv_plain,
+)
+from unidepth_tpu_torch.ops.attention import attention
+from unidepth_tpu_torch.ops.fused_block import ln_dense, ln_dense_plain
+
+pytestmark = pytest.mark.cuda
+
+TOL = {torch.bfloat16: dict(rtol=1.6e-2, atol=1e-2)}
+REL_RMS_BF16 = 5e-3
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _t(a, dev, dtype):
+    return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev, dtype)
+
+
+def _close(out, ref, dtype, fp32_tol):
+    tol = TOL.get(dtype, dict(rtol=fp32_tol, atol=fp32_tol))
+    torch.testing.assert_close(out.float(), ref.float(), **tol)
+    if dtype == torch.bfloat16:
+        rel_rms = ((out.float() - ref).norm() / ref.norm()).item()
+        assert rel_rms <= REL_RMS_BF16, rel_rms
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize(
+    "b,n,c,h", [(2, 140, 128, 2), (2, 200, 256, 8), (1, 130, 256, 2), (8, 1370, 1024, 16)]
+)
+def test_flash_attention_qkv_matches_plain(dev, dtype, b, n, c, h):
+    rng = np.random.default_rng(0)
+    qkv = _t(rng.standard_normal((b, n, 3 * c)), dev, dtype)
+    scale = (c // h) ** -0.5
+    before = flash_attention_qkv.launches
+    out = flash_attention_qkv(qkv, h, scale)
+    torch.cuda.synchronize()
+    assert flash_attention_qkv.launches == before + 1
+    ref = flash_attention_qkv_plain(qkv.float(), h, scale)
+    _close(out, ref, dtype, 1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize(
+    "bh,nq,nk,d", [(3, 200, 200, 64), (4, 70, 300, 32), (2, 1369, 1369, 128), (64, 1369, 1369, 64)]
+)
+def test_flash_attention_matches_plain(dev, dtype, bh, nq, nk, d):
+    rng = np.random.default_rng(1)
+    q = _t(rng.standard_normal((bh, nq, d)), dev, dtype)
+    k = _t(rng.standard_normal((bh, nk, d)), dev, dtype)
+    v = _t(rng.standard_normal((bh, nk, d)), dev, dtype)
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, d**-0.5)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    ref = flash_attention_plain(q.float(), k.float(), v.float(), d**-0.5)
+    _close(out, ref, dtype, 1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize(
+    "m,c,f,eps,act",
+    [(300, 128, 512, 1e-6, "gelu"), (1000, 256, 384, 1e-5, None), (10960, 1024, 4096, 1e-6, "gelu")],
+)
+def test_ln_dense_matches_plain(dev, dtype, m, c, f, eps, act):
+    rng = np.random.default_rng(2)
+    x = _t(rng.standard_normal((m, c)) * 2 + 0.5, dev, dtype)
+    w = _t(rng.standard_normal((f, c)) / np.sqrt(c), dev, dtype)
+    b = _t(rng.standard_normal(f) * 0.1, dev, dtype)
+    g = _t(1 + 0.1 * rng.standard_normal(c), dev, dtype)
+    bt = _t(0.1 * rng.standard_normal(c), dev, dtype)
+    before = ln_dense.launches
+    out = ln_dense(x, w, b, g, bt, eps, act)
+    torch.cuda.synchronize()
+    assert ln_dense.launches == before + 1
+    ref = ln_dense_plain(x.float(), w.float(), b.float(), g.float(), bt.float(), eps, act)
+    _close(out, ref, dtype, 2e-4)
+
+
+@pytest.mark.parametrize("d", [16, 96])
+def test_attention_head_dim_without_kernel_raises(dev, d):
+    """The dispatch sends d <= 128 to the kernel, as JAX does; a head dim the
+    kernel lacks raises on the card instead of running plain."""
+    q, k, v = (torch.randn(1, 2, 1024, d, device=dev, dtype=torch.bfloat16) for _ in range(3))
+    before = flash_attention.launches
+    with pytest.raises(ValueError, match="head dim"):
+        attention(q, k, v)
+    assert flash_attention.launches == before

@@ -1,0 +1,216 @@
+"""UniDepthV2 decoder (counterpart of unidepth_tpu/models/unidepthv2/decoder.py).
+
+The camera head regresses (fx, fy, cx, cy) from the encoder cls tokens; the
+predicted (or given) rays condition the depth head through four
+camera-prompt cross-attentions (kernel K3 through ``ops.attention``); a
+ConvTranspose feature pyramid and residual bilinear upsamplers produce
+log-depth and log-confidence.
+
+Layouts: tokens are (B, N, C) and the public outputs channel-last, as in the
+JAX package. Inside ``DepthHead`` the spatial maps are held NCHW for
+``nn.Conv2d``. Submodule names are the reference checkpoint's.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn as nn
+
+from unidepth_tpu_torch.geometry.coords import coords_grid
+from unidepth_tpu_torch.nn.conv import Conv2d, PatchConvTranspose
+from unidepth_tpu_torch.nn.layers import MLP, AttentionBlock, AttentionLayer, layer_norm
+from unidepth_tpu_torch.nn.upsample import ResUpsampleBil
+from unidepth_tpu_torch.ops.fourier import generate_fourier_features
+from unidepth_tpu_torch.ops.resize import flat_interpolate, resize
+
+
+def _to_nchw(tokens: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    return tokens.reshape(tokens.shape[0], h, w, -1).permute(0, 3, 1, 2)
+
+
+class CameraHead(nn.Module):
+    """cls tokens (B, 4, C) -> (B, 4) pinhole parameters (fx, fy, cx, cy)."""
+
+    def __init__(self, hidden_dim: int, num_heads: int = 8, expansion: int = 4, layer_scale: float = 1.0):
+        super().__init__()
+        self.latents_pos = nn.Parameter(torch.zeros(1, 4, hidden_dim))
+        self.project = MLP(hidden_dim, expansion=1, output_dim=hidden_dim)
+        block = dict(num_heads=num_heads, expansion=expansion, layer_scale=layer_scale, use_bias=False)
+        self.aggregate1 = AttentionBlock(hidden_dim, **block)
+        self.aggregate2 = AttentionBlock(hidden_dim, **block)
+        self.out_pinhole = MLP(hidden_dim, expansion=1, output_dim=1)
+
+    def forward(self, cls_tokens: torch.Tensor, shapes: tuple[int, int]) -> torch.Tensor:
+        pos = self.latents_pos.expand(cls_tokens.shape[0], -1, -1)
+        tokens = self.project(cls_tokens)
+        tokens = self.aggregate1(tokens, pos_embed=pos)
+        tokens = self.aggregate2(tokens, pos_embed=pos)
+        x = self.out_pinhole(tokens)[..., 0].float()
+        h, w = shapes
+        diag = math.sqrt(h * h + w * w)
+        fx = torch.exp(x[:, 0]) * (0.7 * diag)
+        fy = torch.exp(x[:, 1]) * (0.7 * diag)
+        cx = torch.sigmoid(x[:, 2]) * w
+        cy = torch.sigmoid(x[:, 3]) * h
+        return torch.stack([fx, fy, cx, cy], dim=1)
+
+
+class DepthHead(nn.Module):
+    """Camera-conditioned multi-scale depth and confidence decoder."""
+
+    def __init__(
+        self,
+        hidden_dim: int,
+        num_heads: int = 8,
+        expansion: int = 4,
+        depths: tuple[int, ...] = (2, 2, 2),
+        out_dim: int = 64,
+        kernel_size: int = 3,
+        layer_scale: float = 1.0,
+    ):
+        super().__init__()
+        hd = hidden_dim
+        self.hidden_dim = hd
+        self.prompt_camera = nn.ModuleList(
+            [
+                AttentionLayer(1, hd, num_heads=num_heads, expansion=expansion, layer_scale=-1.0,
+                               context_dim=hd, use_bias=False)
+                for _ in range(4)
+            ]
+        )
+        self.to_latents = nn.Linear(hd, hd)
+        process, ups = [], []
+        for i, depth in enumerate(depths):
+            current_dim = min(hd, 2 * hd // 2**i)
+            output_dim = max(2 * hd // 2 ** (i + 1), out_dim)
+            # level i's conditioning map must reach the 2^i-upsampled latents
+            process.append(PatchConvTranspose(hd, current_dim, scale=2**i))
+            ups.append(ResUpsampleBil(current_dim, output_dim, depth, kernel_size, layer_scale))
+        self.process_features = nn.ModuleList(process)
+        self.ups = nn.ModuleList(ups)
+        final_dim = output_dim
+        # only the last level's depth projection exists (reference key depth_mlp.{last})
+        self.depth_mlp = nn.ModuleDict(
+            {str(len(depths) - 1): nn.Sequential(nn.LayerNorm(final_dim, eps=1e-5), nn.Linear(final_dim, final_dim))}
+        )
+        self.confidence_mlp = nn.Sequential(nn.LayerNorm(final_dim, eps=1e-5), nn.Linear(final_dim, final_dim))
+        self.to_depth_lr = Conv2d(final_dim, final_dim // 2, 3, padding_mode="reflect")
+        self.to_confidence_lr = Conv2d(final_dim, final_dim // 2, 3, padding_mode="reflect")
+        self.to_depth_hr = self._hr_head(final_dim // 2)
+        self.to_confidence_hr = self._hr_head(final_dim // 2)
+
+    @staticmethod
+    def _hr_head(in_dim: int) -> nn.Sequential:
+        return nn.Sequential(
+            Conv2d(in_dim, 32, 3, padding_mode="reflect"), nn.LeakyReLU(0.01), Conv2d(32, 1, 1, padding=0)
+        )
+
+    def embed_rays(self, rays, shapes, original_shapes):
+        """rays (B, H*W, 3) at the input resolution -> Fourier embedding of
+        their polar and azimuth angles at the token grid, in fp32."""
+        r = flat_interpolate(rays.float(), old=original_shapes, new=shapes, antialias=True)
+        r = r / torch.linalg.norm(r, dim=-1, keepdim=True).clamp_min(1e-4)
+        x, y, z = r.unbind(-1)
+        # strictly inside (-1, 1): d/dz arccos diverges at |z| = 1
+        polar = torch.arccos(z.clamp(-1.0 + 1e-7, 1.0 - 1e-7))
+        x_c = x.abs().clamp_min(1e-3) * torch.where(x >= 0, 1.0, -1.0)
+        azimuth = torch.atan2(y, x_c)
+        ang = torch.stack([polar, azimuth], dim=-1)
+        return generate_fourier_features(ang, dim=self.hidden_dim, max_freq=max(shapes) // 2, use_log=True)
+
+    def _head(self, final, mlp: nn.Sequential, lr: nn.Module, hr: nn.Sequential, out_hw):
+        norm, linear = mlp
+        y = linear(layer_norm(norm, final.permute(0, 2, 3, 1))).permute(0, 3, 1, 2)
+        y = resize(lr(y), out_hw, mode="bilinear", align_corners=True, channel_last=False)
+        return hr(y)
+
+    def forward(self, features, rays_hr, shapes, original_shapes, confidence: bool = True):
+        """features: 4 x (B, N, hidden); rays_hr (B, H*W, 3). Returns NCHW
+        log-depth and log-confidence (None unless ``confidence``) at
+        ``original_shapes`` and the (B, N, hidden) initial latents."""
+        h, w = shapes
+        dtype = self.to_latents.weight.dtype
+        rays_embedding = self.embed_rays(rays_hr, shapes, original_shapes).to(dtype)
+        conditioned = [p(f, context=rays_embedding) for p, f in zip(self.prompt_camera, features)]
+        init_latents = self.to_latents(conditioned[0])
+        latents = _to_nchw(init_latents, h, w)
+        for i, up in enumerate(self.ups):
+            latents = up(latents + self.process_features[i](_to_nchw(conditioned[i + 1], h, w)))
+        (depth_mlp,) = self.depth_mlp.values()
+        logdepth = self._head(latents, depth_mlp, self.to_depth_lr, self.to_depth_hr, original_shapes)
+        logconf = None
+        if confidence:
+            logconf = self._head(
+                latents, self.confidence_mlp, self.to_confidence_lr, self.to_confidence_hr, original_shapes
+            )
+        return logdepth, logconf, init_latents
+
+
+class _Adapters(nn.Module):
+    def __init__(self, input_dims, hidden_dim: int):
+        super().__init__()
+        self.input_adapters = nn.ModuleList([nn.Linear(d, hidden_dim) for d in input_dims])
+
+
+class Decoder(nn.Module):
+    """Full V2 decoder."""
+
+    def __init__(
+        self,
+        input_dims: tuple[int, ...],
+        hidden_dim: int,
+        num_heads: int = 8,
+        expansion: int = 4,
+        depths: tuple[int, ...] = (2, 2, 2),
+        out_dim: int = 64,
+        kernel_size: int = 3,
+        layer_scale: float = 1.0,
+    ):
+        super().__init__()
+        self.input_adapter = _Adapters(input_dims, hidden_dim)
+        self.camera_token_adapter = _Adapters(input_dims, hidden_dim)
+        self.camera_layer = CameraHead(hidden_dim, num_heads, expansion, layer_scale)
+        self.depth_layer = DepthHead(hidden_dim, num_heads, expansion, tuple(depths), out_dim, kernel_size, layer_scale)
+        # orthonormal level embeddings: carried by checkpoints, unused by the V2 forward
+        self.register_buffer("level_embeds", torch.zeros(1, 1, len(input_dims), hidden_dim))
+
+    def run_camera(self, cls_tokens, shapes):
+        """Predict intrinsics and back-project the pixel grid to unit rays."""
+        h, w = shapes
+        intrinsics = self.camera_layer(cls_tokens, shapes)  # (B, 4) fp32
+        fx, fy, cx, cy = (intrinsics[:, i, None, None] for i in range(4))
+        uv = coords_grid(h, w, device=intrinsics.device)
+        x = (uv[None, ..., 0] - cx) / fx
+        y = (uv[None, ..., 1] - cy) / fy
+        rays = torch.stack([x, y, torch.ones_like(x)], dim=-1)
+        rays = rays / torch.linalg.norm(rays, dim=-1, keepdim=True).clamp_min(1e-5)
+        K = torch.zeros(intrinsics.shape[0], 3, 3, device=intrinsics.device)
+        K[:, 0, 0], K[:, 1, 1] = intrinsics[:, 0], intrinsics[:, 1]
+        K[:, 0, 2], K[:, 1, 2] = intrinsics[:, 2], intrinsics[:, 3]
+        K[:, 2, 2] = 1.0
+        return K, rays.reshape(rays.shape[0], h * w, 3)
+
+    def forward(self, features, cls_tokens, image_shape, rays_gt=None, confidence: bool = True):
+        """features: 4 x (B, h, w, C); cls_tokens: 4 x (B, 1, C); image_shape
+        (H, W); rays_gt optional (B, H*W, 3) replacing the predicted rays.
+        ``confidence=False`` skips the confidence head."""
+        H, W = image_shape
+        b, gh, gw, _ = features[0].shape
+        feats = [a(f.reshape(b, gh * gw, -1)) for a, f in zip(self.input_adapter.input_adapters, features)]
+        cam_tokens = [a(t) for a, t in zip(self.camera_token_adapter.input_adapters, cls_tokens)]
+        intrinsics, rays = self.run_camera(torch.cat(cam_tokens, dim=1), (H, W))
+        if rays_gt is not None:
+            rays = rays_gt
+        logdepth, logconf, depth_features = self.depth_layer(feats, rays, (gh, gw), (H, W), confidence)
+        radius = torch.exp(logdepth.float().clamp(-8.0, 8.0) + 2.0).permute(0, 2, 3, 1)
+        out = {
+            "radius": radius,  # (B, H, W, 1)
+            "depth_features": depth_features,  # (B, N, hidden)
+            "intrinsics": intrinsics,  # (B, 3, 3)
+            "rays": rays,  # (B, H*W, 3)
+        }
+        if logconf is not None:
+            out["confidence"] = torch.exp(logconf.float().clamp(-8.0, 8.0)).permute(0, 2, 3, 1)
+        return out

@@ -1,0 +1,136 @@
+"""Build and load the port's CUDA kernels (``unidepth_tpu_torch/csrc``).
+
+The sources compile with ``nvcc`` for Hopper (``sm_90a``) into one shared
+library with a plain C interface, loaded with ``ctypes``. The build runs at
+the first CUDA call in a process, writes
+``build/unidepth_tpu_torch/<hash of the sources and flags>/`` at the root of
+the checkout, and is reused while the sources are unchanged. A failed build
+raises: there is no fallback to the plain PyTorch versions.
+
+Every pointer and the stream cross the C boundary as ``c_void_p``, and every
+entry point returns the CUDA error of its launch, which ``check`` raises on.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "unidepth_tpu_torch"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+LIB_NAME = "libunidepth_kernels.so"
+
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+#: seconds the last build in this process took (None: loaded from the cache)
+build_seconds: float | None = None
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    candidates = [Path(home) / "bin" / "nvcc"] if home else []
+    found = shutil.which("nvcc")
+    if found:
+        candidates.append(Path(found))
+    candidates.append(Path("/usr/local/cuda/bin/nvcc"))
+    for c in candidates:
+        if c.is_file():
+            return str(c)
+    raise RuntimeError(
+        "nvcc not found (set CUDA_HOME or put nvcc on PATH): the CUDA kernels "
+        "of unidepth_tpu_torch cannot be built"
+    )
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _build_key() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sorted(CSRC.glob("*.cu*")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> Path:
+    """Compile the kernels unless this source hash is already built; returns
+    the library path. Raises RuntimeError with the compiler output on a
+    failed build."""
+    global build_seconds
+    out = BUILD_ROOT / _build_key() / LIB_NAME
+    if out.is_file():
+        return out
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{LIB_NAME}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    (out.parent / "nvcc.log").write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}) building {out}:\n{proc.stdout}{proc.stderr}"
+        )
+    os.replace(tmp, out)  # atomic: a concurrent process sees all or nothing
+    build_seconds = time.perf_counter() - t0
+    return out
+
+
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+    lib.ud_attention_fwd.argtypes = [p, p, p, p, i, i, i, i, i] + [ll] * 8 + [f, i, p]
+    lib.ud_attention_fwd.restype = i
+    lib.ud_ln_dense_fwd.argtypes = [p, p, p, p, p, p, i, i, i, f, i, i, p]
+    lib.ud_ln_dense_fwd.restype = i
+    lib.ud_error_string.argtypes = [i]
+    lib.ud_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            _lib = _bind(ctypes.CDLL(str(build())))
+        return _lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a launch returned a CUDA error (a refused launch never runs,
+    and a later synchronize would not report it)."""
+    if err != 0:
+        msg = library().ud_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+def stream_handle(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def require_cuda(name: str, *tensors: torch.Tensor) -> None:
+    """Validate the tensors a kernel wrapper hands to C: one CUDA device,
+    a dtype the kernels take, 16-byte aligned base pointers."""
+    dev = tensors[0].device
+    for t in tensors:
+        if not t.is_cuda or t.device != dev:
+            raise ValueError(f"{name}: every tensor must be on the same CUDA device, got {t.device}")
+        if t.dtype not in DTYPE_CODES:
+            raise ValueError(f"{name}: unsupported dtype {t.dtype} (float32 or bfloat16)")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: base pointer is not 16-byte aligned")
