@@ -8,8 +8,9 @@ fails (non-zero exit, no result line) without CUDA or outside a checkout.
 
 1. Prints the card's name and power limit and builds the CUDA kernels from
    ``unidepth_tpu_torch/csrc`` with nvcc.
-2. One phase per kernel at the shapes the main path gives it. In bf16 I/O
-   it runs the tensor-core kernels that the main path launches
+2. One phase per kernel at the shapes its path gives it (K4: strided views
+   of one (8, 1370, 3072) projection, 16 heads, scale 1/8). In bf16 I/O
+   it runs the tensor-core kernels that the paths launch
    (attn_fwd_bf16, ln_dense_bf16) and holds them against the plain PyTorch
    version computed in fp32 on the same bf16 inputs: elementwise at rtol
    1.6e-2, atol 1e-2 (bf16 output rounding), and at a relative RMS error
@@ -18,17 +19,27 @@ fails (non-zero exit, no result line) without CUDA or outside a checkout.
    exceeds. In fp32 I/O it runs the CUDA-core kernels of the same sources
    (attn_fwd_simt, ln_dense_simt), which the main path does not launch, at
    1e-4 (attention) and 2e-4 (ln_dense). It times kernel and plain version
-   in bf16 (median of CUDA-event-timed calls).
+   in bf16 (CUDA events around 10 back-to-back calls, median of 10 runs).
 3. Builds UniDepthV2 ViT-L/14 from configs/config_v2_vitl14.json with
    random weights (``init_params(seed=0)``), runs ``infer()`` on 8 seeded
    518x518 images in bf16, checks shapes, finiteness and depth > 0, checks
    that the forward launched K1 (flash_attention_qkv) 24 times, K2
-   (ln_dense) 24 times and K3 (flash_attention) 4 times, and holds depth
-   against the same model run on the plain path in fp32 on the card
-   (median relative error <= 1e-2). Then times depth-only ``infer()`` in
-   three rounds and prints each.
+   (ln_dense) 24 times, K3 (flash_attention) 4 times and K4 never, and
+   holds depth against the same model run on the plain path in fp32 on the
+   card (median relative error <= 1e-2). Then times depth-only ``infer()``
+   in three rounds and prints each.
+4. The int8 serving path on the same model: ``set_serving_precision('int8')``
+   quantizes the encoder from the fp32 masters that ``init_params`` kept,
+   then ``infer()`` on the same images: shapes, finiteness and depth > 0;
+   launches K4 (flash_attention_packed) 24, K1 0, K2 0, K3 4; depth against
+   the fp32 plain path at the JAX package's int8 bounds (mean relative
+   error < 0.05, 99th percentile < 0.15, intrinsics relative error < 0.1,
+   tests/test_quant.py). Then one forward under the stage mask (True, False,
+   True, False): launches K4 12, K1 12, K2 12, K3 4. Then times int8
+   depth-only ``infer()`` in three rounds.
 
-The last two lines are the kernels' JSON record and
+Each path's launch counts are set to 0 just before it runs and read just
+after. The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. Any failing phase raises.
 """
 
@@ -48,24 +59,28 @@ CONFIG = ROOT / "configs" / "config_v2_vitl14.json"
 BATCH, SIDE, SEED = 8, 518, 0
 TOL_BF16 = dict(rtol=1.6e-2, atol=1e-2)
 REL_RMS_BF16 = 5e-3
+STAGE_MASK = (True, False, True, False)
 
 
 def log(*args):
     print(*args, flush=True)
 
 
-def time_ms(fn, iters=20, warmup=3):
-    """Median milliseconds of ``fn()`` over ``iters`` runs, by CUDA events."""
+def time_ms(fn, iters=10, reps=10, warmup=3):
+    """Median milliseconds per call of ``fn()``: CUDA events around ``reps``
+    back-to-back calls (so the wrapper's host time overlaps the kernel
+    before it), the median of ``iters`` such runs."""
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(iters):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(reps):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
 
 
@@ -93,6 +108,54 @@ def kernel_phase(name, kernel, plain, make_inputs, fp32_tol):
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
 
 
+def run_path(name, kernels, call):
+    """Set every kernel's count to 0, run ``call()`` and return its output
+    with the counts it left."""
+    for _, fn, *_rest in kernels:
+        fn.launches = 0
+    out = call()
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn, *_rest in kernels}
+    log(f"launches in one {name}: {launches}")
+    return out, launches
+
+
+def check_launches(name, launches, expected):
+    if launches != expected:
+        raise RuntimeError(f"{name}: kernel launches {launches} != expected {expected}")
+
+
+def check_outputs(name, out):
+    shapes = {"depth": 1, "points": 3, "rays": 3, "confidence": 1, "radius": 1}
+    for key, ch in shapes.items():
+        if tuple(out[key].shape) != (BATCH, SIDE, SIDE, ch):
+            raise RuntimeError(f"{name}: {key} has shape {tuple(out[key].shape)}")
+        if not torch.isfinite(out[key]).all():
+            raise RuntimeError(f"{name}: {key} is not finite")
+    if tuple(out["intrinsics"].shape) != (BATCH, 3, 3) or not torch.isfinite(out["intrinsics"]).all():
+        raise RuntimeError(f"{name}: intrinsics malformed")
+    if not (out["depth"] > 0).all():
+        raise RuntimeError(f"{name}: depth is not positive everywhere")
+
+
+def images_per_s(name, model, rgb, smi, iters=5):
+    """Depth-only ``infer()`` in three timed rounds; returns the median rate."""
+    rounds = []
+    for _ in range(2):
+        model.infer(rgb, outputs=("depth",))
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            model.infer(rgb, outputs=("depth",))
+        torch.cuda.synchronize()
+        rounds.append(BATCH * iters / (time.perf_counter() - t0))
+    rate = statistics.median(rounds)
+    log(f"infer depth-only B={BATCH} {SIDE}x{SIDE} {name}: {BATCH / rate * 1e3:.2f} ms/batch, "
+        f"{rate:.2f} images/s, median of rounds {', '.join(f'{r:.2f}' for r in rounds)} ({smi})")
+    return rate
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this test has no CPU path")
@@ -103,6 +166,8 @@ def main():
     from unidepth_tpu_torch.ops import _cuda
     from unidepth_tpu_torch.ops.flash_attention import (
         flash_attention,
+        flash_attention_packed,
+        flash_attention_packed_plain,
         flash_attention_plain,
         flash_attention_qkv,
         flash_attention_qkv_plain,
@@ -151,6 +216,12 @@ def main():
         gen.manual_seed(3)
         return tuple(randn(BATCH * 8, 1369, 64, dtype=dtype) for _ in range(3)) + (64**-0.5,)
 
+    def k4_inputs(dtype):
+        # the int8 block's call: the three channel slices of its qkv output,
+        # read in place (row stride 3C, batch stride N * 3C)
+        gen.manual_seed(4)
+        return (*randn(BATCH, 1370, 3 * 1024, dtype=dtype).split(1024, dim=-1), 16, 64**-0.5)
+
     kernels = [
         ("flash_attention_qkv", flash_attention_qkv, "unidepth_tpu_torch/csrc/attention.cu",
          "unidepth_tpu/ops/flash_attention.py:471",
@@ -161,8 +232,11 @@ def main():
         ("flash_attention", flash_attention, "unidepth_tpu_torch/csrc/attention.cu",
          "unidepth_tpu/ops/flash_attention.py:159",
          kernel_phase("K3 flash_attention", flash_attention, flash_attention_plain, k3_inputs, 1e-4)),
+        ("flash_attention_packed", flash_attention_packed, "unidepth_tpu_torch/csrc/attention.cu",
+         "unidepth_tpu/ops/flash_attention.py:347",
+         kernel_phase("K4 flash_attention_packed", flash_attention_packed, flash_attention_packed_plain,
+                      k4_inputs, 1e-4)),
     ]
-    expected = {"flash_attention_qkv": 24, "ln_dense": 24, "flash_attention": 4}
 
     # --- the main path: ViT-L/14 infer() at B=8, 518x518 ----------------------
     warnings.simplefilter("ignore")  # resolution_level unset: default budget
@@ -173,55 +247,58 @@ def main():
         f"{next(model.parameters()).dtype}, built in {time.perf_counter() - t0:.1f} s")
     rgb = np.random.default_rng(SEED).integers(0, 256, (BATCH, SIDE, SIDE, 3), dtype=np.uint8)
 
-    for _, fn, *_rest in kernels:
-        fn.launches = 0
-    out = model.infer(rgb)
-    torch.cuda.synchronize()
-    launches = {name: fn.launches for name, fn, *_rest in kernels}
-    log(f"launches in one infer(): {launches}")
-    if launches != expected:
-        raise RuntimeError(f"kernel launches {launches} != expected {expected}")
-
-    shapes = {"depth": 1, "points": 3, "rays": 3, "confidence": 1, "radius": 1}
-    for key, ch in shapes.items():
-        if tuple(out[key].shape) != (BATCH, SIDE, SIDE, ch):
-            raise RuntimeError(f"{key} has shape {tuple(out[key].shape)}")
-        if not torch.isfinite(out[key]).all():
-            raise RuntimeError(f"{key} is not finite")
-    if tuple(out["intrinsics"].shape) != (BATCH, 3, 3) or not torch.isfinite(out["intrinsics"]).all():
-        raise RuntimeError("intrinsics malformed")
-    if not (out["depth"] > 0).all():
-        raise RuntimeError("depth is not positive everywhere")
+    out, launches = run_path("bf16 infer()", kernels, lambda: model.infer(rgb))
+    check_launches("bf16 infer()", launches,
+                   {"flash_attention_qkv": 24, "ln_dense": 24, "flash_attention": 4, "flash_attention_packed": 0})
+    check_outputs("bf16 infer()", out)
 
     ref_model = UniDepthV2.from_config(config, device=dev, dtype=torch.float32).init_params(seed=SEED)
     ref_model.set_kernels(False).eval()
-    ref = ref_model.infer(rgb, outputs=("depth",))
-    torch.cuda.synchronize()
-    if {name: fn.launches for name, fn, *_rest in kernels} != launches:
+    ref, ref_launches = run_path("fp32 plain infer()", kernels, lambda: ref_model.infer(rgb, outputs=("depth", "intrinsics")))
+    if any(ref_launches.values()):
         raise RuntimeError("the plain reference run launched a kernel")
+    del ref_model
     rel = ((out["depth"] - ref["depth"]).abs() / ref["depth"].abs()).flatten()
     med, mx = rel.median().item(), rel.max().item()
     log(f"depth vs fp32 plain path: median rel err {med:.3e}, max rel err {mx:.3e}")
     if not med <= 1e-2:
         raise RuntimeError(f"depth median relative error {med} > 1e-2")
-    del ref_model, ref
+    del out
+    images_per_s("bf16", model, rgb, smi)
 
-    iters, rounds = 5, []
-    for _ in range(2):
-        model.infer(rgb, outputs=("depth",))
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            model.infer(rgb, outputs=("depth",))
-        torch.cuda.synchronize()
-        rounds.append(BATCH * iters / (time.perf_counter() - t0))
-    rate = statistics.median(rounds)
-    log(f"infer depth-only B={BATCH} {SIDE}x{SIDE} bf16: {BATCH / rate * 1e3:.2f} ms/batch, "
-        f"{rate:.2f} images/s, median of rounds {', '.join(f'{r:.2f}' for r in rounds)} ({smi})")
+    # --- the int8 serving path: same weights, encoder GEMMs in int8 -----------
+    model.set_serving_precision("int8")
+    t0 = time.perf_counter()
+    model._serving_encoder()
+    torch.cuda.synchronize()
+    log(f"int8 encoder quantized from the fp32 masters in {time.perf_counter() - t0:.2f} s")
+    out_q, launches_q = run_path("int8 infer()", kernels, lambda: model.infer(rgb))
+    check_launches("int8 infer()", launches_q,
+                   {"flash_attention_qkv": 0, "ln_dense": 0, "flash_attention": 4, "flash_attention_packed": 24})
+    check_outputs("int8 infer()", out_q)
+    # the JAX package's int8 bounds against full precision (tests/test_quant.py)
+    rel = ((out_q["depth"] - ref["depth"]).abs() / (ref["depth"].abs() + 1e-6)).flatten()
+    mean, p99 = rel.mean().item(), torch.quantile(rel, 0.99).item()
+    k_rel = ((out_q["intrinsics"] - ref["intrinsics"]).abs() / (ref["intrinsics"].abs() + 1e-6)).max().item()
+    log(f"int8 depth vs fp32 plain path: mean rel err {mean:.3e}, p99 {p99:.3e}, max {rel.max().item():.3e}; "
+        f"intrinsics max rel err {k_rel:.3e}")
+    if not (mean < 0.05 and p99 < 0.15 and k_rel < 0.1):
+        raise RuntimeError(f"int8 drift out of bounds: mean {mean}, p99 {p99}, intrinsics {k_rel}")
+    del out_q
 
+    model._int8_stages = STAGE_MASK
+    out_m, launches_m = run_path(f"int8 infer() under stage mask {STAGE_MASK}", kernels, lambda: model.infer(rgb))
+    check_launches("masked int8 infer()", launches_m,
+                   {"flash_attention_qkv": 12, "ln_dense": 12, "flash_attention": 4, "flash_attention_packed": 12})
+    check_outputs("masked int8 infer()", out_m)
+    del out_m
+    model._int8_stages = None
+    images_per_s("int8", model, rgb, smi)
+
+    # each kernel's count from the path it serves: K1-K3 the bf16 path, K4 the int8 one
+    path_launches = {**launches, "flash_attention_packed": launches_q["flash_attention_packed"]}
     record = [
-        {"name": name, "route": "cuda", "source": src, "replaces": rep, "launches": launches[name], **m}
+        {"name": name, "route": "cuda", "source": src, "replaces": rep, "launches": path_launches[name], **m}
         for name, _fn, src, rep, m in kernels
     ]
     log(json.dumps({"kernels": record}))

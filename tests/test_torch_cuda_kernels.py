@@ -7,15 +7,17 @@ need not have):
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py -q
 
 bf16 I/O runs the tensor-core kernels the model launches (attn_fwd_bf16,
-ln_dense_bf16). Each is held against its plain version computed in fp32
-from the same bf16 inputs, elementwise at rtol 1.6e-2, atol 1e-2 (bf16
-output rounding) and, tighter, at a relative RMS error
+which K1, K3 and K4 share, and ln_dense_bf16). Each is held against its
+plain version computed in fp32 from the same bf16 inputs, elementwise at
+rtol 1.6e-2, atol 1e-2 (bf16 output rounding) and, tighter, at a relative RMS error
 ||out - ref|| / ||ref|| <= 5e-3. The attention outputs here are ~0.05 in
 size, so the elementwise bound alone would pass a kernel whose softmax
 denominator is off by 2%; the RMS bound would not (rounding alone gives
 ~2e-3). fp32 I/O runs the CUDA-core kernels (attn_fwd_simt,
 ln_dense_simt), held at 1e-4 (attention) and 2e-4 (ln_dense, a 1024-long
-fp32 dot product per output).
+fp32 dot product per output). The int8 GEMM of the int8 serving path
+(``torch._int_mm``, padded for M <= 16) is held exactly against an integer
+product and its dequant against float64.
 """
 
 import numpy as np
@@ -24,12 +26,15 @@ import torch
 
 from unidepth_tpu_torch.ops.flash_attention import (
     flash_attention,
+    flash_attention_packed,
+    flash_attention_packed_plain,
     flash_attention_plain,
     flash_attention_qkv,
     flash_attention_qkv_plain,
 )
 from unidepth_tpu_torch.ops.attention import attention
 from unidepth_tpu_torch.ops.fused_block import ln_dense, ln_dense_plain
+from unidepth_tpu_torch.ops.quant import QuantLinear, dynamic_quant, int8_matmul
 
 pytestmark = pytest.mark.cuda
 
@@ -111,7 +116,7 @@ def test_ln_dense_matches_plain(dev, dtype, m, c, f, eps, act):
     _close(out, ref, dtype, 2e-4)
 
 
-@pytest.mark.parametrize("d", [16, 96])
+@pytest.mark.parametrize("d", [48, 96])
 def test_attention_head_dim_without_kernel_raises(dev, d):
     """The dispatch sends d <= 128 to the kernel, as JAX does; a head dim the
     kernel lacks raises on the card instead of running plain."""
@@ -120,3 +125,91 @@ def test_attention_head_dim_without_kernel_raises(dev, d):
     with pytest.raises(ValueError, match="head dim"):
         attention(q, k, v)
     assert flash_attention.launches == before
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize(
+    "b,nq,nk,c,h,views",
+    [
+        (8, 1370, 1370, 1024, 16, True),  # the int8 path: views of one (8, 1370, 3072) projection
+        (2, 140, 140, 128, 2, True),
+        (2, 70, 300, 256, 4, False),  # Nq != Nk
+        (1, 130, 130, 128, 8, True),  # ragged tail, d=16
+    ],
+    ids=["path", "views", "nq-ne-nk", "ragged-d16"],
+)
+def test_flash_attention_packed_matches_plain(dev, dtype, b, nq, nk, c, h, views):
+    rng = np.random.default_rng(3)
+    if views:
+        q, k, v = _t(rng.standard_normal((b, nq, 3 * c)), dev, dtype).split(c, dim=-1)
+    else:
+        q = _t(rng.standard_normal((b, nq, c)), dev, dtype)
+        k, v = (_t(rng.standard_normal((b, nk, c)), dev, dtype) for _ in range(2))
+    before = flash_attention_packed.launches, flash_attention.launches
+    out = flash_attention_packed(q, k, v, h)
+    torch.cuda.synchronize()
+    assert (flash_attention_packed.launches, flash_attention.launches) == (before[0] + 1, before[1])
+    ref = flash_attention_packed_plain(q.float(), k.float(), v.float(), h, (c // h) ** -0.5)
+    _close(out, ref, dtype, 1e-4)
+
+
+def test_flash_attention_packed_routes_long_keys_to_k3(dev):
+    """Past 4096 keys the packed regime ends; the call goes to K3 (head split)."""
+    rng = np.random.default_rng(4)
+    q = _t(rng.standard_normal((1, 64, 128)), dev, torch.bfloat16)
+    k, v = (_t(rng.standard_normal((1, 4200, 128)), dev, torch.bfloat16) for _ in range(2))
+    before = flash_attention_packed.launches, flash_attention.launches
+    out = flash_attention_packed(q, k, v, 2)
+    torch.cuda.synchronize()
+    assert (flash_attention_packed.launches, flash_attention.launches) == (before[0], before[1] + 1)
+    _close(out, flash_attention_packed_plain(q.float(), k.float(), v.float(), 2, 64**-0.5), torch.bfloat16, 0)
+
+
+def test_flash_attention_packed_rejects_unaligned_rows(dev):
+    x = torch.randn(2, 140, 3 * 128 + 4, device=dev, dtype=torch.bfloat16)
+    before = flash_attention_packed.launches
+    with pytest.raises(ValueError, match="row strides"):
+        flash_attention_packed(x[..., :128], x[..., 128:256], x[..., 256:384], 2)
+    assert flash_attention_packed.launches == before
+
+
+def test_flash_attention_packed_rejects_unaligned_views(dev):
+    """Strides that are multiples of 8 but views that start 8 bytes into a
+    row: the 16-byte loads would fault, so the wrapper raises first."""
+    x = torch.randn(2, 140, 3 * 128 + 8, device=dev, dtype=torch.bfloat16)
+    before = flash_attention_packed.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention_packed(x[..., 4:132], x[..., 132:260], x[..., 260:388], 2)
+    torch.cuda.synchronize()  # the context is still healthy
+    assert flash_attention_packed.launches == before
+
+
+@pytest.mark.parametrize("m", [5, 16, 17, 10960])
+def test_int8_matmul_is_exact(dev, m):
+    """torch._int_mm on the card: row-major int8 activations, the weight's
+    (N, K) storage read as the column-major operand, M <= 16 padded."""
+    rng = np.random.default_rng(5)
+    k, n = 1024, 3072
+    xq = torch.from_numpy(rng.integers(-127, 128, (m, k), dtype=np.int8))
+    wq = torch.from_numpy(rng.integers(-127, 128, (n, k), dtype=np.int8))
+    out = int8_matmul(xq.to(dev), wq.to(dev))
+    assert out.dtype == torch.int32 and out.shape == (m, n)
+    torch.testing.assert_close(out.cpu().long(), xq.long() @ wq.long().T, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("m", [5, 10960])
+def test_quant_linear_matches_float64(dev, m):
+    rng = np.random.default_rng(6)
+    k, n = 1024, 4096
+    w = torch.from_numpy((rng.standard_normal((n, k)) * k**-0.5).astype(np.float32))
+    b = torch.from_numpy((rng.standard_normal(n) * 0.1).astype(np.float32))
+    layer = QuantLinear.from_float(w, b, device=dev)
+    assert layer.weight.is_contiguous() and layer.weight.t().stride() == (1, k)
+    x = _t(rng.standard_normal((m, k)), dev, torch.float32)
+    out = layer(x)
+    q, s = dynamic_quant(x)
+    ref = (q.double() @ layer.weight.double().T) * (s.double() * layer.scale.double()) + layer.bias.double()
+    torch.testing.assert_close(out.double(), ref, rtol=1e-5, atol=1e-5)
+    assert layer(x.to(torch.bfloat16)).dtype == torch.bfloat16
+    with pytest.raises(ValueError, match="multiples of 8"):
+        QuantLinear.from_float(w[:, :1020], device=dev)(x[:, :1020])

@@ -4,9 +4,12 @@
 //   * _flash_fwd_qkv / _packed_kernel (flash_attention_qkv): q, k, v are the
 //     channel slices [0,C), [C,2C), [2C,3C) of the fused (B, N, 3C) QKV
 //     projection, heads channel-major (H, D); output (B, N, C);
-//   * _flash_fwd / _flash_kernel (flash_attention): flat (BH, N, D) tensors.
-// One kernel serves both: it takes a base pointer, a batch stride and a row
-// stride per tensor, and head h starts at column h * D of each row.
+//   * _flash_fwd / _flash_kernel (flash_attention): flat (BH, N, D) tensors;
+//   * _flash_fwd_packed / _packed_kernel (flash_attention_packed): three
+//     (B, N, H*D) tensors, on the int8 serving path the strided channel
+//     views of one fused projection (row stride 3C, batch stride N * 3C).
+// One kernel serves all three: it takes a base pointer, a batch stride and a
+// row stride per tensor, and head h starts at column h * D of each row.
 //
 // What bounds it on the H100: compute. At the ViT-L serving shape (B=8,
 // N=1370, H=16, D=64) a call is ~61.5 GFLOP against < 0.1 GB of q/k/v/o, so
@@ -324,11 +327,29 @@ extern "C" int ud_attention_fwd(const void* q, const void* k, const void* v, voi
   AttnArgs a{q, k, v, o, heads, nq, nk, q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, o_bs, o_rs, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (head_dim) {
+    case 16: return launch<16>(a, batch, dtype, s);
     case 32: return launch<32>(a, batch, dtype, s);
     case 64: return launch<64>(a, batch, dtype, s);
     case 128: return launch<128>(a, batch, dtype, s);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// K4's entry: the packed regime of _packed_supported (whole-K, at most 4096
+// keys; the wrapper routes longer key sets to K3), every row holding all
+// heads, and 16-byte aligned rows and batches for cp.async. q arrives
+// unscaled; `scale` is applied to the fp32 scores as for K1 and K3.
+extern "C" int ud_attention_packed_fwd(const void* q, const void* k, const void* v, void* o,
+                                       int batch, int heads, int nq, int nk, int head_dim,
+                                       long long q_bs, long long q_rs, long long k_bs,
+                                       long long k_rs, long long v_bs, long long v_rs,
+                                       long long o_bs, long long o_rs, float scale, int dtype,
+                                       void* stream) {
+  const long long c = static_cast<long long>(heads) * head_dim;
+  if (nk > 4096 || q_rs < c || k_rs < c || v_rs < c || o_rs < c) return cudaErrorInvalidValue;
+  if ((q_bs | q_rs | k_bs | k_rs | v_bs | v_rs | o_bs | o_rs) % 8) return cudaErrorInvalidValue;
+  return ud_attention_fwd(q, k, v, o, batch, heads, nq, nk, head_dim, q_bs, q_rs, k_bs, k_rs,
+                          v_bs, v_rs, o_bs, o_rs, scale, dtype, stream);
 }
 
 extern "C" const char* ud_error_string(int err) {

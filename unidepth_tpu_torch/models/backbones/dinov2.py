@@ -5,12 +5,20 @@
 ``stacking='last'`` (the features of each stage's last block). Register
 tokens, SwiGLU and the other stacking modes are not ported yet.
 
-``ViTBlock`` follows the JAX fused serving block: LN1 -> qkv stays plain
-(``F.layer_norm`` + a GEMM); attention is kernel K1 reading the raw
-(B, N, 3C) projection with the softmax scale applied inside the kernel;
-LN2 -> fc1 -> GELU is kernel K2; fc2, LayerScale and the residuals stay
-plain. On CPU tensors the kernels' plain versions run; ``use_kernels=False``
-pins the plain versions on any device. Every LayerNorm here uses eps 1e-6
+``ViTBlock`` has the JAX block's two branches, chosen by the JAX rule
+``_use_fused``: int8 GEMMs turn fusion off.
+
+* fused (bf16 serving): LN1 -> qkv stays plain (``F.layer_norm`` + a GEMM);
+  attention is kernel K1 reading the raw (B, N, 3C) projection with the
+  softmax scale applied inside the kernel; LN2 -> fc1 -> GELU is kernel K2;
+  fc2, LayerScale and the residuals stay plain.
+* unfused (int8 serving, ``DinoViT.quantize``): fp32 LN1 cast to the compute
+  dtype -> int8 qkv -> kernel K4 on the three channel slices of the
+  projection, read in place -> int8 proj; fp32 LN2 cast -> int8 fc1 ->
+  exact GELU -> int8 fc2.
+
+On CPU tensors the kernels' plain versions run; ``use_kernels=False`` pins
+the plain versions on any device. Every LayerNorm here uses eps 1e-6
 (DINOv2 builds all its norms so).
 """
 
@@ -20,10 +28,17 @@ import dataclasses
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from unidepth_tpu_torch.nn.layers import LayerScale, layer_norm
-from unidepth_tpu_torch.ops.flash_attention import flash_attention_qkv, flash_attention_qkv_plain
+from unidepth_tpu_torch.ops.flash_attention import (
+    flash_attention_packed,
+    flash_attention_packed_plain,
+    flash_attention_qkv,
+    flash_attention_qkv_plain,
+)
 from unidepth_tpu_torch.ops.fused_block import ln_dense, ln_dense_plain
+from unidepth_tpu_torch.ops.quant import QuantLinear, quantize_linear_tree
 from unidepth_tpu_torch.ops.resize import resize
 
 
@@ -80,17 +95,35 @@ class ViTBlock(nn.Module):
         self.mlp = _Mlp(dim, int(dim * mlp_ratio))
         self.ls2 = LayerScale(dim, init_values) if init_values else None
 
+    @property
+    def quant(self) -> bool:
+        """int8 GEMMs: the block's linears are QuantLinears (``DinoViT.quantize``)."""
+        return isinstance(self.attn.qkv, QuantLinear)
+
     def forward(self, x):
         c = x.shape[-1]
-        attn_fn = flash_attention_qkv if self.use_kernels else flash_attention_qkv_plain
-        ln_dense_fn = ln_dense if self.use_kernels else ln_dense_plain
+        scale = (c // self.num_heads) ** -0.5
+        # the JAX rule _use_fused (dinov2.py:113-135): int8 GEMMs turn the
+        # fused LN -> GEMM and QKV-direct attention kernels off
+        fused = not self.quant
         qkv = self.attn.qkv(layer_norm(self.norm1, x))
-        attn = self.attn.proj(attn_fn(qkv, self.num_heads, (c // self.num_heads) ** -0.5))
+        if fused:
+            attn_fn = flash_attention_qkv if self.use_kernels else flash_attention_qkv_plain
+            attn = attn_fn(qkv, self.num_heads, scale)
+        else:
+            attn_fn = flash_attention_packed if self.use_kernels else flash_attention_packed_plain
+            attn = attn_fn(qkv[..., :c], qkv[..., c : 2 * c], qkv[..., 2 * c :], self.num_heads, scale)
+        attn = self.attn.proj(attn)
         if self.ls1 is not None:
             attn = self.ls1(attn)
         x = x + attn
         n2, fc1 = self.norm2, self.mlp.fc1
-        y = self.mlp.fc2(ln_dense_fn(x, fc1.weight, fc1.bias, n2.weight, n2.bias, n2.eps, "gelu"))
+        if fused:
+            ln_dense_fn = ln_dense if self.use_kernels else ln_dense_plain
+            y = ln_dense_fn(x, fc1.weight, fc1.bias, n2.weight, n2.bias, n2.eps, "gelu")
+        else:
+            y = F.gelu(fc1(layer_norm(n2, x)))
+        y = self.mlp.fc2(y)
         if self.ls2 is not None:
             y = self.ls2(y)
         return x + y
@@ -120,6 +153,23 @@ class DinoViT(nn.Module):
             [ViTBlock(c, cfg.num_heads, cfg.mlp_ratio, cfg.init_values) for _ in range(cfg.depth)]
         )
         self.norm = nn.LayerNorm(c, eps=1e-6) if cfg.use_norm else None
+
+    def quantize(self, quant: bool | tuple = True, weights: dict | None = None) -> "DinoViT":
+        """An int8 copy of this encoder, the JAX ``DinoViT(quant=...)``:
+        ``quant`` is one bool for every block or a per-stage tuple over
+        ``output_idx``. The qkv/proj/fc1/fc2 linears of the selected stages
+        become QuantLinears quantized from ``weights`` (qualified name ->
+        fp32 (weight, bias), the masters) and their blocks run unfused; every
+        other module and parameter is shared with this encoder."""
+        n = len(self.cfg.output_idx)
+        mask = (quant,) * n if isinstance(quant, bool) else tuple(bool(q) for q in quant)
+        if len(mask) != n:
+            raise ValueError(f"quant mask {quant!r} has {len(mask)} entries, the encoder {n} stages")
+        bounds = [0, *self.cfg.output_idx]
+        prefixes = tuple(
+            f"blocks.{i}." for si, on in enumerate(mask) if on for i in range(bounds[si], bounds[si + 1])
+        )
+        return quantize_linear_tree(self, prefixes=prefixes, weights=weights) if prefixes else self
 
     def forward(self, image: torch.Tensor):
         """image: (B, H, W, 3), H and W multiples of the patch size."""

@@ -8,7 +8,9 @@ package.
 
 Compute dtype is the parameters' dtype: ``from_config`` puts the model in
 bf16 on CUDA and float32 on the CPU (the JAX package's rule), and the JAX
-serving pre-cast of the parameters is ``module.to(dtype)`` here. The
+serving pre-cast of the parameters is ``module.to(dtype)`` here.
+``set_serving_precision('int8')`` (``models/serving.py``) makes ``infer()``
+run the encoder with int8 GEMMs, quantized from fp32 weights. The
 ``attention_logit_bound`` config key is read and kept; it selects nothing,
 because the port's attention kernels keep the row max.
 """
@@ -25,9 +27,11 @@ import torch.nn.functional as F
 
 from unidepth_tpu_torch.geometry.cameras import Pinhole
 from unidepth_tpu_torch.models.backbones.dinov2 import VIT_PRESETS, DinoViT, ViTConfig
+from unidepth_tpu_torch.models.serving import ServingPrecisionMixin
 from unidepth_tpu_torch.models.unidepthv2.decoder import Decoder
 from unidepth_tpu_torch.nn.layers import LayerScale
 from unidepth_tpu_torch.nn.upsample import ResidualConvUnit
+from unidepth_tpu_torch.ops.quant import quantizable_linears
 from unidepth_tpu_torch.ops.resize import resize
 from unidepth_tpu_torch.utils.constants import IMAGENET_DATASET_MEAN, IMAGENET_DATASET_STD
 
@@ -72,7 +76,7 @@ def compute_dtype(device) -> torch.dtype:
     return torch.bfloat16 if torch.device(device).type == "cuda" else torch.float32
 
 
-class UniDepthV2(nn.Module):
+class UniDepthV2(ServingPrecisionMixin, nn.Module):
     """Encoder + decoder with the reference checkpoint's state_dict keys
     (``pixel_encoder.*``, ``pixel_decoder.*``)."""
 
@@ -106,6 +110,7 @@ class UniDepthV2(nn.Module):
         self.resolution_level: int | None = None
         self.interpolation_mode = "bilinear"
         self.attention_logit_bound = None
+        self._init_serving()
 
     # ------------------------------------------------------------------
     # construction
@@ -178,8 +183,11 @@ class UniDepthV2(nn.Module):
         and conv kernels, truncated normal 0.02 for the patch embedding,
         position embedding and ConvTranspose kernels, normal 1.0 for the
         camera latents, orthogonal level embeddings, LayerScale at its init
-        value, zero biases and cls token, unit LayerNorm scales."""
+        value, zero biases and cls token, unit LayerNorm scales. Where the
+        model holds the encoder linears below fp32, their fp32 draws are kept
+        as the int8 path's masters."""
         g = torch.Generator().manual_seed(seed)
+        drawn = {}
 
         def trunc(shape, std):
             t = torch.empty(shape)
@@ -192,6 +200,7 @@ class UniDepthV2(nn.Module):
 
         def put(p, value):
             p.copy_(value)
+            drawn[id(p)] = value
 
         enc = self.pixel_encoder
         for m in self.modules():
@@ -215,6 +224,9 @@ class UniDepthV2(nn.Module):
         put(cam.latents_pos, torch.randn(cam.latents_pos.shape, generator=g))
         le = self.pixel_decoder.level_embeds
         put(le, nn.init.orthogonal_(torch.empty(le.shape[-2:]), generator=g).reshape(le.shape))
+        self._set_fp32_masters(
+            {name: (drawn[id(m.weight)], drawn[id(m.bias)]) for name, m in quantizable_linears(enc).items()}
+        )
         return self
 
     def set_kernels(self, enabled: bool) -> "UniDepthV2":
@@ -224,6 +236,7 @@ class UniDepthV2(nn.Module):
         for m in self.modules():
             if hasattr(m, "use_kernels"):
                 m.use_kernels = enabled
+        self._reset_serving_caches()  # the int8 encoder copies its blocks' flag
         return self
 
     # ------------------------------------------------------------------
@@ -292,7 +305,7 @@ class UniDepthV2(nn.Module):
             cam = camera.crop(-pl, -pt).resize(factor)
             rays_gt = cam.get_rays(new_h, new_w, eps=1e-4).reshape(B, new_h * new_w, 3)
 
-        feats, cls_tokens = self.pixel_encoder(x.to(dtype))
+        feats, cls_tokens = self._serving_encoder()(x.to(dtype))
         want_conf = out_key is None or "confidence" in out_key
         out = self.pixel_decoder(feats, cls_tokens, (new_h, new_w), rays_gt=rays_gt, confidence=want_conf)
         rays = out["rays"].reshape(-1, new_h, new_w, 3).float()

@@ -95,6 +95,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
     lib.ud_attention_fwd.argtypes = [p, p, p, p, i, i, i, i, i] + [ll] * 8 + [f, i, p]
     lib.ud_attention_fwd.restype = i
+    lib.ud_attention_packed_fwd.argtypes = lib.ud_attention_fwd.argtypes
+    lib.ud_attention_packed_fwd.restype = i
     lib.ud_ln_dense_fwd.argtypes = [p, p, p, p, p, p, i, i, i, f, i, i, p]
     lib.ud_ln_dense_fwd.restype = i
     lib.ud_error_string.argtypes = [i]

@@ -6,7 +6,7 @@
   no bias, both sequences hold at least 1024 tokens, ``d <= 128`` and the
   tensors are off the CPU; otherwise plain ``sdpa``, as the JAX package
   uses XLA there (the camera head's 4-token attention, for one). A head dim
-  the kernel does not take (it takes 32, 64 and 128) raises there rather
+  the kernel does not take (it takes 16, 32, 64 and 128) raises there rather
   than running plain.
 """
 
