@@ -17,7 +17,12 @@ denominator is off by 2%; the RMS bound would not (rounding alone gives
 ln_dense_simt), held at 1e-4 (attention) and 2e-4 (ln_dense, a 1024-long
 fp32 dot product per output). The int8 GEMM of the int8 serving path
 (``torch._int_mm``, padded for M <= 16) is held exactly against an integer
-product and its dequant against float64.
+product and its dequant against float64. K5 (conv3x3_lowchannel) is held
+like the others, in bf16 and fp32, at the V2 heads' hr conv shape and the
+JAX test's shapes in all three padding modes. K6 and K7 (the A/B attention
+variants, bf16 only on the card) are held against their plain versions at
+the bf16 gates with the elementwise atol scaled by the output's size,
+``noexp`` (outputs ~1e31) by relative RMS alone.
 """
 
 import numpy as np
@@ -33,6 +38,8 @@ from unidepth_tpu_torch.ops.flash_attention import (
     flash_attention_qkv_plain,
 )
 from unidepth_tpu_torch.ops.attention import attention
+from unidepth_tpu_torch.ops.conv_kernels import conv3x3_lowchannel, conv3x3_lowchannel_plain
+from unidepth_tpu_torch.ops.kernel_ab import run_bd, run_variant, run_variant_plain
 from unidepth_tpu_torch.ops.fused_block import ln_dense, ln_dense_plain
 from unidepth_tpu_torch.ops.quant import QuantLinear, dynamic_quant, int8_matmul
 
@@ -81,7 +88,8 @@ def test_flash_attention_qkv_matches_plain(dev, dtype, b, n, c, h):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize(
-    "bh,nq,nk,d", [(3, 200, 200, 64), (4, 70, 300, 32), (2, 1369, 1369, 128), (64, 1369, 1369, 64)]
+    "bh,nq,nk,d",
+    [(3, 200, 200, 64), (4, 70, 300, 32), (2, 1369, 1369, 128), (64, 1369, 1369, 64), (4, 150, 300, 8)],
 )
 def test_flash_attention_matches_plain(dev, dtype, bh, nq, nk, d):
     rng = np.random.default_rng(1)
@@ -135,8 +143,9 @@ def test_attention_head_dim_without_kernel_raises(dev, d):
         (2, 140, 140, 128, 2, True),
         (2, 70, 300, 256, 4, False),  # Nq != Nk
         (1, 130, 130, 128, 8, True),  # ragged tail, d=16
+        (2, 150, 150, 128, 16, True),  # d=8: the zero-filled 16-deep mma step
     ],
-    ids=["path", "views", "nq-ne-nk", "ragged-d16"],
+    ids=["path", "views", "nq-ne-nk", "ragged-d16", "ragged-d8"],
 )
 def test_flash_attention_packed_matches_plain(dev, dtype, b, nq, nk, c, h, views):
     rng = np.random.default_rng(3)
@@ -213,3 +222,112 @@ def test_quant_linear_matches_float64(dev, m):
     assert layer(x.to(torch.bfloat16)).dtype == torch.bfloat16
     with pytest.raises(ValueError, match="multiples of 8"):
         QuantLinear.from_float(w[:, :1020], device=dev)(x[:, :1020])
+
+
+def _rel_rms(out, ref):
+    top = ref.abs().max()
+    return ((out.float() - ref) / top).norm().item() / (ref / top).norm().item()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize(
+    "shape,mode",
+    [
+        ((8, 518, 518, 64, 32), "reflect"),  # the V2 heads' hr conv
+        ((2, 37, 45, 64, 32), "zeros"),
+        ((2, 37, 45, 64, 32), "replicate"),
+        ((2, 21, 37, 16, 8), "reflect"),
+        ((1, 10, 40, 32, 16), "zeros"),
+        ((1, 9, 13, 8, 4), "replicate"),
+        ((1, 5, 70, 24, 3), "reflect"),  # Cin and Cout off the mma granule, odd Cout
+    ],
+)
+def test_conv3x3_lowchannel_matches_plain(dev, dtype, shape, mode):
+    b, h, w, cin, cout = shape
+    rng = np.random.default_rng(7)
+    x = _t(rng.standard_normal((b, h, w, cin)), dev, dtype)
+    wk = _t(rng.standard_normal((3, 3, cin, cout)) / np.sqrt(9 * cin), dev, dtype)
+    bias = _t(rng.standard_normal(cout) * 0.1, dev, dtype)
+    before = conv3x3_lowchannel.launches
+    out = conv3x3_lowchannel(x, wk, bias, mode)
+    torch.cuda.synchronize()
+    assert conv3x3_lowchannel.launches == before + 1
+    ref = conv3x3_lowchannel_plain(x.float(), wk.float(), bias.float(), mode)
+    _close(out, ref, dtype, 1e-4)
+
+
+def test_conv3x3_lowchannel_grad_on_the_card(dev):
+    """The forward launches the kernel; the backward recomputes the plain
+    version, so the gradients are the plain version's."""
+    rng = np.random.default_rng(8)
+    x = _t(rng.standard_normal((2, 20, 30, 16)), dev, torch.float32)
+    wk = _t(rng.standard_normal((3, 3, 16, 8)) * 0.1, dev, torch.float32)
+    bias = _t(rng.standard_normal(8) * 0.1, dev, torch.float32)
+    grads = []
+    for fn in (conv3x3_lowchannel, conv3x3_lowchannel_plain):
+        ts = [t.clone().requires_grad_() for t in (x, wk, bias)]
+        (fn(*ts, "reflect") ** 2).sum().backward()
+        grads.append([t.grad for t in ts])
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+def test_conv3x3_lowchannel_rejects_what_it_lacks(dev):
+    x = torch.randn(1, 8, 8, 12, device=dev, dtype=torch.bfloat16)
+    before = conv3x3_lowchannel.launches
+    with pytest.raises(ValueError, match="multiple of 8"):
+        conv3x3_lowchannel(x, torch.randn(3, 3, 12, 4, device=dev, dtype=torch.bfloat16), None)
+    with pytest.raises(ValueError, match="Cout"):
+        conv3x3_lowchannel(x.float(), torch.randn(3, 3, 12, 40, device=dev), None)
+    assert conv3x3_lowchannel.launches == before
+
+
+AB_FAMILY_NAMES = ["tr_max", "bf16p", "nomax_guard", "tr_lmxu", "nomax", "noexp", "gemmonly", "qk_only", "pv_only"]
+
+
+def _ab_inputs(dev, b, n, c):
+    rng = np.random.default_rng(9)
+    return tuple(_t(rng.standard_normal((b, n, c)), dev, torch.bfloat16) for _ in range(3))
+
+
+def _ab_close(variant, out, ref):
+    """The bf16 gates, atol scaled by max(1, max |ref|): the unnormalised
+    families (gemmonly, qk_only, pv_only) are sums of ~N terms, ~10-100."""
+    if variant != "noexp":
+        torch.testing.assert_close(out.float(), ref, rtol=1.6e-2, atol=1e-2 * max(1.0, ref.abs().max().item()))
+    assert torch.isfinite(out).all()
+    assert _rel_rms(out, ref) <= REL_RMS_BF16
+
+
+@pytest.mark.parametrize("variant", AB_FAMILY_NAMES)
+@pytest.mark.parametrize("b,n,heads,d", [(2, 200, 4, 64), (1, 150, 4, 32), (8, 1370, 16, 64)])
+def test_run_variant_matches_plain(dev, variant, b, n, heads, d):
+    q, k, v = _ab_inputs(dev, b, n, heads * d)
+    before = run_variant.launches
+    out = run_variant(variant, q, k, v, heads, d**-0.5)
+    torch.cuda.synchronize()
+    assert run_variant.launches == before + 1
+    _ab_close(variant, out, run_variant_plain(variant, q.float(), k.float(), v.float(), heads, d**-0.5))
+
+
+@pytest.mark.parametrize("variant", ["bd", "bd_lmxu", "bd176"])
+@pytest.mark.parametrize("b,n,heads", [(2, 200, 4), (8, 1370, 16)])
+def test_run_bd_matches_plain(dev, variant, b, n, heads):
+    q, k, v = _ab_inputs(dev, b, n, heads * 64)
+    before = run_bd.launches, run_variant.launches
+    out = run_variant(variant, q, k, v, heads, 0.125)
+    torch.cuda.synchronize()
+    assert (run_bd.launches, run_variant.launches) == (before[0] + 1, before[1])
+    _ab_close(variant, out, run_variant_plain(variant, q.float(), k.float(), v.float(), heads, 0.125))
+
+
+def test_ab_kernels_take_bf16_only(dev):
+    q = torch.randn(1, 150, 128, device=dev)
+    before = run_variant.launches, run_bd.launches
+    with pytest.raises(ValueError, match="bf16"):
+        run_variant("tr_max", q, q, q, 4, 32**-0.5)
+    with pytest.raises(ValueError, match="bf16"):
+        run_bd(q, q, q, 2, 0.125)
+    with pytest.raises(ValueError, match="head dim"):
+        run_variant("tr_max", *(q.to(torch.bfloat16),) * 3, 8, 16**-0.5)
+    assert (run_variant.launches, run_bd.launches) == before

@@ -12,7 +12,7 @@ import torch
 from jax.experimental.pallas import tpu as pltpu
 
 from unidepth_tpu.ops.flash_attention import flash_attention as j_flash_attention
-from unidepth_tpu.ops.flash_attention import _packed_supported
+from unidepth_tpu.ops.flash_attention import _packed_supported, _xla_attention_packed
 from unidepth_tpu.ops.flash_attention import flash_attention_packed as j_flash_attention_packed
 from unidepth_tpu.ops.flash_attention import flash_attention_qkv as j_flash_attention_qkv
 from unidepth_tpu.ops.flash_attention import safe_attention
@@ -96,6 +96,20 @@ def test_flash_attention_packed_plain_matches_pallas(b, nq, nk, c, h, views):
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-5, rtol=0)
 
 
+def test_flash_attention_packed_head_dim_8_matches_jax():
+    """d = 8 is inside the JAX packed regime (it divides 128); the port takes
+    it too (on the card through the kernel's 16-deep zero-filled step)."""
+    b, n, c, h = 2, 150, 128, 16
+    rng = np.random.default_rng(8)
+    arrays = tuple((rng.standard_normal((b, n, c)) * 0.3).astype(np.float32) for _ in range(3))
+    assert packed_supported(n, c, h) and _packed_supported(n, c, h)
+    ref = _xla_attention_packed(*map(jnp.asarray, arrays), 8**-0.5, h)
+    before = flash_attention_packed.launches, flash_attention.launches
+    out = flash_attention_packed(*map(torch.from_numpy, arrays), h)
+    assert (flash_attention_packed.launches, flash_attention.launches) == before
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-5, rtol=0)
+
+
 def test_packed_supported_matches_jax():
     for nk in (100, 4096, 4097):
         for c, h in ((1024, 16), (128, 8), (128, 16), (96, 6), (256, 1), (384, 2)):
@@ -123,3 +137,22 @@ def test_launch_checks_alignment_before_the_kernel(monkeypatch, offset, match):
     with pytest.raises(ValueError if match else RuntimeError, match=match or "no card"):
         fa._launch(*args)
     assert len(calls) == (0 if match else 1)
+
+
+def test_failed_build_is_not_retried(monkeypatch):
+    """A failed build raises at every call without running nvcc again."""
+    from unidepth_tpu_torch.ops import _cuda
+
+    calls = []
+
+    def build():
+        calls.append(1)
+        raise RuntimeError("nvcc failed")
+
+    monkeypatch.setattr(_cuda, "build", build)
+    monkeypatch.setattr(_cuda, "_lib", None)
+    monkeypatch.setattr(_cuda, "_build_error", None)
+    for _ in range(2):
+        with pytest.raises(RuntimeError, match="nvcc failed"):
+            _cuda.library()
+    assert len(calls) == 1

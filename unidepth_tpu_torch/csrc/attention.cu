@@ -26,6 +26,10 @@
 // past Nq load as 0 and are not stored, so no 0 * NaN can arise.
 // bf16 I/O runs on the tensor cores (m16n8k16, fp32 accumulation); fp32 I/O
 // takes a CUDA-core path (attn_fwd_simt) that keeps fp32 products exact.
+// Head dim 8 (the JAX packed regime takes any D dividing 128) runs the
+// tensor-core body at the 16-deep mma step: the tiles keep 16 columns whose
+// upper 8 are zeroed once in shared memory, q's upper fragment halves are 0,
+// and only the first 8 output columns are stored; q/k/v are not copied.
 
 #include <math.h>
 
@@ -48,18 +52,30 @@ constexpr int kBlockN = 64;   // keys per shared-memory tile
 constexpr int kThreads = 128;
 constexpr float kLog2e = 1.4426950408889634f;
 
+// the head dim the tensor-core body computes with: D rounded up to the mma k step
+template <int D>
+__host__ __device__ constexpr int mma_dim() {
+  return D < 16 ? 16 : D;
+}
+
 template <int D>
 constexpr int attn_bf16_smem_bytes() {
-  return 2 * 2 * kBlockN * (D + 8) * 2;  // two stages of K and V tiles
+  return 2 * 2 * kBlockN * (mma_dim<D>() + 8) * 2;  // two stages of K and V tiles
 }
 
 template <int D>
 __global__ void __launch_bounds__(kThreads) attn_fwd_bf16(AttnArgs a) {
   using bf16 = __nv_bfloat16;
-  constexpr int RS = D + 8;  // tile row stride: 8 ldmatrix rows fall in distinct banks
+  constexpr int DM = mma_dim<D>();
+  constexpr int RS = DM + 8;  // tile row stride: 8 ldmatrix rows fall in distinct banks
   constexpr int kStage = 2 * kBlockN * RS;
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* tiles = reinterpret_cast<bf16*>(smem);  // [stage][K rows | V rows][RS]
+  if constexpr (DM != D) {
+    // columns D..DM-1 of every tile row stay zero: cp.async writes only [0, D)
+    for (int i = threadIdx.x; i < 2 * 2 * kBlockN; i += kThreads)
+      *reinterpret_cast<uint4*>(tiles + i * RS + D) = make_uint4(0u, 0u, 0u, 0u);
+  }
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -90,19 +106,20 @@ __global__ void __launch_bounds__(kThreads) attn_fwd_bf16(AttnArgs a) {
   const int r1 = r0 + 8;
   const bool ok0 = r0 < a.nq, ok1 = r1 < a.nq;
 
-  uint32_t qf[D / 16][4];
+  uint32_t qf[DM / 16][4];
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
+  for (int kk = 0; kk < DM / 16; ++kk) {
     const int c = kk * 16 + 2 * t;
+    const bool hi = D >= 16 || c + 8 < D;  // false only in the zero half of D = 8
     qf[kk][0] = ok0 ? *reinterpret_cast<const uint32_t*>(Q + r0 * a.q_rs + c) : 0u;
     qf[kk][1] = ok1 ? *reinterpret_cast<const uint32_t*>(Q + r1 * a.q_rs + c) : 0u;
-    qf[kk][2] = ok0 ? *reinterpret_cast<const uint32_t*>(Q + r0 * a.q_rs + c + 8) : 0u;
-    qf[kk][3] = ok1 ? *reinterpret_cast<const uint32_t*>(Q + r1 * a.q_rs + c + 8) : 0u;
+    qf[kk][2] = ok0 && hi ? *reinterpret_cast<const uint32_t*>(Q + r0 * a.q_rs + c + 8) : 0u;
+    qf[kk][3] = ok1 && hi ? *reinterpret_cast<const uint32_t*>(Q + r1 * a.q_rs + c + 8) : 0u;
   }
 
-  float o[D / 8][4];
+  float o[DM / 8][4];
 #pragma unroll
-  for (int i = 0; i < D / 8; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
+  for (int i = 0; i < DM / 8; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
   float m0 = -INFINITY, m1 = -INFINITY;  // running row max, log2 domain
   float l0 = 0.f, l1 = 0.f;              // this lane's partial row sums
   const float sl2 = a.scale * kLog2e;
@@ -128,7 +145,7 @@ __global__ void __launch_bounds__(kThreads) attn_fwd_bf16(AttnArgs a) {
 #pragma unroll
     for (int jp = 0; jp < kBlockN / 16; ++jp) {
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
+      for (int kk = 0; kk < DM / 16; ++kk) {
         uint32_t kb[4];
         ud::ldmatrix_x4(kb, ks + (16 * jp + (lane & 7) + ((lane >> 4) << 3)) * RS + kk * 16 + ((lane >> 3) & 1) * 8);
         ud::mma_bf16_16816(s[2 * jp], qf[kk], kb[0], kb[1]);
@@ -160,7 +177,7 @@ __global__ void __launch_bounds__(kThreads) attn_fwd_bf16(AttnArgs a) {
     l0 *= al0;
     l1 *= al1;
 #pragma unroll
-    for (int i = 0; i < D / 8; ++i) {
+    for (int i = 0; i < DM / 8; ++i) {
       o[i][0] *= al0;
       o[i][1] *= al0;
       o[i][2] *= al1;
@@ -183,7 +200,7 @@ __global__ void __launch_bounds__(kThreads) attn_fwd_bf16(AttnArgs a) {
     // O += P V; ldmatrix.trans turns row-major V into b0, b1 of two
     // neighbouring 8-column tiles of D
 #pragma unroll
-    for (int ip = 0; ip < D / 16; ++ip) {
+    for (int ip = 0; ip < DM / 16; ++ip) {
 #pragma unroll
       for (int kk = 0; kk < kBlockN / 16; ++kk) {
         uint32_t vb[4];
@@ -327,6 +344,7 @@ extern "C" int ud_attention_fwd(const void* q, const void* k, const void* v, voi
   AttnArgs a{q, k, v, o, heads, nq, nk, q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, o_bs, o_rs, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (head_dim) {
+    case 8: return launch<8>(a, batch, dtype, s);
     case 16: return launch<16>(a, batch, dtype, s);
     case 32: return launch<32>(a, batch, dtype, s);
     case 64: return launch<64>(a, batch, dtype, s);

@@ -58,6 +58,15 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], const void* p) {
                : "r"(a));
 }
 
+// Two 8x8 b16 matrices: lanes 0-15 give the row addresses (lane l: row
+// (l & 7) of matrix (l >> 3)); the other lanes' addresses are not read.
+__device__ __forceinline__ void ldmatrix_x2(uint32_t r[2], const void* p) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(a));
+}
+
 __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4], const void* p) {
   const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"

@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels (``unidepth_tpu_torch/csrc``).
 
-The sources compile with ``nvcc`` for Hopper (``sm_90a``) into one shared
-library with a plain C interface, loaded with ``ctypes``. The build runs at
-the first CUDA call in a process, writes
+The sources compile with ``nvcc`` for Hopper (``sm_90a``), one ``nvcc`` per
+source, all started together, and link into one shared library with a plain
+C interface, loaded with ``ctypes``. The build runs at the first CUDA call
+in a process, writes
 ``build/unidepth_tpu_torch/<hash of the sources and flags>/`` at the root of
 the checkout, and is reused while the sources are unchanged. A failed build
 raises: there is no fallback to the plain PyTorch versions.
@@ -26,16 +27,15 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "unidepth_tpu_torch"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "libunidepth_kernels.so"
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
+_build_error: RuntimeError | None = None  # a failed build is not retried in this process
 #: seconds the last build in this process took (None: loaded from the cache)
 build_seconds: float | None = None
 
@@ -78,14 +78,31 @@ def build() -> Path:
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{LIB_NAME}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (out.parent / "nvcc.log").write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}) building {out}:\n{proc.stdout}{proc.stderr}"
-        )
+    objs, procs = [], []
+    for src in _sources():
+        obj = out.parent / f"{src.stem}.{os.getpid()}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        objs.append(str(obj))
+        procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    log, failed = [], []
+    for cmd, proc in procs:
+        text = proc.communicate()[0]
+        log.append(" ".join(cmd) + "\n" + text)
+        if proc.returncode != 0:
+            failed.append(f"{cmd[-1]} ({proc.returncode}):\n{text}")
+    if not failed:
+        cmd = [nvcc, *ARCH, "-shared", "-o", str(tmp), *objs]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log.append(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed.append(f"link ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
+    for obj in objs:
+        Path(obj).unlink(missing_ok=True)
+    (out.parent / "nvcc.log").write_text("\n".join(log))
+    if failed:
+        raise RuntimeError(f"nvcc failed building {out}:\n" + "\n".join(failed))
     os.replace(tmp, out)  # atomic: a concurrent process sees all or nothing
     build_seconds = time.perf_counter() - t0
     return out
@@ -99,6 +116,12 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.ud_attention_packed_fwd.restype = i
     lib.ud_ln_dense_fwd.argtypes = [p, p, p, p, p, p, i, i, i, f, i, i, p]
     lib.ud_ln_dense_fwd.restype = i
+    lib.ud_conv3x3_fwd.argtypes = [p, p, p, p] + [i] * 7 + [p]
+    lib.ud_conv3x3_fwd.restype = i
+    lib.ud_attention_ab_fwd.argtypes = [p, p, p, p] + [i] * 6 + [p]
+    lib.ud_attention_ab_fwd.restype = i
+    lib.ud_attention_bd_fwd.argtypes = [p, p, p, p] + [i] * 5 + [p]
+    lib.ud_attention_bd_fwd.restype = i
     lib.ud_error_string.argtypes = [i]
     lib.ud_error_string.restype = ctypes.c_char_p
     return lib
@@ -106,10 +129,17 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built on first use."""
-    global _lib
+    global _lib, _build_error
     with _lock:
+        if _build_error is not None:
+            raise _build_error
         if _lib is None:
-            _lib = _bind(ctypes.CDLL(str(build())))
+            try:
+                path = build()
+            except RuntimeError as e:
+                _build_error = e
+                raise
+            _lib = _bind(ctypes.CDLL(str(path)))
         return _lib
 
 

@@ -44,7 +44,7 @@ __all__ = [
     "flash_attention_qkv_plain",
 ]
 
-SUPPORTED_HEAD_DIMS = (16, 32, 64, 128)
+SUPPORTED_HEAD_DIMS = (8, 16, 32, 64, 128)
 PACKED_MAX_KEYS = 4096  # the TPU kernel's whole-K VMEM bound (_packed_supported)
 
 
