@@ -6,12 +6,15 @@
 Run from the root of a checkout on a machine with a CUDA card and nvcc. It
 fails (non-zero exit, no result line) without CUDA or outside a checkout.
 
-1. Prints the card's name and power limit and builds the CUDA kernels from
-   ``unidepth_tpu_torch/csrc`` with nvcc.
+1. Prints the card's name and power limit, builds the CUDA kernels from
+   ``unidepth_tpu_torch/csrc`` with nvcc, and prints what ptxas reported for
+   the Hopper attention body (registers, spills).
 2. One phase per kernel at the shapes its path gives it (K4: strided views
    of one (8, 1370, 3072) projection, 16 heads, scale 1/8). In bf16 I/O
-   it runs the tensor-core kernels that the paths launch
-   (attn_fwd_bf16, ln_dense_bf16) and holds them against the plain PyTorch
+   it runs the tensor-core kernels that the paths launch (K1 and K4 at
+   head dim 64: attn_fwd_wgmma, the wgmma + TMA body of
+   attention_wgmma.cu; K3: attn_fwd_bf16, mma.sync; K2: ln_dense_bf16) and
+   holds them against the plain PyTorch
    version computed in fp32 on the same bf16 inputs: elementwise at rtol
    1.6e-2, atol 1e-2 (bf16 output rounding), and at a relative RMS error
    ||out - ref|| / ||ref|| <= 5e-3, which rounding alone keeps near 2e-3
@@ -38,27 +41,33 @@ fails (non-zero exit, no result line) without CUDA or outside a checkout.
    ``F.conv2d`` (cuDNN, channels-last bf16, on the padded input) for K5.
    ``bound_ms`` is the larger of the bytes moved over 3.35 TB/s and the
    operations over 989 TFLOP/s (bf16 dense, H100 SXM).
-4. Builds UniDepthV2 ViT-L/14 from configs/config_v2_vitl14.json with
-   random weights (``init_params(seed=0)``), runs ``infer()`` on 8 seeded
-   518x518 images in bf16, checks shapes, finiteness and depth > 0, checks
-   that the forward launched K1 (flash_attention_qkv) 24 times, K2
-   (ln_dense) 24 times, K3 (flash_attention) 4 times and K4 never, and
+4. Builds UniDepthV2 ViT-L/14 from configs/config_v2_vitl14.json with no
+   device named (the entry point's default: the card, bf16) and random
+   weights (``init_params(seed=0)``), runs ``infer()`` on 8 seeded
+   518x518 images, checks shapes, finiteness and depth > 0, checks
+   that the forward launched K1 (flash_attention_qkv) 24 times, all 24 on
+   the Hopper body, K2 (ln_dense) 24 times, K3 (flash_attention) 4 times
+   (mma.sync) and K4 never, and
    holds depth against the same model run on the plain path in fp32 on the
    card (median relative error <= 1e-2). Then times depth-only ``infer()``
    in three rounds and prints each.
 5. The int8 serving path on the same model: ``set_serving_precision('int8')``
    quantizes the encoder from the fp32 masters that ``init_params`` kept,
    then ``infer()`` on the same images: shapes, finiteness and depth > 0;
-   launches K4 (flash_attention_packed) 24, K1 0, K2 0, K3 4; depth against
+   launches K4 (flash_attention_packed) 24, all on the Hopper body, K1 0,
+   K2 0, K3 4; depth against
    the fp32 plain path at the JAX package's int8 bounds (mean relative
    error < 0.05, 99th percentile < 0.15, intrinsics relative error < 0.1,
    tests/test_quant.py). Then one forward under the stage mask (True, False,
-   True, False): launches K4 12, K1 12, K2 12, K3 4. Then times int8
-   depth-only ``infer()`` in three rounds.
+   True, False): launches K4 12, K1 12 (each 12 on the Hopper body), K2
+   12, K3 4. Then times int8 depth-only ``infer()`` in three rounds.
 
-Each path's launch counts are set to 0 just before it runs and read just
-after. The last two lines are the kernels' JSON record and
-``{"ok": true, "device": {...}}``. Any failing phase raises.
+Each path's launch counts (and the Hopper-body counts of K1 and K4) are set
+to 0 just before it runs and read just after. The K6 harness's ``base``
+row is K4 itself, so it runs the Hopper body; its M1-M9 variants run
+attention_ab.cu's mma.sync body. The last two lines are the kernels' JSON
+record (each kernel with its ``body``) and ``{"ok": true, "device":
+{...}}``. Any failing phase raises.
 """
 
 import importlib.util
@@ -87,6 +96,7 @@ AB_ITERS = 20
 AB_FAMILY_NAMES = ("base", "tr_max", "bf16p", "nomax_guard", "tr_lmxu", "nomax", "noexp", "gemmonly",
                    "qk_only", "pv_only")
 BD_NAMES = ("bd", "bd_lmxu")
+HOPPER = ("flash_attention_qkv", "flash_attention_packed")  # K1, K4: attention_wgmma.cu at head dim 64
 
 
 def log(*args):
@@ -179,12 +189,16 @@ def load_harness():
 
 def run_path(name, kernels, call):
     """Set every kernel's count to 0, run ``call()`` and return its output
-    with the counts it left."""
+    with the counts it left; ``<name>/wgmma`` counts the Hopper body's
+    launches among those of K1 and K4."""
     for fn in kernels.values():
         fn.launches = 0
+    for key in HOPPER:
+        kernels[key].hopper_launches = 0
     out = call()
     torch.cuda.synchronize()
     launches = {k: fn.launches for k, fn in kernels.items()}
+    launches.update({f"{k}/wgmma": kernels[k].hopper_launches for k in HOPPER})
     log(f"launches in one {name}: {launches}")
     return out, launches
 
@@ -260,6 +274,7 @@ def main():
     t0 = time.perf_counter()
     _cuda.library()
     log(f"build: {time.perf_counter() - t0:.1f} s (nvcc {_cuda.build_seconds} s)")
+    log("\n".join(_cuda.ptxas_report("attn_fwd_wgmma")) or "ptxas report for attn_fwd_wgmma: none in the build log")
 
     # every kernel's wrapper, by the name its record carries
     kernels = {
@@ -271,7 +286,7 @@ def main():
         "run_variant": run_variant,
         "run_bd": run_bd,
     }
-    none = dict.fromkeys(kernels, 0)
+    none = dict.fromkeys([*kernels, *(f"{k}/wgmma" for k in HOPPER)], 0)
 
     # --- kernels at the main path's shapes -----------------------------------
     gen = torch.Generator(device=dev)
@@ -387,7 +402,8 @@ def main():
         "K6 kernel_ab harness", kernels,
         lambda: harness.run(AB_FAMILY_NAMES, iters=AB_ITERS, check=True, log=log, **AB_SHAPE))
     check_launches("K6 kernel_ab harness", k6_launches,
-                   {**none, "run_variant": calls * (len(AB_FAMILY_NAMES) - 1), "flash_attention_packed": calls})
+                   {**none, "run_variant": calls * (len(AB_FAMILY_NAMES) - 1), "flash_attention_packed": calls,
+                    "flash_attention_packed/wgmma": calls})
     rows7, k7_launches = run_path(
         "K7 kernel_ab harness", kernels,
         lambda: harness.run(BD_NAMES, iters=AB_ITERS, check=True, log=log, **AB_SHAPE))
@@ -409,13 +425,17 @@ def main():
     warnings.simplefilter("ignore")  # resolution_level unset: default budget
     config = json.loads(CONFIG.read_text())
     t0 = time.perf_counter()
-    model = UniDepthV2.from_config(config, device=dev).init_params(seed=SEED).eval()
+    model = UniDepthV2.from_config(config).init_params(seed=SEED).eval()  # no device named: the card
+    placed = {(p.device.type, p.dtype) for p in model.parameters()}
+    if placed != {("cuda", torch.bfloat16)}:
+        raise RuntimeError(f"from_config with no device placed the model on {placed}, not the card in bf16")
     log(f"model: ViT-L/14 {sum(p.numel() for p in model.parameters()) / 1e6:.1f} M params, "
-        f"{next(model.parameters()).dtype}, built in {time.perf_counter() - t0:.1f} s")
+        f"{next(model.parameters()).dtype} on {next(model.parameters()).device}, built in {time.perf_counter() - t0:.1f} s")
     rgb = np.random.default_rng(SEED).integers(0, 256, (BATCH, SIDE, SIDE, 3), dtype=np.uint8)
 
     out, launches = run_path("bf16 infer()", kernels, lambda: model.infer(rgb))
-    check_launches("bf16 infer()", launches, {**none, "flash_attention_qkv": 24, "ln_dense": 24, "flash_attention": 4})
+    check_launches("bf16 infer()", launches, {**none, "flash_attention_qkv": 24, "flash_attention_qkv/wgmma": 24,
+                                              "ln_dense": 24, "flash_attention": 4})
     check_outputs("bf16 infer()", out)
 
     ref_model = UniDepthV2.from_config(config, device=dev, dtype=torch.float32).init_params(seed=SEED)
@@ -439,7 +459,8 @@ def main():
     torch.cuda.synchronize()
     log(f"int8 encoder quantized from the fp32 masters in {time.perf_counter() - t0:.2f} s")
     out_q, launches_q = run_path("int8 infer()", kernels, lambda: model.infer(rgb))
-    check_launches("int8 infer()", launches_q, {**none, "flash_attention": 4, "flash_attention_packed": 24})
+    check_launches("int8 infer()", launches_q, {**none, "flash_attention": 4, "flash_attention_packed": 24,
+                                                "flash_attention_packed/wgmma": 24})
     check_outputs("int8 infer()", out_q)
     # the JAX package's int8 bounds against full precision (tests/test_quant.py)
     rel = ((out_q["depth"] - ref["depth"]).abs() / (ref["depth"].abs() + 1e-6)).flatten()
@@ -454,7 +475,8 @@ def main():
     model._int8_stages = STAGE_MASK
     out_m, launches_m = run_path(f"int8 infer() under stage mask {STAGE_MASK}", kernels, lambda: model.infer(rgb))
     check_launches("masked int8 infer()", launches_m,
-                   {**none, "flash_attention_qkv": 12, "ln_dense": 12, "flash_attention": 4, "flash_attention_packed": 12})
+                   {**none, "flash_attention_qkv": 12, "flash_attention_qkv/wgmma": 12, "ln_dense": 12,
+                    "flash_attention": 4, "flash_attention_packed": 12, "flash_attention_packed/wgmma": 12})
     check_outputs("masked int8 infer()", out_m)
     del out_m
     model._int8_stages = None
@@ -469,19 +491,23 @@ def main():
         "run_variant": k6_launches["run_variant"],
         "run_bd": k7_launches["run_bd"],
     }
-    sources = {
-        "flash_attention_qkv": ("attention.cu", "unidepth_tpu/ops/flash_attention.py:471"),
-        "ln_dense": ("ln_dense.cu", "unidepth_tpu/ops/fused_block.py:102"),
-        "flash_attention": ("attention.cu", "unidepth_tpu/ops/flash_attention.py:159"),
-        "flash_attention_packed": ("attention.cu", "unidepth_tpu/ops/flash_attention.py:347"),
-        "conv3x3_lowchannel": ("conv3x3.cu", "unidepth_tpu/ops/conv_kernels.py:88"),
-        "run_variant": ("attention_ab.cu", "scripts/kernel_ab.py:53"),
-        "run_bd": ("attention_ab.cu", "scripts/kernel_ab.py:214"),
+    # the Hopper body's launches on the same paths (K1: bf16, K4: int8)
+    hopper_launches = {"flash_attention_qkv": launches["flash_attention_qkv/wgmma"],
+                       "flash_attention_packed": launches_q["flash_attention_packed/wgmma"]}
+    sources = {  # source, TPU kernel, body at the path's shapes
+        "flash_attention_qkv": ("attention_wgmma.cu", "unidepth_tpu/ops/flash_attention.py:471", "wgmma"),
+        "ln_dense": ("ln_dense.cu", "unidepth_tpu/ops/fused_block.py:102", "mma.sync"),
+        "flash_attention": ("attention.cu", "unidepth_tpu/ops/flash_attention.py:159", "mma.sync"),
+        "flash_attention_packed": ("attention_wgmma.cu", "unidepth_tpu/ops/flash_attention.py:347", "wgmma"),
+        "conv3x3_lowchannel": ("conv3x3.cu", "unidepth_tpu/ops/conv_kernels.py:88", "mma.sync"),
+        "run_variant": ("attention_ab.cu", "scripts/kernel_ab.py:53", "mma.sync"),
+        "run_bd": ("attention_ab.cu", "scripts/kernel_ab.py:214", "mma.sync"),
     }
     record = [
-        {"name": name, "route": "cuda", "source": f"unidepth_tpu_torch/csrc/{src}", "replaces": rep,
-         "launches": path_launches[name], **m[name]}
-        for name, (src, rep) in sources.items()
+        {"name": name, "route": "cuda", "source": f"unidepth_tpu_torch/csrc/{src}", "replaces": rep, "body": body,
+         "launches": path_launches[name],
+         **({"hopper_launches": hopper_launches[name]} if name in hopper_launches else {}), **m[name]}
+        for name, (src, rep, body) in sources.items()
     ]
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s, the build included")
     log(json.dumps({"kernels": record}))

@@ -1,0 +1,121 @@
+#!/usr/bin/env python3
+"""The encoder self-attention bodies side by side on one CUDA card.
+
+    python3 scripts_torch/attention_bench.py [--reps 10] [--runs 10]
+
+Run from the root of a checkout on a machine with a CUDA card and nvcc.
+Builds the kernels and prints what ptxas reported for the Hopper body
+(``attn_fwd_wgmma``: registers, spills, shared memory). Then, at the ViT-L
+serving shape (B=8, N=1370, 16 heads of 64, bf16, scale 1/8) for K1
+(``flash_attention_qkv`` on one contiguous (8, 1370, 3072) projection) and
+K4 (``flash_attention_packed`` on its three strided channel views):
+
+* holds the Hopper body against the plain version in fp32 on the same bf16
+  inputs (max abs error, relative RMS error);
+* times, in turns within this one process, the Hopper body, the mma.sync
+  body of ``attention.cu`` that served these calls before (its C entry
+  called directly), and one ``F.scaled_dot_product_attention`` call on the
+  same views (the library yardstick, never called by the port): CUDA events
+  around ``--reps`` back-to-back calls, median of ``--runs``;
+* prints each time, its ratio to SDPA, its TFLOP/s (61.5 GFLOP a call) and
+  its share of the 989 TFLOP/s bf16 dense peak, with the card's name and
+  power limit, then one JSON line.
+"""
+
+import argparse
+import json
+import re
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+import torch.nn.functional as F
+
+ROOT = Path(__file__).resolve().parents[1]
+B, N, HEADS, D = 8, 1370, 16, 64
+SCALE = D**-0.5
+BF16_FLOP_S = 989e12
+
+
+def event_ms(fn, reps, runs):
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(runs):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return statistics.median(times)
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--reps", type=int, default=10)
+    ap.add_argument("--runs", type=int, default=10)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("attention_bench: no CUDA device")
+    sys.path.insert(0, str(ROOT))
+    from unidepth_tpu_torch.ops import _cuda
+    from unidepth_tpu_torch.ops import flash_attention as fa
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    print(smi, flush=True)
+    _cuda.library()
+    report = _cuda.ptxas_report("attn_fwd_wgmma")
+    print("\n".join(report) if report else "ptxas report: none in the build log", flush=True)
+    regs = re.search(r"Used (\d+) registers", "\n".join(report))
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    qkv = torch.randn(B, N, 3 * HEADS * D, generator=gen, device="cuda").to(torch.bfloat16)
+    q, k, v = qkv.split(HEADS * D, dim=-1)
+    c = HEADS * D
+    views = [t.view(B, N, HEADS, D).transpose(1, 2) for t in (q, k, v)]
+    out = torch.empty(B, N, c, dtype=torch.bfloat16, device="cuda")
+    strides = (N * 3 * c, 3 * c) * 3 + (N * c, c)
+
+    def mma_sync():
+        fa._launch("mma.sync body", q, k.data_ptr(), v.data_ptr(), out, B, HEADS, N, N, D, strides, SCALE)
+
+    calls = {
+        "K1": lambda: fa.flash_attention_qkv(qkv, HEADS, SCALE),
+        "K4": lambda: fa.flash_attention_packed(q, k, v, HEADS, SCALE),
+        "mma.sync": mma_sync,
+        "sdpa": lambda: F.scaled_dot_product_attention(*views, scale=SCALE),
+    }
+    ref = fa.flash_attention_qkv_plain(qkv.float(), HEADS, SCALE)
+    record = {"card": smi, "registers": int(regs.group(1)) if regs else None}
+    for name in ("K1", "K4"):
+        before = (fa.flash_attention_qkv.hopper_launches, fa.flash_attention_packed.hopper_launches)
+        got = calls[name]()
+        torch.cuda.synchronize()
+        after = (fa.flash_attention_qkv.hopper_launches, fa.flash_attention_packed.hopper_launches)
+        if sum(after) != sum(before) + 1:
+            raise RuntimeError(f"{name} did not launch the Hopper body")
+        err = (got.float() - ref).abs().max().item()
+        rel = ((got.float() - ref).norm() / ref.norm()).item()
+        print(f"{name} Hopper body: max_abs_err {err:.3e} rel_rms {rel:.3e}", flush=True)
+        record[f"{name}_rel_rms"] = rel
+    times = {name: [] for name in calls}
+    for order in (list(calls), list(reversed(calls))):  # in turns: a, b, c, d, d, c, b, a
+        for name in order:
+            times[name].append(event_ms(calls[name], args.reps, args.runs))
+    flop = 4 * B * N * N * c
+    sdpa_ms = statistics.median(times["sdpa"])
+    for name, ts in times.items():
+        ms = statistics.median(ts)
+        record[f"{name}_ms"] = ms
+        print(f"{name}: {ms:.4f} ms ({', '.join(f'{t:.4f}' for t in ts)}), {ms / sdpa_ms:.3f}x SDPA, "
+              f"{flop / ms / 1e9:.1f} TFLOP/s, {flop / ms / 1e-3 / BF16_FLOP_S:.1%} of peak ({smi})", flush=True)
+    print(json.dumps(record))
+
+
+if __name__ == "__main__":
+    main()

@@ -42,7 +42,7 @@ def _reference_state_dict(model, seed=0):
 def test_round_trip_through_jax_layout_is_bit_exact():
     """reference schema -> convert_v2_state_dict (JAX tree) -> from_jax_params
     reproduces every key the port's model holds, bit for bit."""
-    model = UniDepthV2.from_config(CFG)
+    model = UniDepthV2.from_config(CFG, device="cpu")
     sd = _reference_state_dict(model)
     params = convert_v2_state_dict(sd, output_idx=(1, 2, 3, 4), num_levels=3, use_norm=True)
     back = from_jax_params(params, CFG)
@@ -54,7 +54,7 @@ def test_round_trip_through_jax_layout_is_bit_exact():
 
 @pytest.mark.parametrize("fmt", ["bin", "safetensors"])
 def test_from_pretrained_local_checkpoint(tmp_path, fmt):
-    model = UniDepthV2.from_config(CFG)
+    model = UniDepthV2.from_config(CFG, device="cpu")
     sd = {k: torch.from_numpy(v) for k, v in _reference_state_dict(model, seed=1).items()}
     (tmp_path / "config.json").write_text(json.dumps(CFG))
     if fmt == "bin":  # a DDP prefix is stripped, as the reference loader does
@@ -63,15 +63,15 @@ def test_from_pretrained_local_checkpoint(tmp_path, fmt):
         from safetensors.torch import save_file
 
         save_file(sd, str(tmp_path / "model.safetensors"))
-    loaded = UniDepthV2.from_pretrained(tmp_path)
+    loaded = UniDepthV2.from_pretrained(tmp_path, device="cpu")
     for key, value in loaded.state_dict().items():
         assert torch.equal(value, sd[key]), key
 
 
 def test_init_params_is_seeded():
-    a = UniDepthV2.from_config(CFG).init_params(seed=3).state_dict()
-    b = UniDepthV2.from_config(CFG).init_params(seed=3).state_dict()
-    c = UniDepthV2.from_config(CFG).init_params(seed=4).state_dict()
+    a = UniDepthV2.from_config(CFG, device="cpu").init_params(seed=3).state_dict()
+    b = UniDepthV2.from_config(CFG, device="cpu").init_params(seed=3).state_dict()
+    c = UniDepthV2.from_config(CFG, device="cpu").init_params(seed=4).state_dict()
     assert all(torch.equal(a[k], b[k]) for k in a)
     assert not torch.equal(a["pixel_encoder.pos_embed"], c["pixel_encoder.pos_embed"])
 

@@ -331,3 +331,138 @@ def test_ab_kernels_take_bf16_only(dev):
     with pytest.raises(ValueError, match="head dim"):
         run_variant("tr_max", *(q.to(torch.bfloat16),) * 3, 8, 16**-0.5)
     assert (run_variant.launches, run_bd.launches) == before
+
+
+# ---- the Hopper body of K1 and K4 (attention_wgmma.cu: bf16, head dim 64) ----
+
+HOPPER_K1_CASES = (
+    [(1, n, 1) for n in (5, 64, 127, 128, 129, 1370, 4096)]
+    + [(2, n, 4) for n in (5, 64, 127, 128, 129, 1370, 4096)]
+    + [(8, 129, 16), (8, 1370, 16)]  # B * H = 128
+)
+
+
+def _hopper_counts():
+    return flash_attention_qkv.hopper_launches, flash_attention_packed.hopper_launches
+
+
+@pytest.mark.parametrize("b,n,h", HOPPER_K1_CASES, ids=[f"b{b}-n{n}-h{h}" for b, n, h in HOPPER_K1_CASES])
+def test_flash_attention_qkv_hopper_body(dev, b, n, h):
+    """Ragged and exact key tiles (128 keys a tile, 128 queries a work tile),
+    one to many work tiles a block of the persistent grid."""
+    rng = np.random.default_rng(n + b)
+    qkv = _t(rng.standard_normal((b, n, 3 * h * 64)), dev, torch.bfloat16)
+    before = flash_attention_qkv.launches, _hopper_counts()
+    out = flash_attention_qkv(qkv, h, 0.125)
+    torch.cuda.synchronize()
+    assert (flash_attention_qkv.launches, _hopper_counts()) == (before[0] + 1, (before[1][0] + 1, before[1][1]))
+    _close(out, flash_attention_qkv_plain(qkv.float(), h, 0.125), torch.bfloat16, 0)
+
+
+def test_flash_attention_qkv_hopper_body_keeps_the_row_max(dev):
+    """q and k x 10 give logits ~100: exp without the running row max
+    overflows fp32 (e^89 > 3.4e38); the kernel must match the fp32 softmax.
+    v keeps unit size, so the outputs do too and the bf16 gates apply as
+    they are (bf16 p times v ~10 would be off by ~v / 2^9)."""
+    rng = np.random.default_rng(10)
+    x = rng.standard_normal((2, 300, 3 * 128))
+    x[..., :256] *= 10
+    qkv = _t(x, dev, torch.bfloat16)
+    ref = flash_attention_qkv_plain(qkv.float(), 2, 0.125)
+    q, k, _ = qkv.float().view(2, 300, 3, 2, 64).unbind(2)
+    logits = torch.einsum("bnhd,bmhd->bhnm", q, k) * 0.125
+    assert logits.abs().max() > 100
+    before = _hopper_counts()
+    out = flash_attention_qkv(qkv, 2, 0.125)
+    torch.cuda.synchronize()
+    assert _hopper_counts() == (before[0] + 1, before[1])
+    assert torch.isfinite(out).all()
+    _close(out, ref, torch.bfloat16, 0)
+
+
+def _batch_strided(rng, b, n, width, dev):
+    """(b, n, width) view of a (b, n + 3, width) tensor: batch stride (n + 3) * width."""
+    return _t(rng.standard_normal((b, n + 3, width)), dev, torch.bfloat16)[:, :n]
+
+
+@pytest.mark.parametrize(
+    "b,nq,nk,c,layout",
+    [
+        (8, 1370, 1370, 1024, "views"),  # the int8 path: (8, 1370, 3 x 1024)
+        (2, 70, 300, 256, "separate"),  # Nq != Nk
+        (2, 300, 70, 256, "separate"),  # Nk < one key tile
+        (1, 130, 130, 128, "views"),  # ragged tail
+        (3, 200, 200, 256, "batch-strided"),  # batch stride (N + 3) * 3C, not N * 3C
+    ],
+    ids=["path", "nq70-nk300", "nq300-nk70", "ragged", "batch-strided"],
+)
+def test_flash_attention_packed_hopper_body(dev, b, nq, nk, c, layout):
+    rng = np.random.default_rng(nq + nk + c)
+    if layout == "views":
+        q, k, v = _t(rng.standard_normal((b, nq, 3 * c)), dev, torch.bfloat16).split(c, dim=-1)
+    elif layout == "batch-strided":
+        q, k, v = _batch_strided(rng, b, nq, 3 * c, dev).split(c, dim=-1)
+        assert q.stride(0) == (nq + 3) * 3 * c
+    else:
+        q = _t(rng.standard_normal((b, nq, c)), dev, torch.bfloat16)
+        k, v = (_t(rng.standard_normal((b, nk, c)), dev, torch.bfloat16) for _ in range(2))
+    h = c // 64
+    before = flash_attention_packed.launches, flash_attention.launches, _hopper_counts()
+    out = flash_attention_packed(q, k, v, h)
+    torch.cuda.synchronize()
+    assert (flash_attention_packed.launches, flash_attention.launches, _hopper_counts()) == (
+        before[0] + 1, before[1], (before[2][0], before[2][1] + 1))
+    _close(out, flash_attention_packed_plain(q.float(), k.float(), v.float(), h, 0.125), torch.bfloat16, 0)
+
+
+def test_flash_attention_packed_hopper_body_keeps_the_row_max(dev):
+    rng = np.random.default_rng(11)
+    x = rng.standard_normal((2, 200, 3 * 128))
+    x[..., :256] *= 10  # q and k: logits ~100; v unit size
+    q, k, v = _t(x, dev, torch.bfloat16).split(128, dim=-1)
+    logits = torch.einsum("bnhd,bmhd->bhnm", *(t.float().view(2, 200, 2, 64) for t in (q, k))) * 0.125
+    assert logits.abs().max() > 100
+    before = _hopper_counts()
+    out = flash_attention_packed(q, k, v, 2)
+    torch.cuda.synchronize()
+    assert _hopper_counts() == (before[0], before[1] + 1)
+    _close(out, flash_attention_packed_plain(q.float(), k.float(), v.float(), 2, 0.125), torch.bfloat16, 0)
+
+
+@pytest.mark.parametrize("call", ["k3-bf16", "k1-fp32", "k4-fp32", "k1-bf16-d32"])
+def test_other_attention_calls_leave_the_hopper_count(dev, call):
+    """K3 in bf16 at D = 64 and K1/K4 in fp32 or at D != 64 launch
+    attention.cu's bodies: their launch counts rise, hopper_launches does not."""
+    rng = np.random.default_rng(12)
+    before = _hopper_counts()
+    if call == "k3-bf16":
+        q, k, v = (_t(rng.standard_normal((4, 200, 64)), dev, torch.bfloat16) for _ in range(3))
+        n3 = flash_attention.launches
+        out, ref = flash_attention(q, k, v, 0.125), flash_attention_plain(q.float(), k.float(), v.float(), 0.125)
+        assert flash_attention.launches == n3 + 1
+        dtype = torch.bfloat16
+    elif call == "k4-fp32":
+        q, k, v = _t(rng.standard_normal((2, 140, 3 * 128)), dev, torch.float32).split(128, dim=-1)
+        out, ref = flash_attention_packed(q, k, v, 2), flash_attention_packed_plain(q, k, v, 2, 0.125)
+        dtype = torch.float32
+    else:
+        dtype = torch.float32 if call == "k1-fp32" else torch.bfloat16
+        h = 2 if call == "k1-fp32" else 4
+        qkv = _t(rng.standard_normal((2, 140, 3 * 128)), dev, dtype)
+        scale = (128 // h) ** -0.5
+        out, ref = flash_attention_qkv(qkv, h, scale), flash_attention_qkv_plain(qkv.float(), h, scale)
+    torch.cuda.synchronize()
+    assert _hopper_counts() == before
+    _close(out, ref, dtype, 1e-4)
+
+
+def test_from_config_defaults_to_the_card(dev):
+    """No device named: the model lands on the card in bf16."""
+    from unidepth_tpu_torch.models.unidepthv2.model import UniDepthV2
+
+    cfg = {"model": {"name": "UniDepthV2", "num_heads": 2,
+                     "pixel_decoder": {"hidden_dim": 64, "out_dim": 16, "depths": [1, 1, 1]},
+                     "pixel_encoder": {"name": "dinov2_vits14", "embed_dim": 128, "depth": 2, "num_heads": 2,
+                                       "pos_embed_size": 8, "output_idx": [1, 1, 2, 2]}}}
+    model = UniDepthV2.from_config(cfg)
+    assert {(p.device.type, p.dtype) for p in model.parameters()} == {("cuda", torch.bfloat16)}

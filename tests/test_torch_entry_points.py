@@ -1,0 +1,59 @@
+"""Where the port's model entry points put the model: on the card unless the
+caller names a device, and never on the CPU by a silent fallback."""
+
+import json
+
+import pytest
+import torch
+
+from unidepth_tpu_torch.models.unidepthv2 import model as model_module
+from unidepth_tpu_torch.models.unidepthv2.model import UniDepthV2
+
+CFG = {
+    "model": {
+        "name": "UniDepthV2", "num_heads": 2,
+        "pixel_decoder": {"hidden_dim": 64, "out_dim": 16, "depths": [1, 1, 1]},
+        "pixel_encoder": {
+            "name": "dinov2_vits14", "embed_dim": 128, "depth": 2, "num_heads": 2,
+            "pos_embed_size": 8, "output_idx": [1, 1, 2, 2], "use_norm": False,
+        },
+    },
+}
+
+
+@pytest.fixture
+def no_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_from_config_without_a_card_raises_naming_cpu(no_card):
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        UniDepthV2.from_config(CFG)
+
+
+def test_from_pretrained_without_a_card_raises_before_reading(no_card, tmp_path):
+    """The device is resolved first: an empty directory is never opened."""
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        UniDepthV2.from_pretrained(tmp_path)
+
+
+def test_unnamed_device_is_the_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert model_module.resolve_device(None) == torch.device("cuda")
+    assert model_module.resolve_device("cpu") == torch.device("cpu")
+
+
+def test_from_config_on_the_cpu_is_fp32(no_card):
+    model = UniDepthV2.from_config(CFG, device="cpu")
+    assert {(p.device.type, p.dtype) for p in model.parameters()} == {("cpu", torch.float32)}
+
+
+def test_from_pretrained_passes_device_and_dtype(no_card, tmp_path):
+    src = UniDepthV2.from_config(CFG, device="cpu").init_params(seed=5)
+    (tmp_path / "config.json").write_text(json.dumps(CFG))
+    torch.save(src.state_dict(), tmp_path / "pytorch_model.bin")
+    loaded = UniDepthV2.from_pretrained(tmp_path, device="cpu", dtype=torch.bfloat16)
+    want = src.state_dict()
+    for key, value in loaded.state_dict().items():
+        assert value.device.type == "cpu" and value.dtype == torch.bfloat16, key
+        assert torch.equal(value, want[key].to(torch.bfloat16)), key

@@ -156,3 +156,92 @@ def test_failed_build_is_not_retried(monkeypatch):
         with pytest.raises(RuntimeError, match="nvcc failed"):
             _cuda.library()
     assert len(calls) == 1
+
+
+class _EntryRecorder:
+    """A stand-in for the kernel library: records which C entry was called
+    and reports success."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, entry):
+        return lambda *args: self.calls.append(entry) or 0
+
+
+@pytest.fixture
+def stub_library(monkeypatch):
+    from unidepth_tpu_torch.ops import _cuda
+
+    lib = _EntryRecorder()
+    monkeypatch.setattr(_cuda, "library", lambda: lib)
+    monkeypatch.setattr(_cuda, "stream_handle", lambda t: 0)
+    return lib
+
+
+HOPPER = "ud_attention_hopper_fwd"
+
+
+@pytest.mark.parametrize(
+    "dtype,d,entry",
+    [(torch.bfloat16, 64, HOPPER), (torch.float32, 64, "ud_attention_fwd"), (torch.bfloat16, 32, "ud_attention_fwd")],
+    ids=["bf16-d64", "fp32-d64", "bf16-d32"],
+)
+def test_k1_routes_by_dtype_and_head_dim(stub_library, dtype, d, entry):
+    """K1 takes the Hopper body for bf16 at D = 64 and attention.cu's body
+    otherwise; ``hopper_launches`` counts only the former."""
+    from unidepth_tpu_torch.ops import flash_attention as fa
+
+    qkv = torch.zeros(2, 140, 3 * 128, dtype=dtype)
+    before = fa.flash_attention_qkv.launches, fa.flash_attention_qkv.hopper_launches
+    out = fa._qkv_kernel(qkv, 128 // d, 0.125)
+    assert out.shape == (2, 140, 128) and out.dtype == dtype
+    assert stub_library.calls == [entry]
+    after = fa.flash_attention_qkv.launches, fa.flash_attention_qkv.hopper_launches
+    assert after == (before[0] + 1, before[1] + (entry == HOPPER))
+
+
+@pytest.mark.parametrize(
+    "dtype,d,entry",
+    [(torch.bfloat16, 64, HOPPER), (torch.float32, 64, "ud_attention_packed_fwd"),
+     (torch.bfloat16, 32, "ud_attention_packed_fwd")],
+    ids=["bf16-d64", "fp32-d64", "bf16-d32"],
+)
+def test_k4_routes_by_dtype_and_head_dim(stub_library, dtype, d, entry):
+    """K4 on the strided views of one projection: the Hopper body for bf16
+    at D = 64, its packed entry of attention.cu otherwise."""
+    from unidepth_tpu_torch.ops import flash_attention as fa
+
+    q, k, v = torch.zeros(2, 140, 3 * 128, dtype=dtype).split(128, dim=-1)
+    before = fa.flash_attention_packed.launches, fa.flash_attention_packed.hopper_launches
+    fa._packed_kernel(q, k, v, 128 // d, 0.125)
+    assert stub_library.calls == [entry]
+    after = fa.flash_attention_packed.launches, fa.flash_attention_packed.hopper_launches
+    assert after == (before[0] + 1, before[1] + (entry == HOPPER))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [64, 32])
+def test_k3_always_takes_the_mma_sync_body(stub_library, dtype, d):
+    from unidepth_tpu_torch.ops import flash_attention as fa
+
+    q, k, v = (torch.zeros(4, 100, d, dtype=dtype) for _ in range(3))
+    hopper = fa.flash_attention_qkv.hopper_launches, fa.flash_attention_packed.hopper_launches
+    before = fa.flash_attention.launches
+    fa._flash_kernel(q, k, v, d**-0.5)
+    assert stub_library.calls == ["ud_attention_fwd"]
+    assert fa.flash_attention.launches == before + 1
+    assert (fa.flash_attention_qkv.hopper_launches, fa.flash_attention_packed.hopper_launches) == hopper
+
+
+@pytest.mark.parametrize("scale", [0.0, -0.125, float("inf")])
+def test_hopper_route_refuses_a_scale_it_cannot_take(stub_library, scale):
+    """The Hopper body takes its row max on the raw scores, so it needs a
+    positive finite scale: anything else raises before the library is
+    called, and no other body is tried."""
+    from unidepth_tpu_torch.ops import flash_attention as fa
+
+    qkv = torch.zeros(1, 70, 3 * 128, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="scale"):
+        fa._qkv_kernel(qkv, 2, scale)
+    assert stub_library.calls == []

@@ -42,7 +42,7 @@ def models():
     jm.params = jax.tree_util.tree_map(
         lambda a: np.asarray(a) + 0.02 * rng.standard_normal(a.shape).astype(np.float32), jm.params
     )
-    tm = UniDepthV2.from_config(CFG)
+    tm = UniDepthV2.from_config(CFG, device="cpu")
     tm.load_state_dict(from_jax_params(jm.params, CFG))
     return jm, tm
 

@@ -59,7 +59,7 @@ def models():
     jm.params = jax.tree_util.tree_map(
         lambda a: np.asarray(a) + 0.02 * rng.standard_normal(a.shape).astype(np.float32), jm.params
     )
-    tm = UniDepthV2.from_config(CFG)
+    tm = UniDepthV2.from_config(CFG, device="cpu")
     tm.load_state_dict(from_jax_params(jm.params, CFG))
     return jm, tm.eval()
 
@@ -104,7 +104,7 @@ def test_int8_encoder_is_quantized_from_fp32_masters(models):
     from the fp32 values: codes and scales equal JAX ``quantize_dense_tree``
     bit for bit, and stay int8 / fp32 under another ``.to(bfloat16)``."""
     jm, _ = models
-    tm = UniDepthV2.from_config(CFG)
+    tm = UniDepthV2.from_config(CFG, device="cpu")
     tm.load_state_dict(from_jax_params(jm.params, CFG))
     tm.to(torch.bfloat16).set_serving_precision("int8")
     qp = quantize_dense_tree(jm.params["encoder"])
@@ -129,7 +129,7 @@ def test_fp32_masters_are_kept_only_below_fp32(models):
     keeps them bit for bit."""
     jm, _ = models
     sd = from_jax_params(jm.params, CFG)
-    tm = UniDepthV2.from_config(CFG)
+    tm = UniDepthV2.from_config(CFG, device="cpu")
     tm.load_state_dict(sd)
     assert tm._fp32_masters is None
     tm.init_params(seed=1)
@@ -140,7 +140,7 @@ def test_fp32_masters_are_kept_only_below_fp32(models):
     assert torch.equal(tm._fp32_masters["blocks.0.mlp.fc1"][0], fc1)
     tm.float()
     assert tm._fp32_masters is None
-    tb = UniDepthV2.from_config(CFG, dtype=torch.bfloat16)
+    tb = UniDepthV2.from_config(CFG, device="cpu", dtype=torch.bfloat16)
     tb.load_state_dict(sd)
     w, b = tb._fp32_masters["blocks.3.attn.qkv"]
     assert torch.equal(w, sd["pixel_encoder.blocks.3.attn.qkv.weight"])
@@ -152,7 +152,7 @@ def test_int8_build_skips_a_master_its_parameter_left(models, dtype):
     """A weight written in place after load_state_dict no longer matches its
     master: an fp32 model quantizes the live value, a bf16 one raises."""
     jm, _ = models
-    tm = UniDepthV2.from_config(CFG)
+    tm = UniDepthV2.from_config(CFG, device="cpu")
     tm.load_state_dict(from_jax_params(jm.params, CFG))
     tm.to(dtype).set_serving_precision("int8")
     fc2 = tm.pixel_encoder.blocks[1].mlp.fc2

@@ -76,6 +76,19 @@ def compute_dtype(device) -> torch.dtype:
     return torch.bfloat16 if torch.device(device).type == "cuda" else torch.float32
 
 
+def resolve_device(device) -> torch.device:
+    """``device`` as given, else the card. Without a card an unnamed device
+    raises: the CPU runs only when the caller asks for it."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "UniDepthV2: no CUDA device is available and no device was named; "
+            'pass device="cpu" to build the model on the CPU'
+        )
+    return torch.device("cuda")
+
+
 class UniDepthV2(ServingPrecisionMixin, nn.Module):
     """Encoder + decoder with the reference checkpoint's state_dict keys
     (``pixel_encoder.*``, ``pixel_decoder.*``)."""
@@ -118,7 +131,10 @@ class UniDepthV2(ServingPrecisionMixin, nn.Module):
     @classmethod
     def from_config(cls, config: dict, device=None, dtype: torch.dtype | None = None) -> "UniDepthV2":
         """Build from a reference-schema JSON config dict, placed on
-        ``device`` (default CPU) in ``dtype`` (default ``compute_dtype``)."""
+        ``device`` (default ``cuda``; without a card pass ``device="cpu"``)
+        in ``dtype`` (default ``compute_dtype``: bf16 on the card, fp32 on
+        the CPU)."""
+        device = resolve_device(device)
         pe = config["model"]["pixel_encoder"]
         vit = VIT_PRESETS.get(pe["name"].replace("dinov2_", ""))
         enc_cfg = ViTConfig(
@@ -152,20 +168,20 @@ class UniDepthV2(ServingPrecisionMixin, nn.Module):
             stacking=pe.get("stacking_fn", "last"),
         )
         model.attention_logit_bound = config["model"].get("attention_logit_bound")
-        device = torch.device("cpu" if device is None else device)
         return model.to(device=device, dtype=dtype or compute_dtype(device))
 
     @classmethod
     def from_pretrained(cls, local_dir, device=None, dtype: torch.dtype | None = None) -> "UniDepthV2":
         """Load ``config.json`` + ``pytorch_model.bin`` / ``model.safetensors``
-        from a local directory (reference checkpoint keys)."""
+        from a local directory (reference checkpoint keys), placed as
+        ``from_config`` places it (default ``cuda``)."""
         from unidepth_tpu_torch.io.hub import load_checkpoint
 
+        device = resolve_device(device)  # before the checkpoint is read
         config, state_dict = load_checkpoint(local_dir)
-        model = cls.from_config(config)
+        model = cls.from_config(config, device=device, dtype=dtype)
         model.load_state_dict(model.select_checkpoint_keys(state_dict))
-        device = torch.device("cpu" if device is None else device)
-        return model.to(device=device, dtype=dtype or compute_dtype(device))
+        return model
 
     def select_checkpoint_keys(self, state_dict: dict) -> dict:
         """Drop the reference checkpoint entries this model has no use for:

@@ -108,12 +108,31 @@ def build() -> Path:
     return out
 
 
+def ptxas_report(kernel: str) -> list[str]:
+    """What ptxas said about ``kernel`` (a substring of its mangled name) when
+    this source hash was built: registers, spills, shared memory. Empty when
+    the build's log holds no such entry."""
+    log = BUILD_ROOT / _build_key() / "nvcc.log"
+    lines = log.read_text().splitlines() if log.is_file() else []
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and kernel in line:
+            out = [line]
+            for nxt in lines[i + 1 :]:
+                if "Compiling entry function" in nxt or not nxt.startswith(("ptxas", " ")):
+                    break
+                out.append(nxt)
+            return out
+    return []
+
+
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
     lib.ud_attention_fwd.argtypes = [p, p, p, p, i, i, i, i, i] + [ll] * 8 + [f, i, p]
     lib.ud_attention_fwd.restype = i
     lib.ud_attention_packed_fwd.argtypes = lib.ud_attention_fwd.argtypes
     lib.ud_attention_packed_fwd.restype = i
+    lib.ud_attention_hopper_fwd.argtypes = lib.ud_attention_fwd.argtypes
+    lib.ud_attention_hopper_fwd.restype = i
     lib.ud_ln_dense_fwd.argtypes = [p, p, p, p, p, p, i, i, i, f, i, i, p]
     lib.ud_ln_dense_fwd.restype = i
     lib.ud_conv3x3_fwd.argtypes = [p, p, p, p] + [i] * 7 + [p]

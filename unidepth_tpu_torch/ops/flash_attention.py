@@ -1,8 +1,9 @@
-"""Flash attention: the CUDA kernel ``csrc/attention.cu`` and its plain
-PyTorch version (counterpart of unidepth_tpu/ops/flash_attention.py).
+"""Flash attention: the CUDA kernels ``csrc/attention_wgmma.cu`` and
+``csrc/attention.cu`` and their plain PyTorch version (counterpart of
+unidepth_tpu/ops/flash_attention.py).
 
-Three entry points share the one kernel, which reads each tensor through a
-base pointer, a batch stride and a row stride, with head h at column h * D:
+Three entry points; each kernel reads every tensor through a base pointer,
+a batch stride and a row stride, with head h at column h * D:
 
 * ``flash_attention_qkv`` (kernel K1) replaces the TPU kernel
   ``flash_attention_qkv`` (``_flash_fwd_qkv`` / ``_packed_kernel``): the ViT
@@ -18,15 +19,20 @@ base pointer, a batch stride and a row stride, with head h at column h * D:
   kernel reads in place. Shapes outside ``packed_supported`` go to K3 by a
   head split and merge, as in the JAX package.
 
-The kernel is bound by compute on the H100 (~61.5 GFLOP per K1 call at the
-ViT-L serving shape against < 0.1 GB moved): it runs both products on the
-tensor cores in bf16 with fp32 softmax statistics, keeps the online row max
+Which body runs is fixed by dtype and head dim, never by a failure: K1 and
+K4 in bf16 at D = 64 (every ViT preset) launch the Hopper body
+(``attention_wgmma.cu``: wgmma for both products, TMA loads through an
+mbarrier ring, 128 x 128 tiles); fp32, the other head dims and every K3
+call launch the mma.sync body (``attention.cu``). Both are bound by compute
+on the H100 (~61.5 GFLOP per K1 call at the ViT-L serving shape against
+< 0.1 GB moved): they keep fp32 softmax statistics and the online row max
 (exact for any logits, so the TPU's logit audit has no counterpart), and
-never writes the N x N scores (see the source for the design).
+never write the N x N scores (see the sources for the designs).
 
-A CPU tensor takes the plain version. A CUDA tensor launches the kernel, or
+A CPU tensor takes the plain version. A CUDA tensor launches a kernel, or
 raises when it cannot: nothing falls back. ``launches`` on each wrapper
-counts the kernel launches it made.
+counts the kernel launches it made; ``hopper_launches`` on K1 and K4 counts
+those of the Hopper body among them.
 """
 
 from __future__ import annotations
@@ -46,6 +52,8 @@ __all__ = [
 
 SUPPORTED_HEAD_DIMS = (8, 16, 32, 64, 128)
 PACKED_MAX_KEYS = 4096  # the TPU kernel's whole-K VMEM bound (_packed_supported)
+HOPPER_ENTRY = "ud_attention_hopper_fwd"  # attention_wgmma.cu: bf16, head dim 64
+HOPPER_HEAD_DIM = 64
 
 
 def flash_attention_plain(q, k, v, scale: float):
@@ -84,10 +92,18 @@ def packed_supported(nk: int, c: int, num_heads: int) -> bool:
     return -(-nk // 128) * 128 <= PACKED_MAX_KEYS
 
 
+def _entry(dtype: torch.dtype, d: int, other: str) -> str:
+    """The C entry K1 or K4 launches: the Hopper body for bf16 at D = 64,
+    else ``other`` (the mma.sync / CUDA-core body of attention.cu)."""
+    return HOPPER_ENTRY if dtype == torch.bfloat16 and d == HOPPER_HEAD_DIM else other
+
+
 def _launch(name, q, k_ptr, v_ptr, o, batch, heads, nq, nk, d, strides, scale, entry="ud_attention_fwd"):
     """strides: (q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, o_bs, o_rs) in elements."""
     if d not in SUPPORTED_HEAD_DIMS:
         raise ValueError(f"{name}: head dim {d} not in {SUPPORTED_HEAD_DIMS}")
+    if entry == HOPPER_ENTRY and not 0 < scale < float("inf"):
+        raise ValueError(f"{name}: the Hopper body takes its row max on the raw scores and needs scale > 0, got {scale}")
     if any(s % 8 for s in strides[1::2]):
         raise ValueError(f"{name}: row strides {strides[1::2]} must be multiples of 8")
     # the kernel loads rows with 16-byte cp.async; a misaligned base pointer
@@ -109,22 +125,32 @@ def flash_attention_qkv(qkv: torch.Tensor, num_heads: int, scale: float) -> torc
     if qkv.device.type == "cpu":
         return flash_attention_qkv_plain(qkv, num_heads, scale)
     _cuda.require_cuda("flash_attention_qkv", qkv)
+    return _qkv_kernel(qkv, num_heads, scale)
+
+
+def _qkv_kernel(qkv, num_heads, scale):
+    """K1's launch, on whatever device ``qkv`` is (the CPU tests call it with
+    the library stubbed to see the route)."""
     if not qkv.is_contiguous():
         raise ValueError("flash_attention_qkv: qkv must be contiguous")
     b, n, c3 = qkv.shape
     c = c3 // 3
+    d = c // num_heads
+    entry = _entry(qkv.dtype, d, "ud_attention_fwd")
     out = torch.empty((b, n, c), dtype=qkv.dtype, device=qkv.device)
     step = c * qkv.element_size()
     _launch(
         "flash_attention_qkv", qkv, qkv.data_ptr() + step, qkv.data_ptr() + 2 * step, out,
-        b, num_heads, n, n, c // num_heads,
-        (n * c3, c3, n * c3, c3, n * c3, c3, n * c, c), scale,
+        b, num_heads, n, n, d,
+        (n * c3, c3, n * c3, c3, n * c3, c3, n * c, c), scale, entry,
     )
     flash_attention_qkv.launches += 1
+    flash_attention_qkv.hopper_launches += entry == HOPPER_ENTRY
     return out
 
 
 flash_attention_qkv.launches = 0
+flash_attention_qkv.hopper_launches = 0
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> torch.Tensor:
@@ -132,6 +158,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: fl
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, scale)
     _cuda.require_cuda("flash_attention", q, k, v)
+    return _flash_kernel(q, k, v, scale)
+
+
+def _flash_kernel(q, k, v, scale):
+    """K3's launch: always the mma.sync / CUDA-core body of attention.cu."""
     if not (q.dtype == k.dtype == v.dtype):
         raise ValueError("flash_attention: q, k and v must share a dtype")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
@@ -174,6 +205,13 @@ def flash_attention_packed(
     if q.device.type == "cpu":
         return flash_attention_packed_plain(q, k, v, num_heads, scale)
     _cuda.require_cuda("flash_attention_packed", q, k, v)
+    return _packed_kernel(q, k, v, num_heads, scale)
+
+
+def _packed_kernel(q, k, v, num_heads, scale):
+    """K4's launch in the packed regime, on whatever device the tensors are."""
+    b, nq, c = q.shape
+    nk, d = k.shape[1], c // num_heads
     if not (q.dtype == k.dtype == v.dtype):
         raise ValueError("flash_attention_packed: q, k and v must share a dtype")
     if any(t.stride(2) != 1 for t in (q, k, v)):
@@ -181,13 +219,16 @@ def flash_attention_packed(
     strides = (q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1), nq * c, c)
     if any(s % 8 for s in strides[0::2]):
         raise ValueError(f"flash_attention_packed: batch strides {strides[0::2]} must be multiples of 8")
+    entry = _entry(q.dtype, d, "ud_attention_packed_fwd")
     out = torch.empty((b, nq, c), dtype=q.dtype, device=q.device)
     _launch(
         "flash_attention_packed", q, k.data_ptr(), v.data_ptr(), out, b, num_heads, nq, nk, d,
-        strides, scale, entry="ud_attention_packed_fwd",
+        strides, scale, entry,
     )
     flash_attention_packed.launches += 1
+    flash_attention_packed.hopper_launches += entry == HOPPER_ENTRY
     return out
 
 
 flash_attention_packed.launches = 0
+flash_attention_packed.hopper_launches = 0

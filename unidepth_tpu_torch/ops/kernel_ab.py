@@ -7,7 +7,9 @@ scripts_torch/kernel_ab.py).
 JAX ``run_variant`` takes, with the same meaning, on (B, N, H*D) tensors:
 
 * ``base`` is the port's K4, ``flash_attention_packed``, as the JAX harness
-  calls the JAX one;
+  calls the JAX one (in bf16 at D = 64 the wgmma + TMA body of
+  attention_wgmma.cu, while the variants below keep the mma.sync body they
+  were priced against);
 * ``bd*`` names go to ``run_bd`` (kernel K7, replacing ``make_bd_kernel``);
 * every other name is kernel K6 (replacing ``make_kernel``). q is pre-scaled
   and rounded to its dtype, ``(q * scale).to(q.dtype)``; masked keys take
