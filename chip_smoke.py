@@ -8,12 +8,14 @@ fails (non-zero exit, no result line) without CUDA or outside a checkout.
 
 1. Prints the card's name and power limit, builds the CUDA kernels from
    ``unidepth_tpu_torch/csrc`` with nvcc, and prints what ptxas reported for
-   the Hopper attention body (registers, spills).
+   the two Hopper bodies (attn_fwd_wgmma, ln_dense_wgmma: registers, spills).
 2. One phase per kernel at the shapes its path gives it (K4: strided views
-   of one (8, 1370, 3072) projection, 16 heads, scale 1/8). In bf16 I/O
-   it runs the tensor-core kernels that the paths launch (K1 and K4 at
-   head dim 64: attn_fwd_wgmma, the wgmma + TMA body of
-   attention_wgmma.cu; K3: attn_fwd_bf16, mma.sync; K2: ln_dense_bf16) and
+   of one (8, 1370, 3072) projection, 16 heads, scale 1/8; K3: the
+   decoder's (64, 1369, 64); K2: M = 10960, C = 1024, F = 4096). In bf16
+   I/O it runs the tensor-core kernels that the paths launch, the wgmma +
+   TMA Hopper bodies (K1, K3 and K4 at head dim 64: attn_fwd_wgmma of
+   attention_wgmma.cu; K2: ln_row_stats, then ln_dense_wgmma of
+   ln_dense_wgmma.cu), checks that each bf16 call took its Hopper body, and
    holds them against the plain PyTorch
    version computed in fp32 on the same bf16 inputs: elementwise at rtol
    1.6e-2, atol 1e-2 (bf16 output rounding), and at a relative RMS error
@@ -38,32 +40,36 @@ fails (non-zero exit, no result line) without CUDA or outside a checkout.
    computing the same
    function on the same data, timed as a yardstick and never called by the
    port: ``F.scaled_dot_product_attention`` for K1, K3, K4, K6 (M1) and K7,
-   ``F.conv2d`` (cuDNN, channels-last bf16, on the padded input) for K5.
+   ``F.conv2d`` (cuDNN, channels-last bf16, on the padded input) for K5;
+   for K2, where no one call computes it, ``F.layer_norm -> F.linear ->
+   F.gelu`` composed in bf16 (three calls; the record's ``library`` says
+   which yardstick each kernel has).
    ``bound_ms`` is the larger of the bytes moved over 3.35 TB/s and the
    operations over 989 TFLOP/s (bf16 dense, H100 SXM).
 4. Builds UniDepthV2 ViT-L/14 from configs/config_v2_vitl14.json with no
    device named (the entry point's default: the card, bf16) and random
    weights (``init_params(seed=0)``), runs ``infer()`` on 8 seeded
    518x518 images, checks shapes, finiteness and depth > 0, checks
-   that the forward launched K1 (flash_attention_qkv) 24 times, all 24 on
-   the Hopper body, K2 (ln_dense) 24 times, K3 (flash_attention) 4 times
-   (mma.sync) and K4 never, and
+   that the forward launched K1 (flash_attention_qkv) 24 times, K2
+   (ln_dense) 24 times, K3 (flash_attention) 4 times, each of them on its
+   Hopper body, and K4 never, and
    holds depth against the same model run on the plain path in fp32 on the
    card (median relative error <= 1e-2). Then times depth-only ``infer()``
    in three rounds and prints each.
 5. The int8 serving path on the same model: ``set_serving_precision('int8')``
    quantizes the encoder from the fp32 masters that ``init_params`` kept,
    then ``infer()`` on the same images: shapes, finiteness and depth > 0;
-   launches K4 (flash_attention_packed) 24, all on the Hopper body, K1 0,
-   K2 0, K3 4; depth against
+   launches K4 (flash_attention_packed) 24, K1 0, K2 0, K3 4, K3 and K4 on
+   the Hopper body; depth against
    the fp32 plain path at the JAX package's int8 bounds (mean relative
    error < 0.05, 99th percentile < 0.15, intrinsics relative error < 0.1,
    tests/test_quant.py). Then one forward under the stage mask (True, False,
-   True, False): launches K4 12, K1 12 (each 12 on the Hopper body), K2
-   12, K3 4. Then times int8 depth-only ``infer()`` in three rounds.
+   True, False): launches K4 12, K1 12, K2 12, K3 4, every one on the
+   Hopper body. Then times int8 depth-only ``infer()`` in three rounds.
 
-Each path's launch counts (and the Hopper-body counts of K1 and K4) are set
-to 0 just before it runs and read just after. The K6 harness's ``base``
+Each path's launch counts (and the Hopper-body counts of K1-K4) are set
+to 0 just before it runs and read just after. A K2 call counts once, though
+it launches its row statistics and its GEMM. The K6 harness's ``base``
 row is K4 itself, so it runs the Hopper body; its M1-M9 variants run
 attention_ab.cu's mma.sync body. The last two lines are the kernels' JSON
 record (each kernel with its ``body``) and ``{"ok": true, "device":
@@ -96,7 +102,9 @@ AB_ITERS = 20
 AB_FAMILY_NAMES = ("base", "tr_max", "bf16p", "nomax_guard", "tr_lmxu", "nomax", "noexp", "gemmonly",
                    "qk_only", "pv_only")
 BD_NAMES = ("bd", "bd_lmxu")
-HOPPER = ("flash_attention_qkv", "flash_attention_packed")  # K1, K4: attention_wgmma.cu at head dim 64
+# the kernels with a Hopper body (wgmma + TMA) beside their mma.sync one: K1, K3
+# and K4 (attention_wgmma.cu, bf16 at head dim 64) and K2 (ln_dense_wgmma.cu)
+HOPPER = ("flash_attention_qkv", "ln_dense", "flash_attention", "flash_attention_packed")
 
 
 def log(*args):
@@ -149,10 +157,14 @@ def check_bf16(name, out, ref):
 
 def kernel_phase(name, kernel, plain, make_inputs, fp32_tol, flops, library=None):
     """Compare ``kernel`` with ``plain`` in bf16 and fp32 I/O; time both in
-    bf16, and ``library(*args)()``, a yardstick call on the same data."""
+    bf16, and ``library(*args)()``, a yardstick call on the same data. A
+    kernel with a Hopper body must take it for the bf16 call."""
     args = make_inputs(torch.bfloat16)
+    hopper = getattr(kernel, "hopper_launches", None)
     out = kernel(*args)
     torch.cuda.synchronize()
+    if hopper is not None and kernel.hopper_launches != hopper + 1:
+        raise RuntimeError(f"{name}: the bf16 call at the path shape did not run the Hopper body")
     ref = plain(*[a.float() if torch.is_tensor(a) else a for a in args])
     err, rel_rms = check_bf16(name, out, ref)
     args32 = make_inputs(torch.float32)
@@ -274,7 +286,8 @@ def main():
     t0 = time.perf_counter()
     _cuda.library()
     log(f"build: {time.perf_counter() - t0:.1f} s (nvcc {_cuda.build_seconds} s)")
-    log("\n".join(_cuda.ptxas_report("attn_fwd_wgmma")) or "ptxas report for attn_fwd_wgmma: none in the build log")
+    for kernel in ("attn_fwd_wgmma", "ln_dense_wgmma"):
+        log("\n".join(_cuda.ptxas_report(kernel)) or f"ptxas report for {kernel}: none in the build log")
 
     # every kernel's wrapper, by the name its record carries
     kernels = {
@@ -338,6 +351,10 @@ def main():
     def sdpa_packed(q, k, v, num_heads, scale):
         return sdpa(*(heads_view(t, num_heads) for t in (q, k, v)), scale)
 
+    def ln_dense_library(x, w, bias, gamma, beta, eps, activation):
+        # three calls composed in bf16: the yardstick no single call gives
+        return lambda: F.gelu(F.linear(F.layer_norm(x, x.shape[-1:], gamma, beta, eps), w, bias))
+
     def conv_library(x, w, bias, mode):
         # cuDNN on the padded input in channels-last bf16: the same output
         pad = "constant" if mode == "zeros" else mode
@@ -350,7 +367,7 @@ def main():
         "K1 flash_attention_qkv", flash_attention_qkv, flash_attention_qkv_plain, k1_inputs, 1e-4,
         4 * BATCH * 1370 * 1370 * 1024, sdpa_qkv)
     m["ln_dense"] = kernel_phase("K2 ln_dense", ln_dense, ln_dense_plain, k2_inputs, 2e-4,
-                                 2 * BATCH * 1370 * 1024 * 4096)
+                                 2 * BATCH * 1370 * 1024 * 4096, ln_dense_library)
     m["flash_attention"] = kernel_phase(
         "K3 flash_attention", flash_attention, flash_attention_plain, k3_inputs, 1e-4,
         4 * BATCH * 8 * 1369 * 1369 * 64, lambda q, k, v, scale: sdpa(q[None], k[None], v[None], scale))
@@ -435,7 +452,8 @@ def main():
 
     out, launches = run_path("bf16 infer()", kernels, lambda: model.infer(rgb))
     check_launches("bf16 infer()", launches, {**none, "flash_attention_qkv": 24, "flash_attention_qkv/wgmma": 24,
-                                              "ln_dense": 24, "flash_attention": 4})
+                                              "ln_dense": 24, "ln_dense/wgmma": 24,
+                                              "flash_attention": 4, "flash_attention/wgmma": 4})
     check_outputs("bf16 infer()", out)
 
     ref_model = UniDepthV2.from_config(config, device=dev, dtype=torch.float32).init_params(seed=SEED)
@@ -459,8 +477,8 @@ def main():
     torch.cuda.synchronize()
     log(f"int8 encoder quantized from the fp32 masters in {time.perf_counter() - t0:.2f} s")
     out_q, launches_q = run_path("int8 infer()", kernels, lambda: model.infer(rgb))
-    check_launches("int8 infer()", launches_q, {**none, "flash_attention": 4, "flash_attention_packed": 24,
-                                                "flash_attention_packed/wgmma": 24})
+    check_launches("int8 infer()", launches_q, {**none, "flash_attention": 4, "flash_attention/wgmma": 4,
+                                                "flash_attention_packed": 24, "flash_attention_packed/wgmma": 24})
     check_outputs("int8 infer()", out_q)
     # the JAX package's int8 bounds against full precision (tests/test_quant.py)
     rel = ((out_q["depth"] - ref["depth"]).abs() / (ref["depth"].abs() + 1e-6)).flatten()
@@ -476,7 +494,8 @@ def main():
     out_m, launches_m = run_path(f"int8 infer() under stage mask {STAGE_MASK}", kernels, lambda: model.infer(rgb))
     check_launches("masked int8 infer()", launches_m,
                    {**none, "flash_attention_qkv": 12, "flash_attention_qkv/wgmma": 12, "ln_dense": 12,
-                    "flash_attention": 4, "flash_attention_packed": 12, "flash_attention_packed/wgmma": 12})
+                    "ln_dense/wgmma": 12, "flash_attention": 4, "flash_attention/wgmma": 4,
+                    "flash_attention_packed": 12, "flash_attention_packed/wgmma": 12})
     check_outputs("masked int8 infer()", out_m)
     del out_m
     model._int8_stages = None
@@ -491,23 +510,24 @@ def main():
         "run_variant": k6_launches["run_variant"],
         "run_bd": k7_launches["run_bd"],
     }
-    # the Hopper body's launches on the same paths (K1: bf16, K4: int8)
-    hopper_launches = {"flash_attention_qkv": launches["flash_attention_qkv/wgmma"],
-                       "flash_attention_packed": launches_q["flash_attention_packed/wgmma"]}
-    sources = {  # source, TPU kernel, body at the path's shapes
-        "flash_attention_qkv": ("attention_wgmma.cu", "unidepth_tpu/ops/flash_attention.py:471", "wgmma"),
-        "ln_dense": ("ln_dense.cu", "unidepth_tpu/ops/fused_block.py:102", "mma.sync"),
-        "flash_attention": ("attention.cu", "unidepth_tpu/ops/flash_attention.py:159", "mma.sync"),
-        "flash_attention_packed": ("attention_wgmma.cu", "unidepth_tpu/ops/flash_attention.py:347", "wgmma"),
-        "conv3x3_lowchannel": ("conv3x3.cu", "unidepth_tpu/ops/conv_kernels.py:88", "mma.sync"),
-        "run_variant": ("attention_ab.cu", "scripts/kernel_ab.py:53", "mma.sync"),
-        "run_bd": ("attention_ab.cu", "scripts/kernel_ab.py:214", "mma.sync"),
+    # the Hopper body's launches on the same paths (K1-K3: bf16, K4: int8)
+    hopper_launches = {k: (launches_q if k == "flash_attention_packed" else launches)[f"{k}/wgmma"] for k in HOPPER}
+    sources = {  # source, TPU kernel, body at the path's shapes, the library yardstick
+        "flash_attention_qkv": ("attention_wgmma.cu", "unidepth_tpu/ops/flash_attention.py:471", "wgmma", "SDPA"),
+        "ln_dense": ("ln_dense_wgmma.cu", "unidepth_tpu/ops/fused_block.py:102", "wgmma",
+                     "F.layer_norm -> F.linear -> F.gelu, three calls"),
+        "flash_attention": ("attention_wgmma.cu", "unidepth_tpu/ops/flash_attention.py:159", "wgmma", "SDPA"),
+        "flash_attention_packed": ("attention_wgmma.cu", "unidepth_tpu/ops/flash_attention.py:347", "wgmma", "SDPA"),
+        "conv3x3_lowchannel": ("conv3x3.cu", "unidepth_tpu/ops/conv_kernels.py:88", "mma.sync", "F.conv2d (cuDNN)"),
+        "run_variant": ("attention_ab.cu", "scripts/kernel_ab.py:53", "mma.sync", "SDPA"),
+        "run_bd": ("attention_ab.cu", "scripts/kernel_ab.py:214", "mma.sync", "SDPA"),
     }
     record = [
         {"name": name, "route": "cuda", "source": f"unidepth_tpu_torch/csrc/{src}", "replaces": rep, "body": body,
          "launches": path_launches[name],
-         **({"hopper_launches": hopper_launches[name]} if name in hopper_launches else {}), **m[name]}
-        for name, (src, rep, body) in sources.items()
+         **({"hopper_launches": hopper_launches[name]} if name in hopper_launches else {}), **m[name],
+         "library": library}
+        for name, (src, rep, body, library) in sources.items()
     ]
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s, the build included")
     log(json.dumps({"kernels": record}))

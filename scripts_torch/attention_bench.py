@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""The encoder self-attention bodies side by side on one CUDA card.
+"""The attention bodies side by side on one CUDA card.
 
     python3 scripts_torch/attention_bench.py [--reps 10] [--runs 10]
 
@@ -8,7 +8,9 @@ Builds the kernels and prints what ptxas reported for the Hopper body
 (``attn_fwd_wgmma``: registers, spills, shared memory). Then, at the ViT-L
 serving shape (B=8, N=1370, 16 heads of 64, bf16, scale 1/8) for K1
 (``flash_attention_qkv`` on one contiguous (8, 1370, 3072) projection) and
-K4 (``flash_attention_packed`` on its three strided channel views):
+K4 (``flash_attention_packed`` on its three strided channel views), and at
+the V2 decoder's cross-attention shape for K3 (``flash_attention`` on flat
+(64, 1369, 64) tensors, 8 images x 8 heads):
 
 * holds the Hopper body against the plain version in fp32 on the same bf16
   inputs (max abs error, relative RMS error);
@@ -17,9 +19,9 @@ K4 (``flash_attention_packed`` on its three strided channel views):
   called directly), and one ``F.scaled_dot_product_attention`` call on the
   same views (the library yardstick, never called by the port): CUDA events
   around ``--reps`` back-to-back calls, median of ``--runs``;
-* prints each time, its ratio to SDPA, its TFLOP/s (61.5 GFLOP a call) and
-  its share of the 989 TFLOP/s bf16 dense peak, with the card's name and
-  power limit, then one JSON line.
+* prints each time, its ratio to SDPA at the same shape, its TFLOP/s (61.5
+  GFLOP a K1/K4 call, 30.7 a K3 call) and its share of the 989 TFLOP/s
+  bf16 dense peak, with the card's name and power limit, then one JSON line.
 """
 
 import argparse
@@ -35,6 +37,7 @@ import torch.nn.functional as F
 
 ROOT = Path(__file__).resolve().parents[1]
 B, N, HEADS, D = 8, 1370, 16, 64
+BH3, N3 = 64, 1369  # K3: the decoder's 8 images x 8 heads, 37 x 37 queries and keys
 SCALE = D**-0.5
 BF16_FLOP_S = 989e12
 
@@ -84,36 +87,48 @@ def main():
     def mma_sync():
         fa._launch("mma.sync body", q, k.data_ptr(), v.data_ptr(), out, B, HEADS, N, N, D, strides, SCALE)
 
-    calls = {
-        "K1": lambda: fa.flash_attention_qkv(qkv, HEADS, SCALE),
-        "K4": lambda: fa.flash_attention_packed(q, k, v, HEADS, SCALE),
-        "mma.sync": mma_sync,
-        "sdpa": lambda: F.scaled_dot_product_attention(*views, scale=SCALE),
+    q3, k3, v3 = (torch.randn(BH3, N3, D, generator=gen, device="cuda").to(torch.bfloat16) for _ in range(3))
+    out3 = torch.empty_like(q3)
+    strides3 = (N3 * D, D) * 4
+
+    def k3_mma_sync():
+        fa._launch("K3 mma.sync body", q3, k3.data_ptr(), v3.data_ptr(), out3, BH3, 1, N3, N3, D, strides3, SCALE)
+
+    flop, flop3 = 4 * B * N * N * c, 4 * BH3 * N3 * N3 * D
+    calls = {  # name: (call, FLOP a call, the SDPA row at its shape)
+        "K1": (lambda: fa.flash_attention_qkv(qkv, HEADS, SCALE), flop, "sdpa"),
+        "K4": (lambda: fa.flash_attention_packed(q, k, v, HEADS, SCALE), flop, "sdpa"),
+        "mma.sync": (mma_sync, flop, "sdpa"),
+        "sdpa": (lambda: F.scaled_dot_product_attention(*views, scale=SCALE), flop, "sdpa"),
+        "K3": (lambda: fa.flash_attention(q3, k3, v3, SCALE), flop3, "K3 sdpa"),
+        "K3 mma.sync": (k3_mma_sync, flop3, "K3 sdpa"),
+        "K3 sdpa": (lambda: F.scaled_dot_product_attention(q3[None], k3[None], v3[None], scale=SCALE), flop3, "K3 sdpa"),
     }
     ref = fa.flash_attention_qkv_plain(qkv.float(), HEADS, SCALE)
+    ref3 = fa.flash_attention_plain(q3.float(), k3.float(), v3.float(), SCALE)
     record = {"card": smi, "registers": int(regs.group(1)) if regs else None}
-    for name in ("K1", "K4"):
-        before = (fa.flash_attention_qkv.hopper_launches, fa.flash_attention_packed.hopper_launches)
-        got = calls[name]()
+    hopper = (fa.flash_attention_qkv, fa.flash_attention_packed, fa.flash_attention)
+    for name, want in (("K1", ref), ("K4", ref), ("K3", ref3)):
+        before = sum(fn.hopper_launches for fn in hopper)
+        got = calls[name][0]()
         torch.cuda.synchronize()
-        after = (fa.flash_attention_qkv.hopper_launches, fa.flash_attention_packed.hopper_launches)
-        if sum(after) != sum(before) + 1:
+        if sum(fn.hopper_launches for fn in hopper) != before + 1:
             raise RuntimeError(f"{name} did not launch the Hopper body")
-        err = (got.float() - ref).abs().max().item()
-        rel = ((got.float() - ref).norm() / ref.norm()).item()
+        err = (got.float() - want).abs().max().item()
+        rel = ((got.float() - want).norm() / want.norm()).item()
         print(f"{name} Hopper body: max_abs_err {err:.3e} rel_rms {rel:.3e}", flush=True)
         record[f"{name}_rel_rms"] = rel
     times = {name: [] for name in calls}
     for order in (list(calls), list(reversed(calls))):  # in turns: a, b, c, d, d, c, b, a
         for name in order:
-            times[name].append(event_ms(calls[name], args.reps, args.runs))
-    flop = 4 * B * N * N * c
-    sdpa_ms = statistics.median(times["sdpa"])
+            times[name].append(event_ms(calls[name][0], args.reps, args.runs))
     for name, ts in times.items():
         ms = statistics.median(ts)
+        _, fl, sdpa_name = calls[name]
         record[f"{name}_ms"] = ms
-        print(f"{name}: {ms:.4f} ms ({', '.join(f'{t:.4f}' for t in ts)}), {ms / sdpa_ms:.3f}x SDPA, "
-              f"{flop / ms / 1e9:.1f} TFLOP/s, {flop / ms / 1e-3 / BF16_FLOP_S:.1%} of peak ({smi})", flush=True)
+        print(f"{name}: {ms:.4f} ms ({', '.join(f'{t:.4f}' for t in ts)}), "
+              f"{ms / statistics.median(times[sdpa_name]):.3f}x SDPA, {fl / ms / 1e9:.1f} TFLOP/s, "
+              f"{fl / ms / 1e-3 / BF16_FLOP_S:.1%} of peak ({smi})", flush=True)
     print(json.dumps(record))
 
 

@@ -6,8 +6,10 @@ need not have):
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py -q
 
-bf16 I/O runs the tensor-core kernels the model launches (attn_fwd_bf16,
-which K1, K3 and K4 share, and ln_dense_bf16). Each is held against its
+bf16 I/O runs the tensor-core kernels the model launches (at head dim 64
+attn_fwd_wgmma, the Hopper body K1, K3 and K4 share; at the other head dims
+attn_fwd_bf16; ln_dense_wgmma for K2 on its gate, ln_dense_bf16 off it).
+Each is held against its
 plain version computed in fp32 from the same bf16 inputs, elementwise at
 rtol 1.6e-2, atol 1e-2 (bf16 output rounding) and, tighter, at a relative RMS error
 ||out - ref|| / ||ref|| <= 5e-3. The attention outputs here are ~0.05 in
@@ -343,7 +345,12 @@ HOPPER_K1_CASES = (
 
 
 def _hopper_counts():
-    return flash_attention_qkv.hopper_launches, flash_attention_packed.hopper_launches
+    """The Hopper body's launches from K1, K4 and K3."""
+    return flash_attention_qkv.hopper_launches, flash_attention_packed.hopper_launches, flash_attention.hopper_launches
+
+
+def _plus_one(counts, i):
+    return tuple(n + (j == i) for j, n in enumerate(counts))
 
 
 @pytest.mark.parametrize("b,n,h", HOPPER_K1_CASES, ids=[f"b{b}-n{n}-h{h}" for b, n, h in HOPPER_K1_CASES])
@@ -355,7 +362,7 @@ def test_flash_attention_qkv_hopper_body(dev, b, n, h):
     before = flash_attention_qkv.launches, _hopper_counts()
     out = flash_attention_qkv(qkv, h, 0.125)
     torch.cuda.synchronize()
-    assert (flash_attention_qkv.launches, _hopper_counts()) == (before[0] + 1, (before[1][0] + 1, before[1][1]))
+    assert (flash_attention_qkv.launches, _hopper_counts()) == (before[0] + 1, _plus_one(before[1], 0))
     _close(out, flash_attention_qkv_plain(qkv.float(), h, 0.125), torch.bfloat16, 0)
 
 
@@ -375,7 +382,7 @@ def test_flash_attention_qkv_hopper_body_keeps_the_row_max(dev):
     before = _hopper_counts()
     out = flash_attention_qkv(qkv, 2, 0.125)
     torch.cuda.synchronize()
-    assert _hopper_counts() == (before[0] + 1, before[1])
+    assert _hopper_counts() == _plus_one(before, 0)
     assert torch.isfinite(out).all()
     _close(out, ref, torch.bfloat16, 0)
 
@@ -411,7 +418,7 @@ def test_flash_attention_packed_hopper_body(dev, b, nq, nk, c, layout):
     out = flash_attention_packed(q, k, v, h)
     torch.cuda.synchronize()
     assert (flash_attention_packed.launches, flash_attention.launches, _hopper_counts()) == (
-        before[0] + 1, before[1], (before[2][0], before[2][1] + 1))
+        before[0] + 1, before[1], _plus_one(before[2], 1))
     _close(out, flash_attention_packed_plain(q.float(), k.float(), v.float(), h, 0.125), torch.bfloat16, 0)
 
 
@@ -425,22 +432,22 @@ def test_flash_attention_packed_hopper_body_keeps_the_row_max(dev):
     before = _hopper_counts()
     out = flash_attention_packed(q, k, v, 2)
     torch.cuda.synchronize()
-    assert _hopper_counts() == (before[0], before[1] + 1)
+    assert _hopper_counts() == _plus_one(before, 1)
     _close(out, flash_attention_packed_plain(q.float(), k.float(), v.float(), 2, 0.125), torch.bfloat16, 0)
 
 
-@pytest.mark.parametrize("call", ["k3-bf16", "k1-fp32", "k4-fp32", "k1-bf16-d32"])
+@pytest.mark.parametrize("call", ["k3-fp32", "k1-fp32", "k4-fp32", "k1-bf16-d32"])
 def test_other_attention_calls_leave_the_hopper_count(dev, call):
-    """K3 in bf16 at D = 64 and K1/K4 in fp32 or at D != 64 launch
-    attention.cu's bodies: their launch counts rise, hopper_launches does not."""
+    """K1/K3/K4 in fp32 or at D != 64 launch attention.cu's bodies: their
+    launch counts rise, no hopper_launches does."""
     rng = np.random.default_rng(12)
     before = _hopper_counts()
-    if call == "k3-bf16":
-        q, k, v = (_t(rng.standard_normal((4, 200, 64)), dev, torch.bfloat16) for _ in range(3))
+    if call == "k3-fp32":
+        q, k, v = (_t(rng.standard_normal((4, 200, 64)), dev, torch.float32) for _ in range(3))
         n3 = flash_attention.launches
-        out, ref = flash_attention(q, k, v, 0.125), flash_attention_plain(q.float(), k.float(), v.float(), 0.125)
+        out, ref = flash_attention(q, k, v, 0.125), flash_attention_plain(q, k, v, 0.125)
         assert flash_attention.launches == n3 + 1
-        dtype = torch.bfloat16
+        dtype = torch.float32
     elif call == "k4-fp32":
         q, k, v = _t(rng.standard_normal((2, 140, 3 * 128)), dev, torch.float32).split(128, dim=-1)
         out, ref = flash_attention_packed(q, k, v, 2), flash_attention_packed_plain(q, k, v, 2, 0.125)
@@ -454,6 +461,90 @@ def test_other_attention_calls_leave_the_hopper_count(dev, call):
     torch.cuda.synchronize()
     assert _hopper_counts() == before
     _close(out, ref, dtype, 1e-4)
+
+
+K3_HOPPER_CASES = [
+    (64, 1369, 1369),  # the V2 decoder's cross-attentions: 8 images x 8 heads
+    (4, 1024, 1500),  # Nq != Nk
+    (2, 300, 5000),  # past the TPU kernel's 4096 keys (it switches to blocked softmax there)
+    (3, 200, 333),  # ragged last q tile and ragged last key tile together
+    (2, 70, 4097),  # one ragged q tile; a last key tile of one key
+]
+
+
+@pytest.mark.parametrize("bh,nq,nk", K3_HOPPER_CASES, ids=[f"bh{b}-nq{q}-nk{k}" for b, q, k in K3_HOPPER_CASES])
+def test_flash_attention_hopper_body(dev, bh, nq, nk):
+    """K3 in bf16 at D = 64 on the Hopper body: the flat (BH, N, 64) tensors
+    as BH batches of one head."""
+    rng = np.random.default_rng(bh + nq + nk)
+    q = _t(rng.standard_normal((bh, nq, 64)), dev, torch.bfloat16)
+    k, v = (_t(rng.standard_normal((bh, nk, 64)), dev, torch.bfloat16) for _ in range(2))
+    before = flash_attention.launches, _hopper_counts()
+    out = flash_attention(q, k, v, 0.125)
+    torch.cuda.synchronize()
+    assert (flash_attention.launches, _hopper_counts()) == (before[0] + 1, _plus_one(before[1], 2))
+    _close(out, flash_attention_plain(q.float(), k.float(), v.float(), 0.125), torch.bfloat16, 0)
+
+
+def test_flash_attention_hopper_body_keeps_the_row_max(dev):
+    """q and k x 10: logits ~100, past exp's fp32 range without the row max."""
+    rng = np.random.default_rng(13)
+    q, k = (_t(rng.standard_normal((4, 300, 64)) * 10, dev, torch.bfloat16) for _ in range(2))
+    v = _t(rng.standard_normal((4, 300, 64)), dev, torch.bfloat16)
+    assert (torch.einsum("bnd,bmd->bnm", q.float(), k.float()) * 0.125).abs().max() > 100
+    before = _hopper_counts()
+    out = flash_attention(q, k, v, 0.125)
+    torch.cuda.synchronize()
+    assert _hopper_counts() == _plus_one(before, 2)
+    assert torch.isfinite(out).all()
+    _close(out, flash_attention_plain(q.float(), k.float(), v.float(), 0.125), torch.bfloat16, 0)
+
+
+# ---- K2's Hopper body (ln_dense_wgmma.cu: bf16, C % 64, C <= 2048, F % 256) ----
+
+K2_HOPPER_CASES = [
+    (10960, 1024, 4096, 1e-6, "gelu"),  # the ViT-L block at B=8, 518x518
+    (1370, 1024, 4096, 1e-6, "gelu"),  # one image: ragged last row block (1370 = 10 x 128 + 90)
+    (200, 1024, 4096, 1e-6, "gelu"),  # fewer tiles than SMs
+    (1000, 256, 512, 1e-5, None),  # no activation, the decoder's eps
+    (300, 192, 768, 1e-6, "gelu"),  # ConvNeXt's C = 192, F = 4C: an odd count of 64-deep slices
+    (77, 64, 256, 1e-6, "gelu"),  # one slice, one tile
+]
+
+
+@pytest.mark.parametrize("m,c,f,eps,act", K2_HOPPER_CASES, ids=[f"m{m}-c{c}-f{f}-{a}" for m, c, f, _, a in K2_HOPPER_CASES])
+def test_ln_dense_hopper_body(dev, m, c, f, eps, act):
+    rng = np.random.default_rng(m + c)
+    x = _t(rng.standard_normal((m, c)) * 2 + 0.5, dev, torch.bfloat16)
+    w = _t(rng.standard_normal((f, c)) / np.sqrt(c), dev, torch.bfloat16)
+    b = _t(rng.standard_normal(f) * 0.1, dev, torch.float32)
+    g = _t(1 + 0.1 * rng.standard_normal(c), dev, torch.float32)
+    bt = _t(0.1 * rng.standard_normal(c), dev, torch.float32)
+    before = ln_dense.launches, ln_dense.hopper_launches
+    out = ln_dense(x, w, b, g, bt, eps, act)
+    torch.cuda.synchronize()
+    assert (ln_dense.launches, ln_dense.hopper_launches) == (before[0] + 1, before[1] + 1)
+    _close(out, ln_dense_plain(x.float(), w.float(), b, g, bt, eps, act), torch.bfloat16, 0)
+
+
+def test_ln_dense_hopper_body_normalises_before_the_product(dev):
+    """Rows whose mean is ~50x their std: LN folded into the epilogue would
+    subtract two products ~50x the result and lose its digits; normalising
+    x before the product keeps the relative RMS gate."""
+    rng = np.random.default_rng(14)
+    m, c, f = 1370, 1024, 4096
+    x = _t(rng.standard_normal((m, c)) + 50 * (1 + 0.1 * rng.standard_normal((m, 1))), dev, torch.bfloat16)
+    mean, std = x.float().mean(-1), x.float().std(-1)
+    assert (mean / std).min() > 20
+    w = _t(rng.standard_normal((f, c)) / np.sqrt(c), dev, torch.bfloat16)
+    b = _t(rng.standard_normal(f) * 0.1, dev, torch.bfloat16)
+    g = _t(1 + 0.1 * rng.standard_normal(c), dev, torch.bfloat16)
+    bt = _t(0.1 * rng.standard_normal(c), dev, torch.bfloat16)
+    before = ln_dense.hopper_launches
+    out = ln_dense(x, w, b, g, bt, 1e-6, "gelu")
+    torch.cuda.synchronize()
+    assert ln_dense.hopper_launches == before + 1
+    _close(out, ln_dense_plain(x.float(), w.float(), b.float(), g.float(), bt.float(), 1e-6, "gelu"), torch.bfloat16, 0)
 
 
 def test_from_config_defaults_to_the_card(dev):

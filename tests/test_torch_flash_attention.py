@@ -220,18 +220,28 @@ def test_k4_routes_by_dtype_and_head_dim(stub_library, dtype, d, entry):
     assert after == (before[0] + 1, before[1] + (entry == HOPPER))
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("d", [64, 32])
-def test_k3_always_takes_the_mma_sync_body(stub_library, dtype, d):
+@pytest.mark.parametrize(
+    "dtype,d,nk,entry",
+    [(torch.bfloat16, 64, 100, HOPPER), (torch.bfloat16, 64, 5000, HOPPER), (torch.float32, 64, 100, "ud_attention_fwd"),
+     (torch.bfloat16, 32, 100, "ud_attention_fwd"), (torch.float32, 32, 100, "ud_attention_fwd")],
+    ids=["bf16-d64", "bf16-d64-nk5000", "fp32-d64", "bf16-d32", "fp32-d32"],
+)
+def test_k3_routes_by_dtype_and_head_dim(stub_library, dtype, d, nk, entry):
+    """K3 takes the Hopper body for bf16 at D = 64 (flat (BH, N, D) tensors
+    as BH batches of one head; any Nk, past the TPU kernel's 4096 too) and
+    attention.cu's body otherwise; only its own ``hopper_launches`` moves."""
     from unidepth_tpu_torch.ops import flash_attention as fa
 
-    q, k, v = (torch.zeros(4, 100, d, dtype=dtype) for _ in range(3))
-    hopper = fa.flash_attention_qkv.hopper_launches, fa.flash_attention_packed.hopper_launches
-    before = fa.flash_attention.launches
-    fa._flash_kernel(q, k, v, d**-0.5)
-    assert stub_library.calls == ["ud_attention_fwd"]
-    assert fa.flash_attention.launches == before + 1
-    assert (fa.flash_attention_qkv.hopper_launches, fa.flash_attention_packed.hopper_launches) == hopper
+    q = torch.zeros(4, 100, d, dtype=dtype)
+    k, v = (torch.zeros(4, nk, d, dtype=dtype) for _ in range(2))
+    others = fa.flash_attention_qkv.hopper_launches, fa.flash_attention_packed.hopper_launches
+    before = fa.flash_attention.launches, fa.flash_attention.hopper_launches
+    out = fa._flash_kernel(q, k, v, d**-0.5)
+    assert out.shape == (4, 100, d) and out.dtype == dtype
+    assert stub_library.calls == [entry]
+    after = fa.flash_attention.launches, fa.flash_attention.hopper_launches
+    assert after == (before[0] + 1, before[1] + (entry == HOPPER))
+    assert (fa.flash_attention_qkv.hopper_launches, fa.flash_attention_packed.hopper_launches) == others
 
 
 @pytest.mark.parametrize("scale", [0.0, -0.125, float("inf")])
@@ -244,4 +254,7 @@ def test_hopper_route_refuses_a_scale_it_cannot_take(stub_library, scale):
     qkv = torch.zeros(1, 70, 3 * 128, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="scale"):
         fa._qkv_kernel(qkv, 2, scale)
+    q = torch.zeros(2, 70, 64, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="scale"):
+        fa._flash_kernel(q, q, q, scale)
     assert stub_library.calls == []

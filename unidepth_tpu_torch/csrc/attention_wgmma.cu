@@ -3,14 +3,18 @@
 //
 // Replaces, for bf16 at D = 64 (every ViT preset the repo has), the TPU
 // Pallas kernels of unidepth_tpu/ops/flash_attention.py that the encoder's
-// self-attention runs:
+// self-attention and the V2 decoder's cross-attention run:
 //   * K1, _flash_fwd_qkv / _packed_kernel (flash_attention_qkv): q, k, v are
 //     the channel slices [0,C), [C,2C), [2C,3C) of the fused (B, N, 3C) QKV
 //     projection, heads channel-major; output (B, N, C);
 //   * K4, _flash_fwd_packed / _packed_kernel (flash_attention_packed): three
 //     (B, N, H*D) tensors with any row and batch stride (the int8 path hands
-//     it the strided channel views of one projection).
-// fp32 I/O, the other head dims and K3 keep attention.cu's mma.sync body.
+//     it the strided channel views of one projection);
+//   * K3, _flash_fwd / _flash_kernel (flash_attention): flat (BH, N, 64)
+//     tensors, a map of BH batches of one head; Nq != Nk, and any number of
+//     keys (the TPU kernel switches to a blocked online softmax past 4096;
+//     this body streams every key tile through its online softmax anyway).
+// fp32 I/O and the other head dims keep attention.cu's mma.sync body.
 //
 // What bounds it on the H100: operations. At the ViT-L serving shape (B=8,
 // N=1370, H=16, D=64) a call is 61.5 GFLOP against 45 MB of q/k/v/o, 0.062
@@ -59,7 +63,6 @@
 // no spills; 240 for the consumers after setmaxnreg) and 133,120 bytes of
 // shared memory.
 
-#include <cuda.h>
 #include <math.h>
 
 #include "common.cuh"
@@ -318,42 +321,6 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-// cuTensorMapEncodeTiled from the CUDA driver API, found at run time so
-// that the library needs no -lcuda
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// (channels, rows, batch) bf16 tensor with row and batch strides in
-// elements; boxes of 64 channels x `box_rows` rows x 1, 128-byte swizzle
-bool make_map(CUtensorMap* map, const void* base, int channels, int rows, int batch, long long rs, long long bs,
-              int box_rows) {
-  EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[3] = {cuuint64_t(channels), cuuint64_t(rows), cuuint64_t(batch)};
-  const cuuint64_t strides[2] = {cuuint64_t(rs) * 2, cuuint64_t(bs) * 2};
-  const cuuint32_t box[3] = {kD, cuuint32_t(box_rows), 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides, box, elem,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 }  // namespace
 
 // K1's and K4's bf16 entry at head dim 64: the same arguments as
@@ -379,9 +346,10 @@ extern "C" int ud_attention_hopper_fwd(const void* q, const void* k, const void*
        reinterpret_cast<uintptr_t>(o)) % 16)
     return cudaErrorInvalidValue;
   CUtensorMap tq, tk, tv, to;
-  if (!make_map(&tq, q, int(c), nq, batch, q_rs, q_bs, kBlockM) ||
-      !make_map(&tk, k, int(c), nk, batch, k_rs, k_bs, kBlockN) ||
-      !make_map(&tv, v, int(c), nk, batch, v_rs, v_bs, kBlockN) || !make_map(&to, o, int(c), nq, batch, o_rs, o_bs, 64))
+  if (!ud::make_map_sw128(&tq, q, int(c), nq, batch, q_rs, q_bs, kBlockM) ||
+      !ud::make_map_sw128(&tk, k, int(c), nk, batch, k_rs, k_bs, kBlockN) ||
+      !ud::make_map_sw128(&tv, v, int(c), nk, batch, v_rs, v_bs, kBlockN) ||
+      !ud::make_map_sw128(&to, o, int(c), nq, batch, o_rs, o_bs, 64))
     return cudaErrorInvalidValue;
   int device = 0, sms = 0;
   cudaError_t e = cudaGetDevice(&device);

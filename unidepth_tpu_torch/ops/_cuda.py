@@ -135,6 +135,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.ud_attention_hopper_fwd.restype = i
     lib.ud_ln_dense_fwd.argtypes = [p, p, p, p, p, p, i, i, i, f, i, i, p]
     lib.ud_ln_dense_fwd.restype = i
+    lib.ud_ln_row_stats.argtypes = [p, p, i, i, f, p]
+    lib.ud_ln_row_stats.restype = i
+    lib.ud_ln_dense_hopper_fwd.argtypes = [p] * 7 + [i] * 5 + [p]
+    lib.ud_ln_dense_hopper_fwd.restype = i
     lib.ud_conv3x3_fwd.argtypes = [p, p, p, p] + [i] * 7 + [p]
     lib.ud_conv3x3_fwd.restype = i
     lib.ud_attention_ab_fwd.argtypes = [p, p, p, p] + [i] * 6 + [p]

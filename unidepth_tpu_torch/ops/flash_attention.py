@@ -19,20 +19,22 @@ a batch stride and a row stride, with head h at column h * D:
   kernel reads in place. Shapes outside ``packed_supported`` go to K3 by a
   head split and merge, as in the JAX package.
 
-Which body runs is fixed by dtype and head dim, never by a failure: K1 and
-K4 in bf16 at D = 64 (every ViT preset) launch the Hopper body
-(``attention_wgmma.cu``: wgmma for both products, TMA loads through an
-mbarrier ring, 128 x 128 tiles); fp32, the other head dims and every K3
-call launch the mma.sync body (``attention.cu``). Both are bound by compute
-on the H100 (~61.5 GFLOP per K1 call at the ViT-L serving shape against
-< 0.1 GB moved): they keep fp32 softmax statistics and the online row max
-(exact for any logits, so the TPU's logit audit has no counterpart), and
-never write the N x N scores (see the sources for the designs).
+Which body runs is fixed by dtype and head dim, never by a failure: K1, K3
+and K4 in bf16 at D = 64 (every ViT preset, and the V2 decoder's
+cross-attentions) launch the Hopper body (``attention_wgmma.cu``: wgmma for
+both products, TMA loads through an mbarrier ring, 128 x 128 tiles, any
+number of keys streamed through the online softmax); fp32 and the other
+head dims launch the mma.sync body (``attention.cu``). Both are bound by
+compute on the H100 (~61.5 GFLOP per K1 call at the ViT-L serving shape
+against < 0.1 GB moved): they keep fp32 softmax statistics and the online
+row max (exact for any logits, so the TPU's logit audit has no
+counterpart), and never write the N x N scores (see the sources for the
+designs).
 
 A CPU tensor takes the plain version. A CUDA tensor launches a kernel, or
 raises when it cannot: nothing falls back. ``launches`` on each wrapper
-counts the kernel launches it made; ``hopper_launches`` on K1 and K4 counts
-those of the Hopper body among them.
+counts the kernel launches it made; ``hopper_launches`` counts those of the
+Hopper body among them.
 """
 
 from __future__ import annotations
@@ -93,7 +95,7 @@ def packed_supported(nk: int, c: int, num_heads: int) -> bool:
 
 
 def _entry(dtype: torch.dtype, d: int, other: str) -> str:
-    """The C entry K1 or K4 launches: the Hopper body for bf16 at D = 64,
+    """The C entry K1, K3 or K4 launches: the Hopper body for bf16 at D = 64,
     else ``other`` (the mma.sync / CUDA-core body of attention.cu)."""
     return HOPPER_ENTRY if dtype == torch.bfloat16 and d == HOPPER_HEAD_DIM else other
 
@@ -162,7 +164,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: fl
 
 
 def _flash_kernel(q, k, v, scale):
-    """K3's launch: always the mma.sync / CUDA-core body of attention.cu."""
+    """K3's launch, on whatever device the tensors are: each (BH, N, D)
+    tensor is a map with BH batches of one head, row stride D."""
     if not (q.dtype == k.dtype == v.dtype):
         raise ValueError("flash_attention: q, k and v must share a dtype")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
@@ -170,16 +173,19 @@ def _flash_kernel(q, k, v, scale):
     nk = k.shape[1]
     if k.shape != (bh, nk, d) or v.shape != k.shape:
         raise ValueError(f"flash_attention: shapes {q.shape}, {k.shape}, {v.shape} do not match")
+    entry = _entry(q.dtype, d, "ud_attention_fwd")
     out = torch.empty_like(q)
     _launch(
         "flash_attention", q, k.data_ptr(), v.data_ptr(), out, bh, 1, nq, nk, d,
-        (nq * d, d, nk * d, d, nk * d, d, nq * d, d), scale,
+        (nq * d, d, nk * d, d, nk * d, d, nq * d, d), scale, entry,
     )
     flash_attention.launches += 1
+    flash_attention.hopper_launches += entry == HOPPER_ENTRY
     return out
 
 
 flash_attention.launches = 0
+flash_attention.hopper_launches = 0
 
 
 def flash_attention_packed(

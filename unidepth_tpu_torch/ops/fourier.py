@@ -26,11 +26,16 @@ def generate_fourier_features(
     else:
         scales = np.linspace(1.0, max_freq / 2, num=num_bands)
     scales = torch.as_tensor(scales * math.pi, dtype=x.dtype, device=x.device)
-    xb = x[..., None] * scales  # (..., D, num_bands)
+    # the arguments reach max_freq * pi * |x| (~28 rad in the tests, ~180 on
+    # the V2 decoder's rays): sin and cos run in float64 and round once to
+    # x's dtype, since torch's float32 sin on the CPU was seen 1.5e-4 off at
+    # ~28 rad in some pytest worker processes (float64 stays within 1e-6 of
+    # JAX's float32 sin)
+    xb = (x[..., None] * scales).double()  # (..., D, num_bands)
     feats = [torch.sin(xb)]
     if use_cos:
         feats.append(torch.cos(xb))
-    out = torch.cat(feats, dim=-1).reshape(*x.shape[:-1], -1)
+    out = torch.cat(feats, dim=-1).to(x.dtype).reshape(*x.shape[:-1], -1)
     if cat_orig:
         out = torch.cat([out, x], dim=-1)
     return out
