@@ -8,7 +8,10 @@ fails (non-zero exit, no result line) without CUDA or outside a checkout.
 
 1. Prints the card's name and power limit, builds the CUDA kernels from
    ``unidepth_tpu_torch/csrc`` with nvcc, and prints what ptxas reported for
-   the two Hopper bodies (attn_fwd_wgmma, ln_dense_wgmma: registers, spills).
+   the Hopper bodies (registers, spills): one line for each instantiation
+   of attn_fwd_wgmma (the main path's, kExact on one head a work tile, is
+   named; the others are K6's M1-M9 and K7's head pairs), and
+   ln_dense_wgmma.
 2. One phase per kernel at the shapes its path gives it (K4: strided views
    of one (8, 1370, 3072) projection, 16 heads, scale 1/8; K3: the
    decoder's (64, 1369, 64); K2: M = 10960, C = 1024, F = 4096). In bf16
@@ -35,11 +38,16 @@ fails (non-zero exit, no result line) without CUDA or outside a checkout.
    bf16, each variant held against its plain version in fp32 at the bf16
    gates, the elementwise atol scaled by max(1, max |ref|) for the
    unnormalised families (relative RMS alone for ``noexp``, ~1e31); the
-   harness run is the path whose launches are counted. Before them, head
-   dim 8 of K3 and K4 in bf16 and fp32. ``library_ms`` is one PyTorch call
-   computing the same
-   function on the same data, timed as a yardstick and never called by the
-   port: ``F.scaled_dot_product_attention`` for K1, K3, K4, K6 (M1) and K7,
+   harness run is the path whose launches are counted, and every K6 and
+   K7 call in it must run the Hopper body. Beside them, the mma.sync body
+   that K6 (M1, M3) and K7 ran at head dim 64 before, its C entry called
+   directly, held at the same gates and timed (``mma_sync_ms``). Before
+   them, head dim 8 of K3 and K4 in bf16 and fp32, and K3 at the ViT-B
+   decoder's (16, 1369, 48) against its plain version, timed against SDPA
+   on a line of its own. ``library_ms`` is one PyTorch call computing the
+   same function on the same data, timed as a yardstick and never called
+   by the port: ``F.scaled_dot_product_attention`` for K1, K3, K4, K6 (M1)
+   and K7,
    ``F.conv2d`` (cuDNN, channels-last bf16, on the padded input) for K5;
    for K2, where no one call computes it, ``F.layer_norm -> F.linear ->
    F.gelu`` composed in bf16 (three calls; the record's ``library`` says
@@ -66,18 +74,25 @@ fails (non-zero exit, no result line) without CUDA or outside a checkout.
    tests/test_quant.py). Then one forward under the stage mask (True, False,
    True, False): launches K4 12, K1 12, K2 12, K3 4, every one on the
    Hopper body. Then times int8 depth-only ``infer()`` in three rounds.
+6. Builds UniDepthV2 ViT-B/14 from configs/config_v2_vitb14.json the same
+   way (12 blocks, C = 768, 12 heads of 64; decoder hidden 384, 8 heads of
+   48), runs ``infer()`` on the first 2 images: shapes, finiteness, depth
+   > 0; launches K1 12, K2 12, each on its Hopper body, K3 4 on
+   attention.cu's body (head dim 48), K4 never; depth against the fp32
+   plain path at the ViT-L gate (median relative error <= 1e-2). Then
+   times depth-only ``infer()`` at B = 8 in three rounds.
 
-Each path's launch counts (and the Hopper-body counts of K1-K4) are set
-to 0 just before it runs and read just after. A K2 call counts once, though
-it launches its row statistics and its GEMM. The K6 harness's ``base``
-row is K4 itself, so it runs the Hopper body; its M1-M9 variants run
-attention_ab.cu's mma.sync body. The last two lines are the kernels' JSON
-record (each kernel with its ``body``) and ``{"ok": true, "device":
+Each path's launch counts (and the Hopper-body counts of K1-K4, K6 and
+K7) are set to 0 just before it runs and read just after. A K2 call
+counts once, though it launches its row statistics and its GEMM. The K6
+harness's ``base`` row is K4 itself. The last two lines are the kernels'
+JSON record (each kernel with its ``body``) and ``{"ok": true, "device":
 {...}}``. Any failing phase raises.
 """
 
 import importlib.util
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -91,7 +106,9 @@ import torch.nn.functional as F
 
 ROOT = Path(__file__).resolve().parent
 CONFIG = ROOT / "configs" / "config_v2_vitl14.json"
+CONFIG_B = ROOT / "configs" / "config_v2_vitb14.json"
 BATCH, SIDE, SEED = 8, 518, 0
+BATCH_B_CHECK = 2  # ViT-B's check against the fp32 plain path; its timing runs at BATCH
 TOL_BF16 = dict(rtol=1.6e-2, atol=1e-2)
 REL_RMS_BF16 = 5e-3
 STAGE_MASK = (True, False, True, False)
@@ -103,8 +120,10 @@ AB_FAMILY_NAMES = ("base", "tr_max", "bf16p", "nomax_guard", "tr_lmxu", "nomax",
                    "qk_only", "pv_only")
 BD_NAMES = ("bd", "bd_lmxu")
 # the kernels with a Hopper body (wgmma + TMA) beside their mma.sync one: K1, K3
-# and K4 (attention_wgmma.cu, bf16 at head dim 64) and K2 (ln_dense_wgmma.cu)
-HOPPER = ("flash_attention_qkv", "ln_dense", "flash_attention", "flash_attention_packed")
+# and K4 (attention_wgmma.cu, bf16 at head dim 64), K2 (ln_dense_wgmma.cu), and
+# K6 and K7 (attention_ab.cu on attention_wgmma.cuh's body, bf16 at head dim 64)
+HOPPER = ("flash_attention_qkv", "ln_dense", "flash_attention", "flash_attention_packed", "run_variant", "run_bd")
+K3_VITB_SHAPE = (2 * 8, 1369, 48)  # the ViT-B decoder's cross-attention at B = 2: 8 heads of 48
 
 
 def log(*args):
@@ -220,14 +239,14 @@ def check_launches(name, launches, expected):
         raise RuntimeError(f"{name}: kernel launches {launches} != expected {expected}")
 
 
-def check_outputs(name, out):
+def check_outputs(name, out, batch=BATCH):
     shapes = {"depth": 1, "points": 3, "rays": 3, "confidence": 1, "radius": 1}
     for key, ch in shapes.items():
-        if tuple(out[key].shape) != (BATCH, SIDE, SIDE, ch):
+        if tuple(out[key].shape) != (batch, SIDE, SIDE, ch):
             raise RuntimeError(f"{name}: {key} has shape {tuple(out[key].shape)}")
         if not torch.isfinite(out[key]).all():
             raise RuntimeError(f"{name}: {key} is not finite")
-    if tuple(out["intrinsics"].shape) != (BATCH, 3, 3) or not torch.isfinite(out["intrinsics"]).all():
+    if tuple(out["intrinsics"].shape) != (batch, 3, 3) or not torch.isfinite(out["intrinsics"]).all():
         raise RuntimeError(f"{name}: intrinsics malformed")
     if not (out["depth"] > 0).all():
         raise RuntimeError(f"{name}: depth is not positive everywhere")
@@ -251,6 +270,24 @@ def images_per_s(name, model, rgb, smi, iters=5):
     return rate
 
 
+def depth_against_plain(name, model_cls, config, rgb, out, kernels, dev):
+    """Run ``config`` with the same seeded weights on the plain path in fp32
+    on the card, check it launched no kernel, and hold ``out``'s depth to it
+    (median relative error <= 1e-2). Returns the reference outputs."""
+    ref_model = model_cls.from_config(config, device=dev, dtype=torch.float32).init_params(seed=SEED)
+    ref_model.set_kernels(False).eval()
+    ref, ref_launches = run_path(f"{name} fp32 plain infer()", kernels,
+                                 lambda: ref_model.infer(rgb, outputs=("depth", "intrinsics")))
+    if any(ref_launches.values()):
+        raise RuntimeError(f"{name}: the plain reference run launched a kernel")
+    rel = ((out["depth"] - ref["depth"]).abs() / ref["depth"].abs()).flatten()
+    med, mx = rel.median().item(), rel.max().item()
+    log(f"{name} depth vs fp32 plain path: median rel err {med:.3e}, max rel err {mx:.3e}")
+    if not med <= 1e-2:
+        raise RuntimeError(f"{name}: depth median relative error {med} > 1e-2")
+    return ref
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this test has no CPU path")
@@ -270,7 +307,8 @@ def main():
         flash_attention_qkv_plain,
     )
     from unidepth_tpu_torch.ops.fused_block import ln_dense, ln_dense_plain
-    from unidepth_tpu_torch.ops.kernel_ab import run_bd, run_variant, run_variant_plain
+    from unidepth_tpu_torch.ops.kernel_ab import family, run_bd, run_variant, run_variant_plain
+    from unidepth_tpu_torch.ops.flash_attention import HOPPER_KERNEL
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -286,8 +324,16 @@ def main():
     t0 = time.perf_counter()
     _cuda.library()
     log(f"build: {time.perf_counter() - t0:.1f} s (nvcc {_cuda.build_seconds} s)")
-    for kernel in ("attn_fwd_wgmma", "ln_dense_wgmma"):
-        log("\n".join(_cuda.ptxas_report(kernel)) or f"ptxas report for {kernel}: none in the build log")
+    reports = _cuda.ptxas_reports("attn_fwd_wgmma") + _cuda.ptxas_reports("ln_dense_wgmma")
+    if not any(HOPPER_KERNEL in r[0] for r in reports):
+        raise RuntimeError(f"ptxas report for the main path's {HOPPER_KERNEL}: none in the build log")
+    for report in reports:  # attn_fwd_wgmma's template arguments <F, NH, Stages> stay in the mangled name
+        text = "\n".join(report)
+        name = re.search(r"\d(attn_fwd_wgmmaI(?:Li\d+E)+E|ln_dense_wgmma|ln_row_stats)", report[0]).group(1)
+        used = re.search(r"Used \d+ registers", text)
+        spills = re.search(r"\d+ bytes spill stores, \d+ bytes spill loads", text)
+        main = " (the main path's: K1, K3, K4)" if HOPPER_KERNEL in report[0] else ""
+        log(f"ptxas {name}{main}: {used and used.group(0)}, {spills and spills.group(0)}")
 
     # every kernel's wrapper, by the name its record carries
     kernels = {
@@ -390,6 +436,21 @@ def main():
             else:
                 log(f"{name} fp32: max_abs_err {check_close(name + ' fp32', out, ref, rtol=1e-4, atol=1e-4):.3e}")
 
+    # K3 at the ViT-B decoder's head dim 48: attention.cu's mma.sync body
+    gen.manual_seed(48)
+    q48, k48, v48 = (randn(*K3_VITB_SHAPE, dtype=torch.bfloat16) for _ in range(3))
+    hopper3 = flash_attention.hopper_launches
+    err, rel = check_bf16("K3 d=48", flash_attention(q48, k48, v48, 48**-0.5),
+                          flash_attention_plain(q48.float(), k48.float(), v48.float(), 48**-0.5))
+    if flash_attention.hopper_launches != hopper3:
+        raise RuntimeError("K3 d=48 ran the Hopper body, which takes head dim 64 only")
+    k3_d48 = {"ms": time_ms(lambda: flash_attention(q48, k48, v48, 48**-0.5)),
+              "library_ms": time_ms(sdpa(q48[None], k48[None], v48[None], 48**-0.5))}
+    log(f"K3 d=48 {K3_VITB_SHAPE} (the ViT-B decoder at B=2): kernel {k3_d48['ms']:.4f} ms, SDPA "
+        f"{k3_d48['library_ms']:.4f} ms ({k3_d48['ms'] / k3_d48['library_ms']:.3f}x); bf16 max_abs_err {err:.3e} "
+        f"rel_rms {rel:.3e} ({smi})")
+    del q48, k48, v48
+
     # --- K5: conv3x3_lowchannel, its entry point the op itself ---------------
     b, h, w, cin, cout = BATCH, SIDE, SIDE, 64, 32
     m["conv3x3_lowchannel"] = kernel_phase(
@@ -418,15 +479,23 @@ def main():
     rows6, k6_launches = run_path(
         "K6 kernel_ab harness", kernels,
         lambda: harness.run(AB_FAMILY_NAMES, iters=AB_ITERS, check=True, log=log, **AB_SHAPE))
+    n6 = calls * (len(AB_FAMILY_NAMES) - 1)
     check_launches("K6 kernel_ab harness", k6_launches,
-                   {**none, "run_variant": calls * (len(AB_FAMILY_NAMES) - 1), "flash_attention_packed": calls,
+                   {**none, "run_variant": n6, "run_variant/wgmma": n6, "flash_attention_packed": calls,
                     "flash_attention_packed/wgmma": calls})
     rows7, k7_launches = run_path(
         "K7 kernel_ab harness", kernels,
         lambda: harness.run(BD_NAMES, iters=AB_ITERS, check=True, log=log, **AB_SHAPE))
-    check_launches("K7 kernel_ab harness", k7_launches, {**none, "run_bd": calls * len(BD_NAMES)})
+    n7 = calls * len(BD_NAMES)
+    check_launches("K7 kernel_ab harness", k7_launches, {**none, "run_bd": n7, "run_bd/wgmma": n7})
     q, k, v = harness.make_inputs(**AB_SHAPE)
     nh, scale = AB_SHAPE["heads"], AB_SHAPE["d"] ** -0.5
+
+    # the mma.sync body that ran these families at head dim 64 before the
+    # Hopper body: its C entries called directly, so no wrapper counts them
+    old_rows = harness.run(("tr_max", "nomax_guard", "bd"), iters=AB_ITERS, check=True, log=log, bodies=("mma.sync",),
+                           **AB_SHAPE)
+    old_body = {"run_variant": {family(r["variant"]): r["ms"] for r in old_rows[:2]}, "run_bd": {"bd": old_rows[2]["ms"]}}
     ab_library_ms = time_ms(sdpa_packed(q, k, v, nh, scale))
     ab_bound = bound(attention_flops(q, k, nh), nbytes(q, k, v, q))
     for key, rows, first, plain_name in (("run_variant", rows6, "tr_max", "tr_max"), ("run_bd", rows7, "bd", "bd")):
@@ -434,8 +503,9 @@ def main():
         plain_ms = time_ms(lambda: run_variant_plain(plain_name, q, k, v, nh, scale), iters=3, reps=3)
         m[key] = {"max_abs_err": row["plain_max_abs_err"], "ms": row["ms"], "plain_ms": plain_ms,
                   "library_ms": ab_library_ms, **ab_bound,
-                  "variants_ms": {r["variant"]: r["ms"] for r in rows}}
-        log(f"{key}: {first} {row['ms']:.4f} ms, plain {plain_ms:.4f} ms, library (SDPA) {ab_library_ms:.4f} ms")
+                  "variants_ms": {r["variant"]: r["ms"] for r in rows}, "mma_sync_ms": old_body[key]}
+        log(f"{key}: {first} {row['ms']:.4f} ms on the Hopper body (mma.sync body: {old_body[key]}), "
+            f"plain {plain_ms:.4f} ms, library (SDPA) {ab_library_ms:.4f} ms")
     del q, k, v
 
     # --- the main path: ViT-L/14 infer() at B=8, 518x518 ----------------------
@@ -456,17 +526,7 @@ def main():
                                               "flash_attention": 4, "flash_attention/wgmma": 4})
     check_outputs("bf16 infer()", out)
 
-    ref_model = UniDepthV2.from_config(config, device=dev, dtype=torch.float32).init_params(seed=SEED)
-    ref_model.set_kernels(False).eval()
-    ref, ref_launches = run_path("fp32 plain infer()", kernels, lambda: ref_model.infer(rgb, outputs=("depth", "intrinsics")))
-    if any(ref_launches.values()):
-        raise RuntimeError("the plain reference run launched a kernel")
-    del ref_model
-    rel = ((out["depth"] - ref["depth"]).abs() / ref["depth"].abs()).flatten()
-    med, mx = rel.median().item(), rel.max().item()
-    log(f"depth vs fp32 plain path: median rel err {med:.3e}, max rel err {mx:.3e}")
-    if not med <= 1e-2:
-        raise RuntimeError(f"depth median relative error {med} > 1e-2")
+    ref = depth_against_plain("ViT-L/14", UniDepthV2, config, rgb, out, kernels, dev)
     del out
     images_per_s("bf16", model, rgb, smi)
 
@@ -500,9 +560,26 @@ def main():
     del out_m
     model._int8_stages = None
     images_per_s("int8", model, rgb, smi)
+    del model, ref
 
-    # each kernel's count from the path it serves: K1-K3 the bf16 path, K4 the
-    # int8 one, K5 its own call, K6 and K7 the harness
+    # --- ViT-B/14: the decoder's cross-attentions at head dim 48 -------------
+    config_b = json.loads(CONFIG_B.read_text())
+    t0 = time.perf_counter()
+    model_b = UniDepthV2.from_config(config_b).init_params(seed=SEED).eval()  # no device named: the card
+    log(f"model: ViT-B/14 {sum(p.numel() for p in model_b.parameters()) / 1e6:.1f} M params, "
+        f"{next(model_b.parameters()).dtype} on {next(model_b.parameters()).device}, built in {time.perf_counter() - t0:.1f} s")
+    rgb_b = rgb[:BATCH_B_CHECK]
+    out_b, launches_b = run_path("ViT-B bf16 infer()", kernels, lambda: model_b.infer(rgb_b))
+    check_launches("ViT-B bf16 infer()", launches_b, {**none, "flash_attention_qkv": 12, "flash_attention_qkv/wgmma": 12,
+                                                      "ln_dense": 12, "ln_dense/wgmma": 12, "flash_attention": 4})
+    check_outputs("ViT-B bf16 infer()", out_b, BATCH_B_CHECK)
+    depth_against_plain("ViT-B/14", UniDepthV2, config_b, rgb_b, out_b, kernels, dev)
+    del out_b
+    images_per_s("bf16 ViT-B/14", model_b, rgb, smi)
+    del model_b
+
+    # each kernel's count from the path it serves: K1-K3 the bf16 ViT-L path,
+    # K4 the int8 one, K5 its own call, K6 and K7 the harness
     path_launches = {
         **launches,
         "flash_attention_packed": launches_q["flash_attention_packed"],
@@ -510,8 +587,13 @@ def main():
         "run_variant": k6_launches["run_variant"],
         "run_bd": k7_launches["run_bd"],
     }
-    # the Hopper body's launches on the same paths (K1-K3: bf16, K4: int8)
-    hopper_launches = {k: (launches_q if k == "flash_attention_packed" else launches)[f"{k}/wgmma"] for k in HOPPER}
+    # the Hopper body's launches on the same paths
+    hopper_launches = {
+        **{k: launches[f"{k}/wgmma"] for k in HOPPER},
+        "flash_attention_packed": launches_q["flash_attention_packed/wgmma"],
+        "run_variant": k6_launches["run_variant/wgmma"],
+        "run_bd": k7_launches["run_bd/wgmma"],
+    }
     sources = {  # source, TPU kernel, body at the path's shapes, the library yardstick
         "flash_attention_qkv": ("attention_wgmma.cu", "unidepth_tpu/ops/flash_attention.py:471", "wgmma", "SDPA"),
         "ln_dense": ("ln_dense_wgmma.cu", "unidepth_tpu/ops/fused_block.py:102", "wgmma",
@@ -519,8 +601,8 @@ def main():
         "flash_attention": ("attention_wgmma.cu", "unidepth_tpu/ops/flash_attention.py:159", "wgmma", "SDPA"),
         "flash_attention_packed": ("attention_wgmma.cu", "unidepth_tpu/ops/flash_attention.py:347", "wgmma", "SDPA"),
         "conv3x3_lowchannel": ("conv3x3.cu", "unidepth_tpu/ops/conv_kernels.py:88", "mma.sync", "F.conv2d (cuDNN)"),
-        "run_variant": ("attention_ab.cu", "scripts/kernel_ab.py:53", "mma.sync", "SDPA"),
-        "run_bd": ("attention_ab.cu", "scripts/kernel_ab.py:214", "mma.sync", "SDPA"),
+        "run_variant": ("attention_ab.cu", "scripts/kernel_ab.py:53", "wgmma", "SDPA"),
+        "run_bd": ("attention_ab.cu", "scripts/kernel_ab.py:214", "wgmma", "SDPA"),
     }
     record = [
         {"name": name, "route": "cuda", "source": f"unidepth_tpu_torch/csrc/{src}", "replaces": rep, "body": body,
@@ -529,6 +611,7 @@ def main():
          "library": library}
         for name, (src, rep, body, library) in sources.items()
     ]
+    m["flash_attention"]["d48_ms"], m["flash_attention"]["d48_library_ms"] = k3_d48["ms"], k3_d48["library_ms"]
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s, the build included")
     log(json.dumps({"kernels": record}))
     log(json.dumps({"ok": True, "device": {

@@ -5,7 +5,8 @@
 
 Run from the root of a checkout on a machine with a CUDA card and nvcc.
 Builds the kernels and prints what ptxas reported for the Hopper body
-(``attn_fwd_wgmma``: registers, spills, shared memory). Then, at the ViT-L
+(``attn_fwd_wgmma``, the instantiation K1, K3 and K4 launch: registers,
+spills, shared memory). Then, at the ViT-L
 serving shape (B=8, N=1370, 16 heads of 64, bf16, scale 1/8) for K1
 (``flash_attention_qkv`` on one contiguous (8, 1370, 3072) projection) and
 K4 (``flash_attention_packed`` on its three strided channel views), and at
@@ -72,7 +73,7 @@ def main():
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     print(smi, flush=True)
     _cuda.library()
-    report = _cuda.ptxas_report("attn_fwd_wgmma")
+    report = _cuda.ptxas_report(fa.HOPPER_KERNEL)
     print("\n".join(report) if report else "ptxas report: none in the build log", flush=True)
     regs = re.search(r"Used (\d+) registers", "\n".join(report))
 

@@ -5,6 +5,7 @@ unidepth_tpu_torch).
 
     python3 scripts_torch/kernel_ab.py [--iters 100] [--b 8] [--heads 16]
         [--n 1370] [--d 64] [--variants base,bf16p,lmxu,bf16p+lmxu,noexp,nomax]
+        [--body hopper|mma.sync|both]
 
 Every variant name of the JAX harness is accepted (see
 ``unidepth_tpu_torch.ops.kernel_ab`` for what each computes). Inputs are bf16
@@ -18,6 +19,13 @@ large error by design, as in the JAX harness. The last column holds the
 kernel against its own plain version, computed in fp32 on the same inputs:
 relative RMS error ||out - ref|| / ||ref||. The first line is the card's name
 and power limit.
+
+``--body`` picks the kernel body: ``hopper`` (the default) goes through
+``run_variant``, which at head dim 64 runs the wgmma + TMA body K1 runs;
+``mma.sync`` calls the C entries of attention_ab.cu's mma.sync body (the
+one that served K6/K7 at every head dim before) directly, with q pre-scaled
+inside the call as ``run_variant`` does (``base``, K4, has no such row);
+``both`` times the two in turn for each variant.
 
 The script needs a CUDA card. ``run`` is its body, for callers such as
 chip_smoke.py.
@@ -38,8 +46,9 @@ ROOT = Path(__file__).resolve().parents[1]
 if str(ROOT) not in sys.path:
     sys.path.insert(0, str(ROOT))
 
+from unidepth_tpu_torch.ops import _cuda  # noqa: E402
 from unidepth_tpu_torch.ops.flash_attention import flash_attention_packed_plain  # noqa: E402
-from unidepth_tpu_torch.ops.kernel_ab import run_variant, run_variant_plain  # noqa: E402
+from unidepth_tpu_torch.ops.kernel_ab import FAMILY_CODES, family, run_variant, run_variant_plain  # noqa: E402
 
 DEFAULT_VARIANTS = "base,bf16p,lmxu,bf16p+lmxu,noexp,nomax"
 REL_RMS_BF16 = 5e-3
@@ -77,6 +86,25 @@ def time_chained(fn, iters: int) -> float:
     return best
 
 
+def run_mma_sync(variant: str, q, k, v, heads: int, scale: float):
+    """``variant`` on attention_ab.cu's mma.sync body, its C entry called
+    directly (the wrappers route head dim 64 to the Hopper body); contiguous
+    bf16 (B, N, H*D) inputs."""
+    if variant == "base":
+        raise ValueError("base is K4: it has no mma.sync A/B row")
+    qs = (q * scale).to(q.dtype)
+    out = torch.empty_like(qs)
+    (b, nq, c), nk = q.shape, k.shape[1]
+    lib, stream = _cuda.library(), _cuda.stream_handle(q)
+    ptrs = (qs.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+    if variant.startswith("bd"):
+        err = lib.ud_attention_bd_fwd(*ptrs, b, heads, nq, nk, int("lmxu" in variant), stream)
+    else:
+        err = lib.ud_attention_ab_fwd(*ptrs, b, heads, nq, nk, c // heads, FAMILY_CODES[family(variant)], stream)
+    _cuda.check(err, f"{variant} on the mma.sync body")
+    return out
+
+
 def rel_rms(out: torch.Tensor, ref: torch.Tensor) -> float:
     # normalised by the largest |ref| first, so ~1e31 outputs do not overflow the norm
     s = ref.abs().max().clamp(min=1e-30)
@@ -98,10 +126,11 @@ def check_gates(variant: str, out: torch.Tensor, ref: torch.Tensor) -> float:
     return rms
 
 
-def run(variants, iters=100, b=8, heads=16, n=1370, d=64, check=False, log=print):
-    """Time each variant and hold it against fp32 attention and against its
-    own plain version; with ``check`` a variant outside the bf16 gates
-    (``check_gates``) raises. Returns one dict per variant."""
+def run(variants, iters=100, b=8, heads=16, n=1370, d=64, check=False, log=print, bodies=("hopper",)):
+    """Time each variant on each of ``bodies`` ("hopper": ``run_variant``;
+    "mma.sync": ``run_mma_sync``) and hold it against fp32 attention and
+    against its own plain version; with ``check`` a variant outside the bf16
+    gates (``check_gates``) raises. Returns one dict per variant and body."""
     c = heads * d
     scale = d**-0.5
     q, k, v = make_inputs(b, heads, n, d)
@@ -111,19 +140,21 @@ def run(variants, iters=100, b=8, heads=16, n=1370, d=64, check=False, log=print
     log(f"shape B={b} H={heads} N={n} D={d}; {flops / 1e9:.1f} GFLOP/call")
     rows = []
     for variant in variants:
-        out = run_variant(variant, q, k, v, heads, scale)
-        torch.cuda.synchronize()
         plain = run_variant_plain(variant, qf, kf, vf, heads, scale)
-        err = (out.float() - ref).abs().max().item()
-        plain_err = (out.float() - plain).abs().max().item()
-        rms = check_gates(variant, out, plain) if check else rel_rms(out, plain)
-        if out.shape != (b, n, c) or not torch.isfinite(out).all():
-            raise RuntimeError(f"{variant}: output malformed")
-        ms = time_chained(lambda: run_variant(variant, q, k, v, heads, scale), iters)
-        log(f"{variant:>11}: {ms:7.3f} ms  {flops / ms / 1e9:6.1f} TFLOP/s  max-abs-err {err:.2e}  "
-            f"plain rel-rms {rms:.2e}")
-        rows.append({"variant": variant, "ms": ms, "tflops": flops / ms / 1e9, "max_abs_err": err,
-                     "plain_max_abs_err": plain_err, "plain_rel_rms": rms})
+        for body in bodies:
+            call = run_variant if body == "hopper" else run_mma_sync
+            out = call(variant, q, k, v, heads, scale)
+            torch.cuda.synchronize()
+            err = (out.float() - ref).abs().max().item()
+            plain_err = (out.float() - plain).abs().max().item()
+            rms = check_gates(variant, out, plain) if check else rel_rms(out, plain)
+            if out.shape != (b, n, c) or not torch.isfinite(out).all():
+                raise RuntimeError(f"{variant}: output malformed")
+            ms = time_chained(lambda: call(variant, q, k, v, heads, scale), iters)
+            log(f"{variant:>11} {body:>8}: {ms:7.3f} ms  {flops / ms / 1e9:6.1f} TFLOP/s  max-abs-err {err:.2e}  "
+                f"plain rel-rms {rms:.2e}")
+            rows.append({"variant": variant, "body": body, "ms": ms, "tflops": flops / ms / 1e9, "max_abs_err": err,
+                         "plain_max_abs_err": plain_err, "plain_rel_rms": rms})
     return rows
 
 
@@ -135,13 +166,15 @@ def main():
     ap.add_argument("--n", type=int, default=1370)
     ap.add_argument("--d", type=int, default=64)
     ap.add_argument("--variants", default=DEFAULT_VARIANTS)
+    ap.add_argument("--body", choices=("hopper", "mma.sync", "both"), default="hopper")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("kernel_ab: needs a CUDA card (torch.cuda.is_available() is False)")
     print(smi_line(), flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
+    bodies = ("hopper", "mma.sync") if args.body == "both" else (args.body,)
     run(args.variants.split(","), args.iters, args.b, args.heads, args.n, args.d,
-        log=lambda s: print(s, flush=True))
+        log=lambda s: print(s, flush=True), bodies=bodies)
 
 
 if __name__ == "__main__":

@@ -7,8 +7,9 @@ need not have):
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py -q
 
 bf16 I/O runs the tensor-core kernels the model launches (at head dim 64
-attn_fwd_wgmma, the Hopper body K1, K3 and K4 share; at the other head dims
-attn_fwd_bf16; ln_dense_wgmma for K2 on its gate, ln_dense_bf16 off it).
+attn_fwd_wgmma, the Hopper body K1, K3 and K4 share with K6 and K7; at the
+other head dims, every multiple of 8 up to 128, attn_fwd_bf16; ln_dense_wgmma
+for K2 on its gate, ln_dense_bf16 off it).
 Each is held against its
 plain version computed in fp32 from the same bf16 inputs, elementwise at
 rtol 1.6e-2, atol 1e-2 (bf16 output rounding) and, tighter, at a relative RMS error
@@ -22,10 +23,16 @@ fp32 dot product per output). The int8 GEMM of the int8 serving path
 product and its dequant against float64. K5 (conv3x3_lowchannel) is held
 like the others, in bf16 and fp32, at the V2 heads' hr conv shape and the
 JAX test's shapes in all three padding modes. K6 and K7 (the A/B attention
-variants, bf16 only on the card) are held against their plain versions at
-the bf16 gates with the elementwise atol scaled by the output's size,
-``noexp`` (outputs ~1e31) by relative RMS alone.
+variants, bf16 only on the card; the Hopper body at head dim 64, K6's
+mma.sync body at 32) are held against their plain versions at the bf16
+gates with the elementwise atol scaled by the output's size, ``noexp``
+(outputs ~1e31) by relative RMS alone. UniDepthV2 ViT-B/14, whose decoder
+attends at head dim 48, runs ``infer()`` at 518x518 against its fp32 plain
+path.
 """
+
+import json
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -91,7 +98,8 @@ def test_flash_attention_qkv_matches_plain(dev, dtype, b, n, c, h):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize(
     "bh,nq,nk,d",
-    [(3, 200, 200, 64), (4, 70, 300, 32), (2, 1369, 1369, 128), (64, 1369, 1369, 64), (4, 150, 300, 8)],
+    [(3, 200, 200, 64), (4, 70, 300, 32), (2, 1369, 1369, 128), (64, 1369, 1369, 64), (4, 150, 300, 8),
+     (16, 1369, 1369, 48), (4, 150, 300, 96), (3, 200, 170, 24), (2, 130, 130, 120), (2, 70, 90, 40)],
 )
 def test_flash_attention_matches_plain(dev, dtype, bh, nq, nk, d):
     rng = np.random.default_rng(1)
@@ -126,15 +134,32 @@ def test_ln_dense_matches_plain(dev, dtype, m, c, f, eps, act):
     _close(out, ref, dtype, 2e-4)
 
 
-@pytest.mark.parametrize("d", [48, 96])
+@pytest.mark.parametrize("d", [20])
 def test_attention_head_dim_without_kernel_raises(dev, d):
-    """The dispatch sends d <= 128 to the kernel, as JAX does; a head dim the
-    kernel lacks raises on the card instead of running plain."""
+    """The dispatch sends d <= 128 to the kernel, as JAX does; a head dim off
+    the kernel's grid (multiples of 8: 16-byte rows) raises on the card
+    instead of running plain."""
     q, k, v = (torch.randn(1, 2, 1024, d, device=dev, dtype=torch.bfloat16) for _ in range(3))
     before = flash_attention.launches
     with pytest.raises(ValueError, match="head dim"):
         attention(q, k, v)
     assert flash_attention.launches == before
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [48, 96])
+def test_attention_head_dim_48_and_96_run_the_kernel(dev, dtype, d):
+    """The ViT-B decoder's head dim (48) and twice it: the dispatch takes K3
+    on attention.cu's bodies (not the Hopper one) at the plain version's
+    gates."""
+    rng = np.random.default_rng(d)
+    q, k, v = (_t(rng.standard_normal((2, 4, 1100, d)), dev, dtype) for _ in range(3))
+    before = flash_attention.launches, flash_attention.hopper_launches
+    out = attention(q, k, v)
+    torch.cuda.synchronize()
+    assert (flash_attention.launches, flash_attention.hopper_launches) == (before[0] + 1, before[1])
+    ref = flash_attention_plain(q.float(), k.float(), v.float(), d**-0.5)
+    _close(out, ref, dtype, 1e-4)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -321,6 +346,92 @@ def test_run_bd_matches_plain(dev, variant, b, n, heads):
     torch.cuda.synchronize()
     assert (run_bd.launches, run_variant.launches) == (before[0] + 1, before[1])
     _ab_close(variant, out, run_variant_plain(variant, q.float(), k.float(), v.float(), heads, 0.125))
+
+
+AB_HOPPER_SHAPES = [
+    (8, 1370, 1370, 16),  # the harness shape: a ragged last key tile
+    (2, 300, 1500, 4),  # Nq != Nk
+    (2, 200, 70, 4),  # Nk below one key tile
+    (1, 150, 40, 2),  # Nk below 64: M8 stores keys past Nk as zero scores
+]
+AB_HOPPER_IDS = [f"b{b}-nq{nq}-nk{nk}-h{h}" for b, nq, nk, h in AB_HOPPER_SHAPES]
+
+
+def _ab_hopper_inputs(dev, b, nq, nk, c):
+    rng = np.random.default_rng(nq + nk)
+    q = _t(rng.standard_normal((b, nq, c)), dev, torch.bfloat16)
+    k, v = (_t(rng.standard_normal((b, nk, c)), dev, torch.bfloat16) for _ in range(2))
+    return q, k, v
+
+
+@pytest.mark.parametrize("b,nq,nk,heads", AB_HOPPER_SHAPES, ids=AB_HOPPER_IDS)
+@pytest.mark.parametrize("variant", AB_FAMILY_NAMES)
+def test_run_variant_hopper_body(dev, variant, b, nq, nk, heads):
+    """Every K6 family at head dim 64 runs the Hopper body."""
+    q, k, v = _ab_hopper_inputs(dev, b, nq, nk, heads * 64)
+    before = run_variant.launches, run_variant.hopper_launches
+    out = run_variant(variant, q, k, v, heads, 0.125)
+    torch.cuda.synchronize()
+    assert (run_variant.launches, run_variant.hopper_launches) == (before[0] + 1, before[1] + 1)
+    _ab_close(variant, out, run_variant_plain(variant, q.float(), k.float(), v.float(), heads, 0.125))
+
+
+@pytest.mark.parametrize("b,nq,nk,heads", AB_HOPPER_SHAPES, ids=AB_HOPPER_IDS)
+@pytest.mark.parametrize("variant", ["bd", "bd_lmxu"])
+def test_run_bd_hopper_body(dev, variant, b, nq, nk, heads):
+    """K7: one work tile per 64 queries of a head pair, a consumer warpgroup
+    per head."""
+    q, k, v = _ab_hopper_inputs(dev, b, nq, nk, heads * 64)
+    before = run_bd.launches, run_bd.hopper_launches, run_variant.launches
+    out = run_variant(variant, q, k, v, heads, 0.125)
+    torch.cuda.synchronize()
+    assert (run_bd.launches, run_bd.hopper_launches, run_variant.launches) == (before[0] + 1, before[1] + 1, before[2])
+    _ab_close(variant, out, run_variant_plain(variant, q.float(), k.float(), v.float(), heads, 0.125))
+
+
+@pytest.mark.parametrize("variant", ["tr_max", "noexp", "pv_only", "bd"])
+def test_ab_hopper_body_reads_strided_views(dev, variant):
+    """k and v as channel views of one (B, N, 3C) tensor (row stride 3C),
+    read in place by the Hopper entries."""
+    rng = np.random.default_rng(15)
+    q, k, v = _t(rng.standard_normal((2, 260, 3 * 256)), dev, torch.bfloat16).split(256, dim=-1)
+    assert k.stride() == (260 * 768, 768, 1)
+    out = run_variant(variant, q, k, v, 4, 0.125)
+    torch.cuda.synchronize()
+    _ab_close(variant, out, run_variant_plain(variant, q.float(), k.float(), v.float(), 4, 0.125))
+
+
+def test_ab_hopper_body_rejects_unaligned_rows(dev):
+    x = torch.randn(2, 140, 3 * 128 + 4, device=dev, dtype=torch.bfloat16)
+    before = run_variant.launches, run_bd.launches
+    for call in (lambda: run_variant("tr_max", x[..., :128], x[..., 128:256], x[..., 256:384], 2, 0.125),
+                 lambda: run_bd(x[..., :128], x[..., 128:256], x[..., 256:384], 2, 0.125)):
+        with pytest.raises(ValueError, match="strides"):
+            call()
+    torch.cuda.synchronize()
+    assert (run_variant.launches, run_bd.launches) == before
+
+
+@pytest.mark.parametrize("fam,pair", [("M1", False), ("M3", False), ("M3", True)])
+def test_mma_sync_ab_entries_at_head_dim_64(dev, fam, pair):
+    """The mma.sync entries that served K6/K7 at head dim 64 before the
+    Hopper body (chip_smoke.py times them beside it) still compute their
+    families."""
+    from unidepth_tpu_torch.ops import _cuda
+    from unidepth_tpu_torch.ops.kernel_ab import FAMILY_CODES, attention_ab_plain
+
+    b, n, heads = 2, 333, 4
+    q, k, v = _ab_inputs(dev, b, n, heads * 64)
+    out = torch.empty_like(q)
+    lib, stream = _cuda.library(), _cuda.stream_handle(q)
+    if pair:
+        err = lib.ud_attention_bd_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, heads, n, n, 0, stream)
+    else:
+        err = lib.ud_attention_ab_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, heads, n, n, 64,
+                                      FAMILY_CODES[fam], stream)
+    _cuda.check(err, fam)
+    torch.cuda.synchronize()
+    _ab_close(fam, out, attention_ab_plain(fam, q.float(), k.float(), v.float(), heads))
 
 
 def test_ab_kernels_take_bf16_only(dev):
@@ -557,3 +668,27 @@ def test_from_config_defaults_to_the_card(dev):
                                        "pos_embed_size": 8, "output_idx": [1, 1, 2, 2]}}}
     model = UniDepthV2.from_config(cfg)
     assert {(p.device.type, p.dtype) for p in model.parameters()} == {("cuda", torch.bfloat16)}
+
+
+def test_vitb14_v2_infer_on_the_card(dev):
+    """UniDepthV2 ViT-B/14 at 518x518: its encoder runs K1 and K2 on their
+    Hopper bodies (C = 768, 12 heads of 64), its decoder's 4 camera-prompt
+    cross-attentions K3 at head dim 48 on attention.cu's body; depth within
+    the bf16 gate of the fp32 plain path."""
+    from unidepth_tpu_torch.models.unidepthv2.model import UniDepthV2
+
+    cfg = json.loads((Path(__file__).resolve().parents[1] / "configs" / "config_v2_vitb14.json").read_text())
+    rgb = np.random.default_rng(0).integers(0, 256, (1, 518, 518, 3), dtype=np.uint8)
+    model = UniDepthV2.from_config(cfg).init_params(seed=0).eval()
+    counted = (flash_attention_qkv, ln_dense, flash_attention, flash_attention_packed)
+    for fn in counted:
+        fn.launches = fn.hopper_launches = 0
+    out = model.infer(rgb, outputs=("depth",))
+    torch.cuda.synchronize()
+    assert [(fn.launches, fn.hopper_launches) for fn in counted] == [(12, 12), (12, 12), (4, 0), (0, 0)]
+    ref_model = UniDepthV2.from_config(cfg, device=dev, dtype=torch.float32).init_params(seed=0)
+    ref = ref_model.set_kernels(False).eval().infer(rgb, outputs=("depth",))
+    assert out["depth"].shape == ref["depth"].shape == (1, 518, 518, 1)
+    assert torch.isfinite(out["depth"]).all() and (out["depth"] > 0).all()
+    rel = ((out["depth"] - ref["depth"]).abs() / ref["depth"].abs()).flatten()
+    assert rel.median().item() <= 1e-2

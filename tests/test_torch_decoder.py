@@ -63,3 +63,28 @@ def test_decoder_skips_confidence_head(decoders):
         part = tdec(*args, confidence=False)
     assert "confidence" not in part
     torch.testing.assert_close(part["radius"], full["radius"], rtol=0, atol=0)
+
+
+def test_decoder_matches_jax_at_vitb_widths():
+    """The ViT-B/14 decoder's widths (config_v2_vitb14.json: inputs 768,
+    hidden 384, 8 heads, so its camera-prompt cross-attentions run at head
+    dim 48, out_dim 48) at a tiny spatial size."""
+    kw = dict(input_dims=(768,) * 4, hidden_dim=384, num_heads=8, depths=(1, 1, 1), out_dim=48)
+    jdec = JDecoder(dtype=jnp.float32, **kw)
+    rng = np.random.default_rng(2)
+    feats = [rng.standard_normal((1, GH, GW, 768)).astype(np.float32) for _ in range(4)]
+    cls = [rng.standard_normal((1, 1, 768)).astype(np.float32) for _ in range(4)]
+    jfeats, jcls = [jnp.asarray(f) for f in feats], [jnp.asarray(c) for c in cls]
+    params = jdec.init(jax.random.PRNGKey(1), jfeats, jcls, (H, W))
+    params = jax.tree_util.tree_map(
+        lambda a: np.asarray(a) + 0.02 * rng.standard_normal(a.shape).astype(np.float32), params["params"]
+    )
+    tdec = Decoder(**kw)
+    tdec.load_state_dict(decoder_state_dict(params, 3))
+    ref = jdec.apply({"params": params}, jfeats, jcls, (H, W))
+    with torch.no_grad():
+        out = tdec([torch.from_numpy(f) for f in feats], [torch.from_numpy(c) for c in cls], (H, W))
+    assert set(out) == set(ref)
+    for key in ref:
+        assert out[key].shape == ref[key].shape, key
+        np.testing.assert_allclose(out[key].numpy(), np.asarray(ref[key]), err_msg=key, **TOL)

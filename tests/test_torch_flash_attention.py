@@ -96,6 +96,23 @@ def test_flash_attention_packed_plain_matches_pallas(b, nq, nk, c, h, views):
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-5, rtol=0)
 
 
+@pytest.mark.parametrize("d", [48, 96])
+def test_flash_attention_plain_matches_pallas_off_power_of_two_head_dims(d):
+    """The ViT-B decoder's head dim (48) and 96, Nq != Nk: the port's K3
+    takes them (every multiple of 8 up to 128), as the JAX kernel takes any
+    D <= 128."""
+    bh, nq, nk = 2, 150, 190
+    rng = np.random.default_rng(d)
+    q = (rng.standard_normal((bh, nq, d)) * 0.3).astype(np.float32)
+    k, v = ((rng.standard_normal((bh, nk, d)) * 0.3).astype(np.float32) for _ in range(2))
+    with pltpu.force_tpu_interpret_mode(), safe_attention():
+        ref = j_flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    before = flash_attention.launches
+    out = flash_attention(*map(torch.from_numpy, (q, k, v)), d**-0.5)
+    assert flash_attention.launches == before
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL, rtol=0)
+
+
 def test_flash_attention_packed_head_dim_8_matches_jax():
     """d = 8 is inside the JAX packed regime (it divides 128); the port takes
     it too (on the card through the kernel's 16-deep zero-filled step)."""
@@ -223,8 +240,11 @@ def test_k4_routes_by_dtype_and_head_dim(stub_library, dtype, d, entry):
 @pytest.mark.parametrize(
     "dtype,d,nk,entry",
     [(torch.bfloat16, 64, 100, HOPPER), (torch.bfloat16, 64, 5000, HOPPER), (torch.float32, 64, 100, "ud_attention_fwd"),
-     (torch.bfloat16, 32, 100, "ud_attention_fwd"), (torch.float32, 32, 100, "ud_attention_fwd")],
-    ids=["bf16-d64", "bf16-d64-nk5000", "fp32-d64", "bf16-d32", "fp32-d32"],
+     (torch.bfloat16, 32, 100, "ud_attention_fwd"), (torch.float32, 32, 100, "ud_attention_fwd"),
+     (torch.bfloat16, 48, 100, "ud_attention_fwd"), (torch.float32, 48, 100, "ud_attention_fwd"),
+     (torch.bfloat16, 96, 100, "ud_attention_fwd"), (torch.float32, 96, 100, "ud_attention_fwd")],
+    ids=["bf16-d64", "bf16-d64-nk5000", "fp32-d64", "bf16-d32", "fp32-d32", "bf16-d48", "fp32-d48", "bf16-d96",
+         "fp32-d96"],
 )
 def test_k3_routes_by_dtype_and_head_dim(stub_library, dtype, d, nk, entry):
     """K3 takes the Hopper body for bf16 at D = 64 (flat (BH, N, D) tensors
@@ -258,3 +278,22 @@ def test_hopper_route_refuses_a_scale_it_cannot_take(stub_library, scale):
     with pytest.raises(ValueError, match="scale"):
         fa._flash_kernel(q, q, q, scale)
     assert stub_library.calls == []
+
+
+def test_supported_head_dims_are_the_multiples_of_8():
+    from unidepth_tpu_torch.ops import flash_attention as fa
+
+    assert fa.SUPPORTED_HEAD_DIMS == tuple(range(8, 129, 8))
+
+
+@pytest.mark.parametrize("d", [20, 132])
+def test_k3_head_dim_off_the_grid_raises_before_the_library(stub_library, d):
+    """A head dim that is not a multiple of 8 (16-byte rows), or past 128,
+    raises before the library is touched; no other body is tried."""
+    from unidepth_tpu_torch.ops import flash_attention as fa
+
+    q = torch.zeros(2, 70, d, dtype=torch.bfloat16)
+    before = fa.flash_attention.launches
+    with pytest.raises(ValueError, match="head dim"):
+        fa._flash_kernel(q, q, q, d**-0.5)
+    assert stub_library.calls == [] and fa.flash_attention.launches == before

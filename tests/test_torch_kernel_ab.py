@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from unidepth_tpu_torch.ops import kernel_ab as ab
 from unidepth_tpu_torch.ops.kernel_ab import family, run_bd, run_variant
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -85,3 +86,91 @@ def test_run_bd_domain(heads, d):
     q = torch.zeros(1, 150, heads * d)
     with pytest.raises(ValueError, match="head pairs of 64"):
         run_bd(q, q, q, heads, d**-0.5)
+
+
+class _EntryRecorder:
+    """A stand-in for the kernel library: records which C entry was called
+    with which arguments, and reports success."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, entry):
+        return lambda *args: self.calls.append((entry, args)) or 0
+
+
+@pytest.fixture
+def stub_library(monkeypatch):
+    from unidepth_tpu_torch.ops import _cuda
+
+    lib = _EntryRecorder()
+    monkeypatch.setattr(_cuda, "library", lambda: lib)
+    monkeypatch.setattr(_cuda, "stream_handle", lambda t: 0)
+    return lib
+
+
+FAMILY_NAMES = {"M1": "tr_max", "M2": "bf16p", "M3": "nomax_guard", "M4": "tr_lmxu", "M5": "nomax", "M6": "noexp",
+                "M7": "gemmonly", "M8": "qk_only", "M9": "pv_only"}
+
+
+@pytest.mark.parametrize("fam", list(FAMILY_NAMES))
+def test_k6_at_head_dim_64_routes_to_the_hopper_entry(stub_library, fam):
+    """Every K6 family in bf16 at D = 64 reaches the Hopper entry with its
+    family code and the tensors' element strides, and counts
+    ``hopper_launches``."""
+    q, k, v = (torch.zeros(2, n, 4 * 64, dtype=torch.bfloat16) for n in (150, 300, 300))
+    before = run_variant.launches, run_variant.hopper_launches
+    out = ab._ab_kernel(family(FAMILY_NAMES[fam]), q, k, v, 4)
+    assert out.shape == (2, 150, 256) and out.dtype == torch.bfloat16
+    [(entry, args)] = stub_library.calls
+    assert entry == "ud_attention_ab_hopper_fwd"
+    assert args[4:8] == (2, 4, 150, 300)  # batch, heads, nq, nk
+    assert args[8:16] == (150 * 256, 256, 300 * 256, 256, 300 * 256, 256, 150 * 256, 256)
+    assert args[16] == int(fam[1])
+    assert (run_variant.launches, run_variant.hopper_launches) == (before[0] + 1, before[1] + 1)
+
+
+def test_k6_at_head_dim_32_routes_to_the_mma_sync_entry(stub_library):
+    q = torch.zeros(2, 150, 4 * 32, dtype=torch.bfloat16)
+    before = run_variant.launches, run_variant.hopper_launches
+    ab._ab_kernel("M3", q, q, q, 4)
+    assert [entry for entry, _ in stub_library.calls] == ["ud_attention_ab_fwd"]
+    assert (run_variant.launches, run_variant.hopper_launches) == (before[0] + 1, before[1])
+
+
+@pytest.mark.parametrize("fam,l_from_bf16", [("M3", 0), ("M4", 1)])
+def test_k7_routes_to_its_hopper_entry(stub_library, fam, l_from_bf16):
+    q = torch.zeros(2, 150, 4 * 64, dtype=torch.bfloat16)
+    before = run_bd.launches, run_bd.hopper_launches, run_variant.launches
+    ab._bd_kernel(fam, q, q, q, 4)
+    [(entry, args)] = stub_library.calls
+    assert entry == "ud_attention_bd_hopper_fwd" and args[16] == l_from_bf16
+    assert (run_bd.launches, run_bd.hopper_launches, run_variant.launches) == (before[0] + 1, before[1] + 1, before[2])
+
+
+def test_k6_hopper_entry_reads_strided_views_in_place(stub_library):
+    """k and v as channel views of one (B, N, 3C) tensor: their row stride
+    3C goes to the entry as it is, with no copy."""
+    x = torch.zeros(2, 140, 3 * 256, dtype=torch.bfloat16)
+    q, k, v = x.split(256, dim=-1)
+    ab._ab_kernel("M1", q.contiguous(), k, v, 4)
+    [(_, args)] = stub_library.calls
+    assert args[1] == k.data_ptr() and args[10:14] == (140 * 768, 768, 140 * 768, 768)
+
+
+@pytest.mark.parametrize("offset,width,match", [(4, 3 * 256 + 8, "16-byte"), (0, 3 * 256 + 4, "strides")],
+                         ids=["unaligned", "strided"])
+@pytest.mark.parametrize("kernel", ["k6", "k7"])
+def test_ab_hopper_inputs_it_cannot_take_raise_before_the_library(stub_library, kernel, offset, width, match):
+    """A view 8 bytes into a row, or a row stride that is not a multiple of
+    8, raises before the library; no other body is tried."""
+    x = torch.zeros(2, 140, width, dtype=torch.bfloat16)
+    k, v = x[..., offset + 256 : offset + 512], x[..., offset + 512 : offset + 768]
+    q = torch.zeros(2, 140, 256, dtype=torch.bfloat16)
+    before = run_variant.launches, run_bd.launches
+    with pytest.raises(ValueError, match=match):
+        if kernel == "k6":
+            ab._ab_kernel("M1", q, k, v, 4)
+        else:
+            ab._bd_kernel("M3", q, k, v, 4)
+    assert stub_library.calls == [] and (run_variant.launches, run_bd.launches) == before

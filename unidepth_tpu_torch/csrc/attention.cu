@@ -26,10 +26,13 @@
 // past Nq load as 0 and are not stored, so no 0 * NaN can arise.
 // bf16 I/O runs on the tensor cores (m16n8k16, fp32 accumulation); fp32 I/O
 // takes a CUDA-core path (attn_fwd_simt) that keeps fp32 products exact.
-// Head dim 8 (the JAX packed regime takes any D dividing 128) runs the
-// tensor-core body at the 16-deep mma step: the tiles keep 16 columns whose
-// upper 8 are zeroed once in shared memory, q's upper fragment halves are 0,
-// and only the first 8 output columns are stored; q/k/v are not copied.
+// Head dims: every multiple of 8 up to 128, the JAX flash_attention's "any
+// D <= 128" as far as 16-byte rows allow (a D off that grid raises). A D
+// that is an odd multiple of 8 (8, 24, ..., 120; the ViT-B decoder's 48 and
+// 96 are multiples of 16) runs the tensor-core body at the 16-deep mma
+// step: the tiles keep D + 8 columns whose last 8 are zeroed once in shared
+// memory, q's fragment halves past D are 0, and only the first D output
+// columns are stored; q/k/v are not copied.
 
 #include <math.h>
 
@@ -55,7 +58,7 @@ constexpr float kLog2e = 1.4426950408889634f;
 // the head dim the tensor-core body computes with: D rounded up to the mma k step
 template <int D>
 __host__ __device__ constexpr int mma_dim() {
-  return D < 16 ? 16 : D;
+  return (D + 15) / 16 * 16;
 }
 
 template <int D>
@@ -66,6 +69,7 @@ constexpr int attn_bf16_smem_bytes() {
 template <int D>
 __global__ void __launch_bounds__(kThreads) attn_fwd_bf16(AttnArgs a) {
   using bf16 = __nv_bfloat16;
+  static_assert(D % 8 == 0 && D <= 128, "16-byte rows; DM - D is 0 or one 16-byte chunk");
   constexpr int DM = mma_dim<D>();
   constexpr int RS = DM + 8;  // tile row stride: 8 ldmatrix rows fall in distinct banks
   constexpr int kStage = 2 * kBlockN * RS;
@@ -110,7 +114,7 @@ __global__ void __launch_bounds__(kThreads) attn_fwd_bf16(AttnArgs a) {
 #pragma unroll
   for (int kk = 0; kk < DM / 16; ++kk) {
     const int c = kk * 16 + 2 * t;
-    const bool hi = D >= 16 || c + 8 < D;  // false only in the zero half of D = 8
+    const bool hi = c + 8 < D;  // false only in the zero half of the last step of an odd multiple of 8
     qf[kk][0] = ok0 ? *reinterpret_cast<const uint32_t*>(Q + r0 * a.q_rs + c) : 0u;
     qf[kk][1] = ok1 ? *reinterpret_cast<const uint32_t*>(Q + r1 * a.q_rs + c) : 0u;
     qf[kk][2] = ok0 && hi ? *reinterpret_cast<const uint32_t*>(Q + r0 * a.q_rs + c + 8) : 0u;
@@ -346,8 +350,19 @@ extern "C" int ud_attention_fwd(const void* q, const void* k, const void* v, voi
   switch (head_dim) {
     case 8: return launch<8>(a, batch, dtype, s);
     case 16: return launch<16>(a, batch, dtype, s);
+    case 24: return launch<24>(a, batch, dtype, s);
     case 32: return launch<32>(a, batch, dtype, s);
+    case 40: return launch<40>(a, batch, dtype, s);
+    case 48: return launch<48>(a, batch, dtype, s);
+    case 56: return launch<56>(a, batch, dtype, s);
     case 64: return launch<64>(a, batch, dtype, s);
+    case 72: return launch<72>(a, batch, dtype, s);
+    case 80: return launch<80>(a, batch, dtype, s);
+    case 88: return launch<88>(a, batch, dtype, s);
+    case 96: return launch<96>(a, batch, dtype, s);
+    case 104: return launch<104>(a, batch, dtype, s);
+    case 112: return launch<112>(a, batch, dtype, s);
+    case 120: return launch<120>(a, batch, dtype, s);
     case 128: return launch<128>(a, batch, dtype, s);
     default: return cudaErrorInvalidValue;
   }

@@ -5,56 +5,47 @@
 //   * make_kernel (run_variant): a family of head-packed attention variants,
 //     selected by name, that A/B the softmax levers (row max or none, exp or
 //     none, fp32 or bf16 row sum, GEMMs alone). The names compute nine
-//     functions; the TPU-only layout names (transposed scores, in-kernel
-//     relayout, one q block) compute the same function as another name and
-//     share its instantiation (ops/kernel_ab.py maps names to families):
-//       M1 row max; l = sum p32            M2 row max; l = sum bf16(p)
-//       M3 exp(min(s, 80)); l = sum p32    M4 exp(min(s, 80)); l = sum bf16(p)
-//       M5 exp(s), no shift, no clamp      M6 p = s - rowmax (no exp); l = sum p32
-//       M7 p = bf16(s): no mask, no normalisation
-//       M8 out = s[:, :D] (QK^T alone)     M9 p = q[:, 0] for every key (P V alone)
-//     Every normalising family divides by max(l, 1e-30), masks keys past N
-//     with -1e30, and the caller pre-scales q and rounds it to bf16, as the
-//     harness does.
+//     functions M1-M9 (attention_wgmma.cuh lists them); the TPU-only layout
+//     names (transposed scores, in-kernel relayout, one q block) compute the
+//     same function as another name and share its instantiation
+//     (ops/kernel_ab.py maps names to families). Every normalising family
+//     divides by max(l, 1e-30), masks keys past N with -1e30, and the caller
+//     pre-scales q and rounds it to bf16, as the harness does.
 //   * make_bd_kernel (run_bd): head-pair attention. On the TPU two heads of
 //     64 share one 128-deep QK^T product through a block-diagonal K/V, which
 //     doubles the MACs to fill the MXU; that is not carried over. Here a
-//     block owns 64 queries of a head pair, loads their 128 contiguous
-//     channels (256-byte rows of q, k and v) once, and runs both heads'
-//     products on the same K/V tiles. It computes M3 (or M4 when l is summed
-//     from bf16 p, the harness's l_on_mxu).
+//     work tile owns 64 queries of a head pair and both heads' K/V tiles,
+//     the 256 contiguous bytes of each q, k and v row, and runs both heads'
+//     products on them. It computes M3 (or M4 when l is summed from bf16 p,
+//     the harness's l_on_mxu).
 //
 // What bounds it on the H100: compute, as for K1. At the harness shape (B=8,
 // N=1370, H=16, D=64) the full-softmax families do ~61.5 GFLOP (QK^T and
-// P V) against < 0.1 GB of I/O; M8 and M9 do one of the two products. The
-// design is K1's (csrc/attention.cu): 64 queries per block, 16 per warp in
-// mma.sync m16n8k16 fragments, 64-key K/V tiles staged one ahead by cp.async
-// and read by ldmatrix, P re-packed in registers for P V, scores never
-// written to device memory. M1/M2 keep an online row max; M6 needs the full
-// row max before any p, so it makes two passes over the K tiles. M8 and M9
-// still do all of the product they time: mma.sync is asm volatile, so a
-// product whose result is dead is not dropped.
+// P V) against < 0.1 GB of I/O; M8 and M9 do one of the two products.
+//
+// Two bodies. At head dim 64 (the harness shape) both kernels run K1's
+// Hopper body (attention_wgmma.cuh: wgmma for both products, TMA through a
+// three-stage mbarrier ring, a persistent grid, 128 x 128 tiles), so the
+// levers are priced where K1 runs: the entries ud_attention_ab_hopper_fwd
+// (M1-M9, one head a work tile, scale 1) and ud_attention_bd_hopper_fwd
+// (head pairs, a consumer warpgroup a head). M6 streams K alone in a first
+// pass for its row max; M8 skips V and M9 skips K. Head dim 32 (one head is
+// half a 128-byte swizzled row) keeps the mma.sync body below, the first
+// one, which the entries ud_attention_ab_fwd / ud_attention_bd_fwd still
+// launch at 64 too, to time it beside the new one: 64 queries per block,
+// 16 per warp in mma.sync m16n8k16 fragments, 64-key K/V tiles staged one
+// ahead by cp.async and read by ldmatrix, P re-packed in registers for P V,
+// scores never written to device memory; M6 makes two passes over the K
+// tiles.
+// Both bodies still do all of the product they time: wgmma and mma.sync are
+// asm volatile, so a product whose result is dead is not dropped.
 // bf16 I/O only: the harness studies the tensor-core path.
 
 #include <math.h>
 
-#include "common.cuh"
+#include "attention_wgmma.cuh"
 
 namespace {
-
-enum Family : int { kM1 = 1, kM2, kM3, kM4, kM5, kM6, kM7, kM8, kM9 };
-
-template <int F>
-struct Policy {
-  static constexpr bool kOnlineMax = F == kM1 || F == kM2;
-  static constexpr bool kTwoPass = F == kM6;
-  static constexpr bool kClamp = F == kM3 || F == kM4;
-  static constexpr bool kMask = F <= kM6;
-  static constexpr bool kLFromBf16 = F == kM2 || F == kM4;
-  static constexpr bool kNormalise = F <= kM6;
-  static constexpr bool kQK = F != kM9;
-  static constexpr bool kPV = F != kM8;
-};
 
 struct AbArgs {
   const void* q;  // pre-scaled, (B, Nq, C)
@@ -69,6 +60,7 @@ constexpr int kBlockN = 64;
 constexpr int kThreads = 128;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kMasked = -1e30f;  // the harness's _NEG_INF
+constexpr int kPairStages = 3;     // K7's K/V ring: 3 x 64 KB of K and V
 
 template <int D, int NH>
 constexpr int ab_smem_bytes() {
@@ -338,8 +330,8 @@ bool valid_shape(int batch, int heads, int nq, int nk) {
 
 }  // namespace
 
-// K6: family 1..9 (M1..M9) on contiguous bf16 (B, N, heads * head_dim)
-// tensors, q pre-scaled; head_dim 32 or 64.
+// K6 on the mma.sync body: family 1..9 (M1..M9) on contiguous bf16
+// (B, N, heads * head_dim) tensors, q pre-scaled; head_dim 32 or 64.
 extern "C" int ud_attention_ab_fwd(const void* q, const void* k, const void* v, void* o, int batch,
                                    int heads, int nq, int nk, int head_dim, int family, void* stream) {
   if (!valid_shape(batch, heads, nq, nk)) return cudaErrorInvalidValue;
@@ -352,11 +344,52 @@ extern "C" int ud_attention_ab_fwd(const void* q, const void* k, const void* v, 
   }
 }
 
-// K7: head pairs of 64, l from p32 (M3) or from bf16 p (M4, l_on_mxu).
+// K7 on the mma.sync body: head pairs of 64, l from p32 (M3) or from bf16 p
+// (M4, l_on_mxu).
 extern "C" int ud_attention_bd_fwd(const void* q, const void* k, const void* v, void* o, int batch,
                                    int heads, int nq, int nk, int l_from_bf16, void* stream) {
   if (!valid_shape(batch, heads, nq, nk) || heads % 2) return cudaErrorInvalidValue;
   const AbArgs a{q, k, v, o, nq, nk, heads * 64};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return l_from_bf16 ? launch<kM4, 64, 2>(a, batch, heads, s) : launch<kM3, 64, 2>(a, batch, heads, s);
+}
+
+// K6 on the Hopper body: family 1..9 (M1..M9) on bf16 (B, N, heads * 64)
+// tensors with element strides (head h at column h * 64; q pre-scaled, so
+// the body runs at scale 1). Needs what hopper::launch needs: 16-byte
+// aligned bases, row and batch strides that are multiples of 8.
+extern "C" int ud_attention_ab_hopper_fwd(const void* q, const void* k, const void* v, void* o, int batch,
+                                          int heads, int nq, int nk, long long q_bs, long long q_rs,
+                                          long long k_bs, long long k_rs, long long v_bs, long long v_rs,
+                                          long long o_bs, long long o_rs, int family, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define UD_AB_HOPPER(F)                                                                                      \
+  hopper::launch<F, 1, 3>(q, k, v, o, batch, heads, nq, nk, q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, o_bs, o_rs, \
+                          hopper::kLog2e, s)
+  switch (family) {
+    case kM1: return UD_AB_HOPPER(kM1);
+    case kM2: return UD_AB_HOPPER(kM2);
+    case kM3: return UD_AB_HOPPER(kM3);
+    case kM4: return UD_AB_HOPPER(kM4);
+    case kM5: return UD_AB_HOPPER(kM5);
+    case kM6: return UD_AB_HOPPER(kM6);
+    case kM7: return UD_AB_HOPPER(kM7);
+    case kM8: return UD_AB_HOPPER(kM8);
+    case kM9: return UD_AB_HOPPER(kM9);
+    default: return cudaErrorInvalidValue;
+  }
+#undef UD_AB_HOPPER
+}
+
+// K7 on the Hopper body: head pairs of 64 (an even head count), M3 or, with
+// l_from_bf16, M4; the strides and needs of ud_attention_ab_hopper_fwd.
+extern "C" int ud_attention_bd_hopper_fwd(const void* q, const void* k, const void* v, void* o, int batch,
+                                          int heads, int nq, int nk, long long q_bs, long long q_rs,
+                                          long long k_bs, long long k_rs, long long v_bs, long long v_rs,
+                                          long long o_bs, long long o_rs, int l_from_bf16, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return l_from_bf16 ? hopper::launch<kM4, 2, kPairStages>(q, k, v, o, batch, heads, nq, nk, q_bs, q_rs, k_bs, k_rs,
+                                                           v_bs, v_rs, o_bs, o_rs, hopper::kLog2e, s)
+                     : hopper::launch<kM3, 2, kPairStages>(q, k, v, o, batch, heads, nq, nk, q_bs, q_rs, k_bs, k_rs,
+                                                           v_bs, v_rs, o_bs, o_rs, hopper::kLog2e, s);
 }

@@ -108,12 +108,13 @@ def build() -> Path:
     return out
 
 
-def ptxas_report(kernel: str) -> list[str]:
-    """What ptxas said about ``kernel`` (a substring of its mangled name) when
-    this source hash was built: registers, spills, shared memory. Empty when
-    the build's log holds no such entry."""
+def ptxas_reports(kernel: str) -> list[list[str]]:
+    """What ptxas said about each entry function whose mangled name holds
+    ``kernel`` when this source hash was built, in build order: registers,
+    spills, shared memory. Empty when the build's log holds no such entry."""
     log = BUILD_ROOT / _build_key() / "nvcc.log"
     lines = log.read_text().splitlines() if log.is_file() else []
+    reports = []
     for i, line in enumerate(lines):
         if "Compiling entry function" in line and kernel in line:
             out = [line]
@@ -121,8 +122,14 @@ def ptxas_report(kernel: str) -> list[str]:
                 if "Compiling entry function" in nxt or not nxt.startswith(("ptxas", " ")):
                     break
                 out.append(nxt)
-            return out
-    return []
+            reports.append(out)
+    return reports
+
+
+def ptxas_report(kernel: str) -> list[str]:
+    """The first of ``ptxas_reports(kernel)``, or an empty list."""
+    reports = ptxas_reports(kernel)
+    return reports[0] if reports else []
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -145,6 +152,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.ud_attention_ab_fwd.restype = i
     lib.ud_attention_bd_fwd.argtypes = [p, p, p, p] + [i] * 5 + [p]
     lib.ud_attention_bd_fwd.restype = i
+    lib.ud_attention_ab_hopper_fwd.argtypes = [p, p, p, p] + [i] * 4 + [ll] * 8 + [i, p]
+    lib.ud_attention_ab_hopper_fwd.restype = i
+    lib.ud_attention_bd_hopper_fwd.argtypes = lib.ud_attention_ab_hopper_fwd.argtypes
+    lib.ud_attention_bd_hopper_fwd.restype = i
     lib.ud_error_string.argtypes = [i]
     lib.ud_error_string.restype = ctypes.c_char_p
     return lib

@@ -5,9 +5,9 @@
   flash kernel (K3, ``ops.flash_attention.flash_attention``) when there is
   no bias, both sequences hold at least 1024 tokens, ``d <= 128`` and the
   tensors are off the CPU; otherwise plain ``sdpa``, as the JAX package
-  uses XLA there (the camera head's 4-token attention, for one). A head dim
-  the kernel does not take (it takes 16, 32, 64 and 128) raises there rather
-  than running plain.
+  uses XLA there (the camera head's 4-token attention, for one). The kernel
+  takes every multiple of 8 up to 128; a head dim off that grid raises
+  there rather than running plain.
 """
 
 from __future__ import annotations

@@ -20,11 +20,13 @@ a batch stride and a row stride, with head h at column h * D:
   head split and merge, as in the JAX package.
 
 Which body runs is fixed by dtype and head dim, never by a failure: K1, K3
-and K4 in bf16 at D = 64 (every ViT preset, and the V2 decoder's
+and K4 in bf16 at D = 64 (every ViT preset, and the ViT-L/14 V2 decoder's
 cross-attentions) launch the Hopper body (``attention_wgmma.cu``: wgmma for
 both products, TMA loads through an mbarrier ring, 128 x 128 tiles, any
 number of keys streamed through the online softmax); fp32 and the other
-head dims launch the mma.sync body (``attention.cu``). Both are bound by
+head dims launch the mma.sync body (``attention.cu``), which takes every
+multiple of 8 up to 128 (the ViT-B/14 V2 decoder's cross-attentions run it
+at 48; a head dim off that grid raises: 16-byte rows). Both are bound by
 compute on the H100 (~61.5 GFLOP per K1 call at the ViT-L serving shape
 against < 0.1 GB moved): they keep fp32 softmax statistics and the online
 row max (exact for any logits, so the TPU's logit audit has no
@@ -52,9 +54,12 @@ __all__ = [
     "flash_attention_qkv_plain",
 ]
 
-SUPPORTED_HEAD_DIMS = (8, 16, 32, 64, 128)
+SUPPORTED_HEAD_DIMS = tuple(range(8, 129, 8))  # attention.cu: 16-byte rows, at most 128
 PACKED_MAX_KEYS = 4096  # the TPU kernel's whole-K VMEM bound (_packed_supported)
 HOPPER_ENTRY = "ud_attention_hopper_fwd"  # attention_wgmma.cu: bf16, head dim 64
+# the mangled name of the instantiation that entry launches, attn_fwd_wgmma<kExact, 1, 3>
+# (attention_wgmma.cuh), as ptxas reports it
+HOPPER_KERNEL = "attn_fwd_wgmmaILi0ELi1ELi3E"
 HOPPER_HEAD_DIM = 64
 
 

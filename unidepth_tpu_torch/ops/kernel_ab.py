@@ -8,8 +8,7 @@ JAX ``run_variant`` takes, with the same meaning, on (B, N, H*D) tensors:
 
 * ``base`` is the port's K4, ``flash_attention_packed``, as the JAX harness
   calls the JAX one (in bf16 at D = 64 the wgmma + TMA body of
-  attention_wgmma.cu, while the variants below keep the mma.sync body they
-  were priced against);
+  attention_wgmma.cu, the body the variants below run at that head dim);
 * ``bd*`` names go to ``run_bd`` (kernel K7, replacing ``make_bd_kernel``);
 * every other name is kernel K6 (replacing ``make_kernel``). q is pre-scaled
   and rounded to its dtype, ``(q * scale).to(q.dtype)``; masked keys take
@@ -43,11 +42,20 @@ the JAX one, head dim 64 and an even head count; anything else raises
 ``ValueError`` (JAX raises ``TypeError`` in a reshape). ``blk_q`` is a tile
 hint and changes nothing.
 
-The card path is bf16 on the tensor cores, the dtype the harness studies:
-K6 takes head dim 32 or 64, K7 64, and fp32 I/O on a CUDA tensor raises
-``ValueError``. A CPU tensor (either dtype) takes the plain version. A CUDA
-tensor launches the kernel or raises: nothing falls back. ``run_variant``
-and ``run_bd`` count their kernel launches in ``launches``.
+The card path is bf16 on the tensor cores, the dtype the harness studies,
+and its body is fixed by the head dim, never by a failure. At D = 64 (the
+harness shape) K6 and K7 run K1's Hopper body (``csrc/attention_wgmma.cuh``:
+wgmma for both products, TMA through an mbarrier ring, a persistent grid;
+K7 gives each consumer warpgroup one head of the pair), reading q, k and v
+in place with their strides: the channel stride must be 1, the batch and
+row strides multiples of 8 and the bases 16-byte aligned, or the wrapper
+raises before the launch. K6 at D = 32 runs the mma.sync body of
+``csrc/attention_ab.cu`` on contiguous copies. Other head dims, and fp32
+I/O on a CUDA tensor, raise ``ValueError``. A CPU tensor (either dtype)
+takes the plain version. A CUDA tensor launches the kernel or raises:
+nothing falls back. ``run_variant`` and ``run_bd`` count their kernel
+launches in ``launches``, and those of the Hopper body among them in
+``hopper_launches``.
 """
 
 from __future__ import annotations
@@ -62,6 +70,7 @@ __all__ = ["attention_ab_plain", "family", "run_bd", "run_variant", "run_variant
 
 FAMILY_CODES = {f"M{i}": i for i in range(1, 10)}
 AB_HEAD_DIMS = (32, 64)
+HOPPER_HEAD_DIM = 64  # the head dim at which K6 runs the Hopper body (K7 takes 64 only)
 MASKED = -1e30  # the JAX harness's _NEG_INF
 
 
@@ -132,33 +141,67 @@ def _prescale(q, scale):
     return (q * scale).to(q.dtype)
 
 
-def _checked(name, qs, k, v):
-    """Validate what the CUDA entries take: bf16, one device, matching
-    (B, N, C) shapes; returns contiguous q, k, v and an empty output."""
-    _cuda.require_cuda(name, qs, k, v)
+def _validate(name, qs, k, v):
+    """What every card entry takes: bf16 q, k and v of matching (B, N, C)
+    shapes."""
     if not (qs.dtype == k.dtype == v.dtype == torch.bfloat16):
         raise ValueError(f"{name}: the card path takes bf16 q, k and v, got {qs.dtype}, {k.dtype}, {v.dtype}")
     b, _, c = qs.shape
     if k.shape != (b, k.shape[1], c) or v.shape != k.shape:
         raise ValueError(f"{name}: shapes {tuple(qs.shape)}, {tuple(k.shape)}, {tuple(v.shape)} do not match")
-    qs, k, v = qs.contiguous(), k.contiguous(), v.contiguous()
-    return qs, k, v, torch.empty_like(qs)
+
+
+def _hopper_strides(name, *tensors):
+    """The (batch, row) element strides of each tensor, in order, for a
+    Hopper entry, which reads them through TMA maps: checked here, before
+    the launch, as the C entry would refuse them (unit channel stride, batch
+    and row strides multiples of 8, 16-byte aligned bases)."""
+    if any(t.stride(2) != 1 for t in tensors):
+        raise ValueError(f"{name}: the channel axis must have stride 1")
+    strides = tuple(s for t in tensors for s in (t.stride(0), t.stride(1)))
+    if any(s % 8 for s in strides):
+        raise ValueError(f"{name}: batch and row strides {strides} must be multiples of 8")
+    ptrs = [t.data_ptr() for t in tensors]
+    if any(p % 16 for p in ptrs):
+        raise ValueError(f"{name}: q, k, v and out must start on 16-byte boundaries, got {[p % 16 for p in ptrs]}")
+    return strides
 
 
 def _attention_ab(fam: str, qs, k, v, num_heads: int):
     if qs.device.type == "cpu":
         return attention_ab_plain(fam, qs, k, v, num_heads)
+    _cuda.require_cuda("run_variant", qs, k, v)
+    return _ab_kernel(fam, qs, k, v, num_heads)
+
+
+def _ab_kernel(fam: str, qs, k, v, num_heads: int):
+    """K6's launch, on whatever device the tensors are (the CPU tests call it
+    with the library stubbed to see the route): the Hopper body at D = 64,
+    the mma.sync body at D = 32."""
     b, nq, c = qs.shape
     d = c // num_heads
     if d not in AB_HEAD_DIMS or d * num_heads != c:
         raise ValueError(f"run_variant: head dim {c}/{num_heads} not in {AB_HEAD_DIMS} on the card")
-    qs, k, v, out = _checked("run_variant", qs, k, v)
-    err = _cuda.library().ud_attention_ab_fwd(
-        qs.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, num_heads, nq, k.shape[1], d,
-        FAMILY_CODES[fam], _cuda.stream_handle(qs),
-    )
+    _validate("run_variant", qs, k, v)
+    nk = k.shape[1]
+    hopper = d == HOPPER_HEAD_DIM
+    if hopper:
+        out = torch.empty((b, nq, c), dtype=qs.dtype, device=qs.device)
+        strides = _hopper_strides("run_variant", qs, k, v, out)
+        err = _cuda.library().ud_attention_ab_hopper_fwd(
+            qs.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, num_heads, nq, nk, *strides,
+            FAMILY_CODES[fam], _cuda.stream_handle(qs),
+        )
+    else:
+        qs, k, v = qs.contiguous(), k.contiguous(), v.contiguous()
+        out = torch.empty_like(qs)
+        err = _cuda.library().ud_attention_ab_fwd(
+            qs.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, num_heads, nq, nk, d,
+            FAMILY_CODES[fam], _cuda.stream_handle(qs),
+        )
     _cuda.check(err, f"run_variant ({fam})")
     run_variant.launches += 1
+    run_variant.hopper_launches += hopper
     return out
 
 
@@ -177,17 +220,28 @@ def run_bd(q, k, v, num_heads: int, scale: float, blk_q: int | None = None, l_on
     qs = _prescale(q, scale)
     if qs.device.type == "cpu":
         return attention_ab_plain(fam, qs, k, v, num_heads)
-    qs, k, v, out = _checked("run_bd", qs, k, v)
-    err = _cuda.library().ud_attention_bd_fwd(
-        qs.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), q.shape[0], num_heads, q.shape[1],
-        k.shape[1], int(l_on_mxu), _cuda.stream_handle(qs),
+    _cuda.require_cuda("run_bd", qs, k, v)
+    return _bd_kernel(fam, qs, k, v, num_heads)
+
+
+def _bd_kernel(fam: str, qs, k, v, num_heads: int):
+    """K7's launch on the Hopper body, on whatever device the tensors are."""
+    _validate("run_bd", qs, k, v)
+    b, nq, c = qs.shape
+    out = torch.empty((b, nq, c), dtype=qs.dtype, device=qs.device)
+    strides = _hopper_strides("run_bd", qs, k, v, out)
+    err = _cuda.library().ud_attention_bd_hopper_fwd(
+        qs.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, num_heads, nq, k.shape[1], *strides,
+        int(fam == "M4"), _cuda.stream_handle(qs),
     )
     _cuda.check(err, "run_bd")
     run_bd.launches += 1
+    run_bd.hopper_launches += 1
     return out
 
 
 run_bd.launches = 0
+run_bd.hopper_launches = 0
 
 
 def _bd_args(variant: str):
@@ -211,6 +265,7 @@ def run_variant(variant: str, q, k, v, num_heads: int, scale: float):
 
 
 run_variant.launches = 0
+run_variant.hopper_launches = 0
 
 
 def run_variant_plain(variant: str, q, k, v, num_heads: int, scale: float):
