@@ -9,9 +9,9 @@ fails (non-zero exit, no result line) without CUDA or outside a checkout.
 1. Prints the card's name and power limit, builds the CUDA kernels from
    ``unidepth_tpu_torch/csrc`` with nvcc, and prints what ptxas reported for
    the Hopper bodies (registers, spills): one line for each instantiation
-   of attn_fwd_wgmma (the main path's, kExact on one head a work tile, is
-   named; the others are K6's M1-M9 and K7's head pairs), and
-   ln_dense_wgmma.
+   of attn_fwd_wgmma (the main path's, kExact on one head a work tile at
+   head dim 64, is named; K3's at 48 and 32, K6's M1-M9 and K7's head
+   pairs), ln_dense_wgmma and each conv3x3_wgmma<Cout, Cin / 16>.
 2. One phase per kernel at the shapes its path gives it (K4: strided views
    of one (8, 1370, 3072) projection, 16 heads, scale 1/8; K3: the
    decoder's (64, 1369, 64); K2: M = 10960, C = 1024, F = 4096). In bf16
@@ -28,11 +28,20 @@ fails (non-zero exit, no result line) without CUDA or outside a checkout.
    (attn_fwd_simt, ln_dense_simt), which the main path does not launch, at
    1e-4 (attention) and 2e-4 (ln_dense). It times kernel and plain version
    in bf16 (CUDA events around 10 back-to-back calls, median of 10 runs).
+   Then K3 at the decoders' narrower head dims, on the Hopper body: ViT-B's
+   (16, 1369, 48) at B = 2 and (64, 1369, 48) at B = 8, ViT-S's (64, 1369,
+   32), each held at the bf16 gates and timed in two turns against the
+   mma.sync body of attention.cu (its C entry called directly) and SDPA.
 3. The kernels whose entry points are not a model path (K5-K7): K5
    conv3x3_lowchannel at the V2 heads' hr conv shape, (8, 518, 518, 64 ->
-   32) reflect, in bf16 and fp32 like the others, then zeros, reflect and
-   replicate padding at small ragged shapes; then K5's entry alone (one
-   call: 1 launch). K6, the A/B harness of
+   32) reflect, in bf16 (the Hopper body, conv3x3_wgmma.cu) and fp32 like
+   the others, then ViT-B's and ViT-S's hr convs (48 -> 32, 32 -> 32), and
+   zeros, reflect and replicate padding at small ragged shapes, every bf16
+   call with Cin and Cout multiples of 8 checked to run the Hopper body;
+   the mma.sync body of conv3x3.cu at the hr shape, its C entry called
+   directly, checked and timed in turns with the Hopper body
+   (``mma_sync_ms``); then K5's entry alone (one call: 1 launch, on the
+   Hopper body). K6, the A/B harness of
    scripts_torch/kernel_ab.py over ``base`` and one name per family M1-M9,
    and K7, the harness over ``bd`` and ``bd_lmxu``, at (8, 1370, 16 x 64)
    bf16, each variant held against its plain version in fp32 at the bf16
@@ -42,9 +51,8 @@ fails (non-zero exit, no result line) without CUDA or outside a checkout.
    K7 call in it must run the Hopper body. Beside them, the mma.sync body
    that K6 (M1, M3) and K7 ran at head dim 64 before, its C entry called
    directly, held at the same gates and timed (``mma_sync_ms``). Before
-   them, head dim 8 of K3 and K4 in bf16 and fp32, and K3 at the ViT-B
-   decoder's (16, 1369, 48) against its plain version, timed against SDPA
-   on a line of its own. ``library_ms`` is one PyTorch call computing the
+   them, head dim 8 of K3 and K4 in bf16 and fp32. ``library_ms`` is one
+   PyTorch call computing the
    same function on the same data, timed as a yardstick and never called
    by the port: ``F.scaled_dot_product_attention`` for K1, K3, K4, K6 (M1)
    and K7,
@@ -77,13 +85,17 @@ fails (non-zero exit, no result line) without CUDA or outside a checkout.
 6. Builds UniDepthV2 ViT-B/14 from configs/config_v2_vitb14.json the same
    way (12 blocks, C = 768, 12 heads of 64; decoder hidden 384, 8 heads of
    48), runs ``infer()`` on the first 2 images: shapes, finiteness, depth
-   > 0; launches K1 12, K2 12, each on its Hopper body, K3 4 on
-   attention.cu's body (head dim 48), K4 never; depth against the fp32
-   plain path at the ViT-L gate (median relative error <= 1e-2). Then
-   times depth-only ``infer()`` at B = 8 in three rounds.
+   > 0; launches K1 12, K2 12, K3 4 (head dim 48), each on its Hopper
+   body, K4 never; depth against the fp32 plain path at the ViT-L gate
+   (median relative error <= 1e-2). Then times depth-only ``infer()`` at B
+   = 8 in three rounds.
+7. UniDepthV2 ViT-S/14 from configs/config_v2_vits14.json the same way (12
+   blocks, C = 384, 6 heads of 64; decoder hidden 256, 8 heads of 32):
+   launches K1 12, K2 12, K3 4 (head dim 32), each on its Hopper body, K4
+   never; the same checks and timing as ViT-B.
 
-Each path's launch counts (and the Hopper-body counts of K1-K4, K6 and
-K7) are set to 0 just before it runs and read just after. A K2 call
+Each path's launch counts (and the Hopper-body counts of K1-K7) are set
+to 0 just before it runs and read just after. A K2 call
 counts once, though it launches its row statistics and its GEMM. The K6
 harness's ``base`` row is K4 itself. The last two lines are the kernels'
 JSON record (each kernel with its ``body``) and ``{"ok": true, "device":
@@ -107,8 +119,9 @@ import torch.nn.functional as F
 ROOT = Path(__file__).resolve().parent
 CONFIG = ROOT / "configs" / "config_v2_vitl14.json"
 CONFIG_B = ROOT / "configs" / "config_v2_vitb14.json"
+CONFIG_S = ROOT / "configs" / "config_v2_vits14.json"
 BATCH, SIDE, SEED = 8, 518, 0
-BATCH_B_CHECK = 2  # ViT-B's check against the fp32 plain path; its timing runs at BATCH
+BATCH_B_CHECK = 2  # ViT-B's and ViT-S's check against the fp32 plain path; their timing runs at BATCH
 TOL_BF16 = dict(rtol=1.6e-2, atol=1e-2)
 REL_RMS_BF16 = 5e-3
 STAGE_MASK = (True, False, True, False)
@@ -120,10 +133,14 @@ AB_FAMILY_NAMES = ("base", "tr_max", "bf16p", "nomax_guard", "tr_lmxu", "nomax",
                    "qk_only", "pv_only")
 BD_NAMES = ("bd", "bd_lmxu")
 # the kernels with a Hopper body (wgmma + TMA) beside their mma.sync one: K1, K3
-# and K4 (attention_wgmma.cu, bf16 at head dim 64), K2 (ln_dense_wgmma.cu), and
-# K6 and K7 (attention_ab.cu on attention_wgmma.cuh's body, bf16 at head dim 64)
-HOPPER = ("flash_attention_qkv", "ln_dense", "flash_attention", "flash_attention_packed", "run_variant", "run_bd")
-K3_VITB_SHAPE = (2 * 8, 1369, 48)  # the ViT-B decoder's cross-attention at B = 2: 8 heads of 48
+# and K4 (attention_wgmma.cu, bf16 at head dim 64; K3 also at 32 and 48), K2
+# (ln_dense_wgmma.cu), K5 (conv3x3_wgmma.cu), and K6 and K7 (attention_ab.cu
+# on attention_wgmma.cuh's body, bf16 at head dim 64)
+HOPPER = ("flash_attention_qkv", "ln_dense", "flash_attention", "flash_attention_packed", "conv3x3_lowchannel",
+          "run_variant", "run_bd")
+# K3 at the decoders' narrower head dims, 8 heads an image: name -> (BH, N, D)
+K3_NARROW_SHAPES = {"d48_b2": (2 * 8, 1369, 48), "d48": (BATCH * 8, 1369, 48), "d32": (BATCH * 8, 1369, 32)}
+K5_HR_SHAPES = {64: (BATCH, SIDE, SIDE, 64, 32), 48: (BATCH, SIDE, SIDE, 48, 32), 32: (BATCH, SIDE, SIDE, 32, 32)}
 
 
 def log(*args):
@@ -297,7 +314,8 @@ def main():
     sys.path.insert(0, str(ROOT))
     from unidepth_tpu_torch.models.unidepthv2.model import UniDepthV2
     from unidepth_tpu_torch.ops import _cuda
-    from unidepth_tpu_torch.ops.conv_kernels import conv3x3_lowchannel, conv3x3_lowchannel_plain
+    from unidepth_tpu_torch.ops.conv_kernels import PAD_MODES, conv3x3_lowchannel, conv3x3_lowchannel_plain
+    from unidepth_tpu_torch.ops.flash_attention import _launch as attention_launch
     from unidepth_tpu_torch.ops.flash_attention import (
         flash_attention,
         flash_attention_packed,
@@ -324,12 +342,14 @@ def main():
     t0 = time.perf_counter()
     _cuda.library()
     log(f"build: {time.perf_counter() - t0:.1f} s (nvcc {_cuda.build_seconds} s)")
-    reports = _cuda.ptxas_reports("attn_fwd_wgmma") + _cuda.ptxas_reports("ln_dense_wgmma")
+    reports = (_cuda.ptxas_reports("attn_fwd_wgmma") + _cuda.ptxas_reports("ln_dense_wgmma")
+               + _cuda.ptxas_reports("conv3x3_wgmma"))
     if not any(HOPPER_KERNEL in r[0] for r in reports):
         raise RuntimeError(f"ptxas report for the main path's {HOPPER_KERNEL}: none in the build log")
-    for report in reports:  # attn_fwd_wgmma's template arguments <F, NH, Stages> stay in the mangled name
+    for report in reports:  # template arguments (<F, NH, Stages, D>, <Cout, Cin / 16>) stay in the mangled name
         text = "\n".join(report)
-        name = re.search(r"\d(attn_fwd_wgmmaI(?:Li\d+E)+E|ln_dense_wgmma|ln_row_stats)", report[0]).group(1)
+        name = re.search(r"\d((?:attn_fwd_wgmma|conv3x3_wgmma)I(?:Li\d+E)+E|ln_dense_wgmma|ln_row_stats)",
+                         report[0]).group(1)
         used = re.search(r"Used \d+ registers", text)
         spills = re.search(r"\d+ bytes spill stores, \d+ bytes spill loads", text)
         main = " (the main path's: K1, K3, K4)" if HOPPER_KERNEL in report[0] else ""
@@ -436,42 +456,116 @@ def main():
             else:
                 log(f"{name} fp32: max_abs_err {check_close(name + ' fp32', out, ref, rtol=1e-4, atol=1e-4):.3e}")
 
-    # K3 at the ViT-B decoder's head dim 48: attention.cu's mma.sync body
-    gen.manual_seed(48)
-    q48, k48, v48 = (randn(*K3_VITB_SHAPE, dtype=torch.bfloat16) for _ in range(3))
-    hopper3 = flash_attention.hopper_launches
-    err, rel = check_bf16("K3 d=48", flash_attention(q48, k48, v48, 48**-0.5),
-                          flash_attention_plain(q48.float(), k48.float(), v48.float(), 48**-0.5))
-    if flash_attention.hopper_launches != hopper3:
-        raise RuntimeError("K3 d=48 ran the Hopper body, which takes head dim 64 only")
-    k3_d48 = {"ms": time_ms(lambda: flash_attention(q48, k48, v48, 48**-0.5)),
-              "library_ms": time_ms(sdpa(q48[None], k48[None], v48[None], 48**-0.5))}
-    log(f"K3 d=48 {K3_VITB_SHAPE} (the ViT-B decoder at B=2): kernel {k3_d48['ms']:.4f} ms, SDPA "
-        f"{k3_d48['library_ms']:.4f} ms ({k3_d48['ms'] / k3_d48['library_ms']:.3f}x); bf16 max_abs_err {err:.3e} "
-        f"rel_rms {rel:.3e} ({smi})")
-    del q48, k48, v48
+    # K3 at the ViT-B (48) and ViT-S (32) decoders' head dims: the Hopper
+    # body, held at the bf16 gates beside the mma.sync body of attention.cu
+    # (its C entry called directly, so no wrapper counts it), then both and
+    # SDPA timed in two turns (a, b, c, c, b, a), since K3 at these shapes
+    # moved up to 27% between calls before
+    k3_calls, k3_narrow = {}, {}
+    for key, (bh, n, d) in K3_NARROW_SHAPES.items():
+        gen.manual_seed(bh + d)
+        q_, k_, v_ = (randn(bh, n, d, dtype=torch.bfloat16) for _ in range(3))
+        out_ = torch.empty_like(q_)
+        ref = flash_attention_plain(q_.float(), k_.float(), v_.float(), d**-0.5)
+        hopper3 = flash_attention.hopper_launches
+        err, rel = check_bf16(f"K3 {key}", flash_attention(q_, k_, v_, d**-0.5), ref)
+        if flash_attention.hopper_launches != hopper3 + 1:
+            raise RuntimeError(f"K3 {(bh, n, d)}: the bf16 call did not run the Hopper body")
+
+        def old_body(q_=q_, k_=k_, v_=v_, out_=out_, bh=bh, n=n, d=d):
+            attention_launch("K3 mma.sync body", q_, k_.data_ptr(), v_.data_ptr(), out_, bh, 1, n, n, d,
+                             (n * d, d) * 4, d**-0.5)
+            return out_
+
+        err_old, rel_old = check_bf16(f"K3 {key} mma.sync body", old_body(), ref)
+        k3_narrow.update({f"{key}_shape": [bh, n, d], f"{key}_max_abs_err": err, f"{key}_rel_rms": rel})
+        log(f"K3 {key} {(bh, n, d)}: Hopper body max_abs_err {err:.3e} rel_rms {rel:.3e}; mma.sync body "
+            f"max_abs_err {err_old:.3e} rel_rms {rel_old:.3e}")
+        k3_calls[f"{key}_ms"] = lambda q_=q_, k_=k_, v_=v_, d=d: flash_attention(q_, k_, v_, d**-0.5)
+        k3_calls[f"{key}_mma_sync_ms"] = old_body
+        k3_calls[f"{key}_library_ms"] = sdpa(q_[None], k_[None], v_[None], d**-0.5)
+        del ref
+    k3_turns = {name: [] for name in k3_calls}
+    for order in (list(k3_calls), list(reversed(k3_calls))):
+        for name in order:
+            k3_turns[name].append(time_ms(k3_calls[name]))
+    k3_narrow.update({name: statistics.median(ts) for name, ts in k3_turns.items()})
+    for key, (bh, n, d) in K3_NARROW_SHAPES.items():
+        ms, old, lib = (k3_narrow[f"{key}_{x}"] for x in ("ms", "mma_sync_ms", "library_ms"))
+        turns = ", ".join(f"{t:.4f}" for x in ("ms", "mma_sync_ms", "library_ms") for t in k3_turns[f"{key}_{x}"])
+        log(f"K3 {key} {(bh, n, d)}: Hopper body {ms:.4f} ms, mma.sync body {old:.4f} ms, SDPA {lib:.4f} ms "
+            f"({ms / lib:.3f}x SDPA, {ms / old:.3f}x the old body; turns {turns}) ({smi})")
+    del k3_calls
 
     # --- K5: conv3x3_lowchannel, its entry point the op itself ---------------
-    b, h, w, cin, cout = BATCH, SIDE, SIDE, 64, 32
+    def floats(args):
+        return [a.float() if torch.is_tensor(a) else a for a in args]
+
+    def conv_flops(shape):
+        b, h, w, cin, cout = shape
+        return 2 * b * h * w * 9 * cin * cout
+
     m["conv3x3_lowchannel"] = kernel_phase(
         "K5 conv3x3_lowchannel (8, 518, 518, 64->32) reflect", conv3x3_lowchannel, conv3x3_lowchannel_plain,
-        k5_inputs, 1e-4, 2 * b * h * w * 9 * cin * cout, conv_library)
+        k5_inputs, 1e-4, conv_flops(K5_HR_SHAPES[64]), conv_library)
+    for cin, shape in K5_HR_SHAPES.items():  # the hr convs of ViT-L (timed above), ViT-B and ViT-S
+        if cin == 64:
+            continue
+        args = k5_inputs(torch.bfloat16, shape)
+        hopper5 = conv3x3_lowchannel.hopper_launches
+        out = conv3x3_lowchannel(*args)
+        torch.cuda.synchronize()
+        if conv3x3_lowchannel.hopper_launches != hopper5 + 1:
+            raise RuntimeError(f"K5 {shape}: the bf16 call did not run the Hopper body")
+        err, rel = check_bf16(f"K5 {shape}", out, conv3x3_lowchannel_plain(*floats(args)))
+        ms, lib = time_ms(lambda: conv3x3_lowchannel(*args)), time_ms(conv_library(*args))
+        bd = bound(conv_flops(shape), nbytes(args[0], out))
+        m["conv3x3_lowchannel"][f"cin{cin}"] = {"ms": ms, "library_ms": lib, "max_abs_err": err, **bd}
+        log(f"K5 {shape} reflect: bf16 max_abs_err {err:.3e} rel_rms {rel:.3e}; kernel {ms:.4f} ms, cuDNN {lib:.4f} "
+            f"ms, {bd['bound_ms'] / ms:.1%} of its {bd['bound_ms']:.4f} ms bound ({smi})")
+        del args, out
     for shape, mode in (((2, 37, 45, 64, 32), "zeros"), ((2, 37, 45, 64, 32), "replicate"),
-                        ((2, 21, 37, 16, 8), "reflect"), ((1, 10, 40, 32, 16), "zeros"), ((1, 9, 13, 8, 4), "replicate")):
+                        ((2, 21, 37, 16, 8), "reflect"), ((1, 10, 40, 32, 16), "zeros"), ((1, 9, 13, 8, 4), "replicate"),
+                        ((2, 5, 130, 48, 32), "reflect"), ((3, 1, 70, 32, 32), "zeros")):
         for dtype in (torch.bfloat16, torch.float32):
             args = k5_inputs(dtype, shape, mode)
+            hopper5 = conv3x3_lowchannel.hopper_launches
             out = conv3x3_lowchannel(*args)
-            ref = conv3x3_lowchannel_plain(*[a.float() if torch.is_tensor(a) else a for a in args])
+            torch.cuda.synchronize()
+            hopper = dtype == torch.bfloat16 and shape[3] % 8 == 0 and shape[4] % 8 == 0
+            if conv3x3_lowchannel.hopper_launches != hopper5 + hopper:
+                raise RuntimeError(f"K5 {shape} {mode} {dtype}: the Hopper body ran {not hopper}, expected {hopper}")
+            ref = conv3x3_lowchannel_plain(*floats(args))
             name = f"K5 {shape} {mode}"
             if dtype == torch.bfloat16:
                 err, rel = check_bf16(name, out, ref)
-                log(f"{name} bf16: max_abs_err {err:.3e} rel_rms {rel:.3e}")
+                log(f"{name} bf16 ({'Hopper' if hopper else 'mma.sync'} body): max_abs_err {err:.3e} rel_rms {rel:.3e}")
             else:
                 log(f"{name} fp32: max_abs_err {check_close(name + ' fp32', out, ref, rtol=1e-4, atol=1e-4):.3e}")
+    # the mma.sync body that ran the hr conv before, its C entry called
+    # directly (no wrapper counts it), then both bodies in turns
     k5_args = k5_inputs(torch.bfloat16)
+    x5, w5, b5, mode5 = k5_args
+    out5 = torch.empty(*x5.shape[:3], w5.shape[-1], dtype=x5.dtype, device=dev)
+
+    def conv_mma_sync():
+        _cuda.check(_cuda.library().ud_conv3x3_fwd(
+            x5.data_ptr(), w5.data_ptr(), b5.data_ptr(), out5.data_ptr(), *x5.shape, w5.shape[-1], PAD_MODES[mode5],
+            _cuda.DTYPE_CODES[x5.dtype], _cuda.stream_handle(x5)), "ud_conv3x3_fwd")
+        return out5
+
+    err, rel = check_bf16("K5 mma.sync body", conv_mma_sync(), conv3x3_lowchannel_plain(*floats(k5_args)))
+    k5_turns = {"hopper": [], "mma.sync": []}
+    for name in ("hopper", "mma.sync", "mma.sync", "hopper"):
+        k5_turns[name].append(time_ms(conv_mma_sync if name == "mma.sync" else lambda: conv3x3_lowchannel(*k5_args)))
+    m["conv3x3_lowchannel"]["mma_sync_ms"] = statistics.median(k5_turns["mma.sync"])
+    m["conv3x3_lowchannel"]["hopper_turns_ms"] = statistics.median(k5_turns["hopper"])
+    log(f"K5 (8, 518, 518, 64->32) in turns: Hopper body {k5_turns['hopper']} ms, mma.sync body "
+        f"{k5_turns['mma.sync']} ms (its bf16 max_abs_err {err:.3e} rel_rms {rel:.3e}) ({smi})")
     _, k5_launches = run_path("K5 conv3x3_lowchannel call", kernels, lambda: conv3x3_lowchannel(*k5_args))
-    check_launches("K5 conv3x3_lowchannel call", k5_launches, {**none, "conv3x3_lowchannel": 1})
-    del k5_args
+    check_launches("K5 conv3x3_lowchannel call", k5_launches,
+                   {**none, "conv3x3_lowchannel": 1, "conv3x3_lowchannel/wgmma": 1})
+    del k5_args, x5, w5, b5, out5
 
     # --- K6 and K7: the A/B harness (scripts_torch/kernel_ab.py) -------------
     harness = load_harness()
@@ -562,21 +656,24 @@ def main():
     images_per_s("int8", model, rgb, smi)
     del model, ref
 
-    # --- ViT-B/14: the decoder's cross-attentions at head dim 48 -------------
-    config_b = json.loads(CONFIG_B.read_text())
-    t0 = time.perf_counter()
-    model_b = UniDepthV2.from_config(config_b).init_params(seed=SEED).eval()  # no device named: the card
-    log(f"model: ViT-B/14 {sum(p.numel() for p in model_b.parameters()) / 1e6:.1f} M params, "
-        f"{next(model_b.parameters()).dtype} on {next(model_b.parameters()).device}, built in {time.perf_counter() - t0:.1f} s")
-    rgb_b = rgb[:BATCH_B_CHECK]
-    out_b, launches_b = run_path("ViT-B bf16 infer()", kernels, lambda: model_b.infer(rgb_b))
-    check_launches("ViT-B bf16 infer()", launches_b, {**none, "flash_attention_qkv": 12, "flash_attention_qkv/wgmma": 12,
-                                                      "ln_dense": 12, "ln_dense/wgmma": 12, "flash_attention": 4})
-    check_outputs("ViT-B bf16 infer()", out_b, BATCH_B_CHECK)
-    depth_against_plain("ViT-B/14", UniDepthV2, config_b, rgb_b, out_b, kernels, dev)
-    del out_b
-    images_per_s("bf16 ViT-B/14", model_b, rgb, smi)
-    del model_b
+    # --- ViT-B/14 and ViT-S/14: the decoders' cross-attentions at head dims 48 and 32
+    for label, path in (("ViT-B/14", CONFIG_B), ("ViT-S/14", CONFIG_S)):
+        config_b = json.loads(path.read_text())
+        t0 = time.perf_counter()
+        model_b = UniDepthV2.from_config(config_b).init_params(seed=SEED).eval()  # no device named: the card
+        log(f"model: {label} {sum(p.numel() for p in model_b.parameters()) / 1e6:.1f} M params, "
+            f"{next(model_b.parameters()).dtype} on {next(model_b.parameters()).device}, "
+            f"built in {time.perf_counter() - t0:.1f} s")
+        rgb_b = rgb[:BATCH_B_CHECK]
+        out_b, launches_b = run_path(f"{label} bf16 infer()", kernels, lambda: model_b.infer(rgb_b))
+        check_launches(f"{label} bf16 infer()", launches_b,
+                       {**none, "flash_attention_qkv": 12, "flash_attention_qkv/wgmma": 12, "ln_dense": 12,
+                        "ln_dense/wgmma": 12, "flash_attention": 4, "flash_attention/wgmma": 4})
+        check_outputs(f"{label} bf16 infer()", out_b, BATCH_B_CHECK)
+        depth_against_plain(label, UniDepthV2, config_b, rgb_b, out_b, kernels, dev)
+        del out_b
+        images_per_s(f"bf16 {label}", model_b, rgb, smi)
+        del model_b
 
     # each kernel's count from the path it serves: K1-K3 the bf16 ViT-L path,
     # K4 the int8 one, K5 its own call, K6 and K7 the harness
@@ -591,6 +688,7 @@ def main():
     hopper_launches = {
         **{k: launches[f"{k}/wgmma"] for k in HOPPER},
         "flash_attention_packed": launches_q["flash_attention_packed/wgmma"],
+        "conv3x3_lowchannel": k5_launches["conv3x3_lowchannel/wgmma"],
         "run_variant": k6_launches["run_variant/wgmma"],
         "run_bd": k7_launches["run_bd/wgmma"],
     }
@@ -600,10 +698,12 @@ def main():
                      "F.layer_norm -> F.linear -> F.gelu, three calls"),
         "flash_attention": ("attention_wgmma.cu", "unidepth_tpu/ops/flash_attention.py:159", "wgmma", "SDPA"),
         "flash_attention_packed": ("attention_wgmma.cu", "unidepth_tpu/ops/flash_attention.py:347", "wgmma", "SDPA"),
-        "conv3x3_lowchannel": ("conv3x3.cu", "unidepth_tpu/ops/conv_kernels.py:88", "mma.sync", "F.conv2d (cuDNN)"),
+        "conv3x3_lowchannel": ("conv3x3_wgmma.cu", "unidepth_tpu/ops/conv_kernels.py:88", "wgmma", "F.conv2d (cuDNN)"),
         "run_variant": ("attention_ab.cu", "scripts/kernel_ab.py:53", "wgmma", "SDPA"),
         "run_bd": ("attention_ab.cu", "scripts/kernel_ab.py:214", "wgmma", "SDPA"),
     }
+    # K3 at the narrower head dims joins K3's record (the path's record is D = 64)
+    m["flash_attention"].update(k3_narrow)
     record = [
         {"name": name, "route": "cuda", "source": f"unidepth_tpu_torch/csrc/{src}", "replaces": rep, "body": body,
          "launches": path_launches[name],
@@ -611,7 +711,6 @@ def main():
          "library": library}
         for name, (src, rep, body, library) in sources.items()
     ]
-    m["flash_attention"]["d48_ms"], m["flash_attention"]["d48_library_ms"] = k3_d48["ms"], k3_d48["library_ms"]
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s, the build included")
     log(json.dumps({"kernels": record}))
     log(json.dumps({"ok": True, "device": {

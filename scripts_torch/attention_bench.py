@@ -10,8 +10,10 @@ spills, shared memory). Then, at the ViT-L
 serving shape (B=8, N=1370, 16 heads of 64, bf16, scale 1/8) for K1
 (``flash_attention_qkv`` on one contiguous (8, 1370, 3072) projection) and
 K4 (``flash_attention_packed`` on its three strided channel views), and at
-the V2 decoder's cross-attention shape for K3 (``flash_attention`` on flat
-(64, 1369, 64) tensors, 8 images x 8 heads):
+the V2 decoders' cross-attention shapes for K3 (``flash_attention`` on flat
+(BH, 1369, D) tensors, 8 heads an image): ViT-L's (64, 1369, 64) at B = 8,
+ViT-B's (16, 1369, 48) at B = 2 and (64, 1369, 48) at B = 8, ViT-S's (64,
+1369, 32) at B = 8:
 
 * holds the Hopper body against the plain version in fp32 on the same bf16
   inputs (max abs error, relative RMS error);
@@ -21,8 +23,9 @@ the V2 decoder's cross-attention shape for K3 (``flash_attention`` on flat
   same views (the library yardstick, never called by the port): CUDA events
   around ``--reps`` back-to-back calls, median of ``--runs``;
 * prints each time, its ratio to SDPA at the same shape, its TFLOP/s (61.5
-  GFLOP a K1/K4 call, 30.7 a K3 call) and its share of the 989 TFLOP/s
-  bf16 dense peak, with the card's name and power limit, then one JSON line.
+  GFLOP a K1/K4 call, 30.7 a K3 call at D = 64) and its share of the 989
+  TFLOP/s bf16 dense peak, with the card's name and power limit, then one
+  JSON line.
 """
 
 import argparse
@@ -38,7 +41,9 @@ import torch.nn.functional as F
 
 ROOT = Path(__file__).resolve().parents[1]
 B, N, HEADS, D = 8, 1370, 16, 64
-BH3, N3 = 64, 1369  # K3: the decoder's 8 images x 8 heads, 37 x 37 queries and keys
+N3 = 1369  # K3: 37 x 37 queries and keys
+# K3's rows: name -> (BH, D); 8 heads an image
+K3_SHAPES = {"K3": (64, 64), "K3 d48 B2": (16, 48), "K3 d48": (64, 48), "K3 d32": (64, 32)}
 SCALE = D**-0.5
 BF16_FLOP_S = 989e12
 
@@ -88,28 +93,32 @@ def main():
     def mma_sync():
         fa._launch("mma.sync body", q, k.data_ptr(), v.data_ptr(), out, B, HEADS, N, N, D, strides, SCALE)
 
-    q3, k3, v3 = (torch.randn(BH3, N3, D, generator=gen, device="cuda").to(torch.bfloat16) for _ in range(3))
-    out3 = torch.empty_like(q3)
-    strides3 = (N3 * D, D) * 4
-
-    def k3_mma_sync():
-        fa._launch("K3 mma.sync body", q3, k3.data_ptr(), v3.data_ptr(), out3, BH3, 1, N3, N3, D, strides3, SCALE)
-
-    flop, flop3 = 4 * B * N * N * c, 4 * BH3 * N3 * N3 * D
+    flop = 4 * B * N * N * c
     calls = {  # name: (call, FLOP a call, the SDPA row at its shape)
         "K1": (lambda: fa.flash_attention_qkv(qkv, HEADS, SCALE), flop, "sdpa"),
         "K4": (lambda: fa.flash_attention_packed(q, k, v, HEADS, SCALE), flop, "sdpa"),
         "mma.sync": (mma_sync, flop, "sdpa"),
         "sdpa": (lambda: F.scaled_dot_product_attention(*views, scale=SCALE), flop, "sdpa"),
-        "K3": (lambda: fa.flash_attention(q3, k3, v3, SCALE), flop3, "K3 sdpa"),
-        "K3 mma.sync": (k3_mma_sync, flop3, "K3 sdpa"),
-        "K3 sdpa": (lambda: F.scaled_dot_product_attention(q3[None], k3[None], v3[None], scale=SCALE), flop3, "K3 sdpa"),
     }
-    ref = fa.flash_attention_qkv_plain(qkv.float(), HEADS, SCALE)
-    ref3 = fa.flash_attention_plain(q3.float(), k3.float(), v3.float(), SCALE)
+    refs = {"K1": fa.flash_attention_qkv_plain(qkv.float(), HEADS, SCALE)}
+    refs["K4"] = refs["K1"]
+    for name, (bh, d) in K3_SHAPES.items():
+        q3, k3, v3 = (torch.randn(bh, N3, d, generator=gen, device="cuda").to(torch.bfloat16) for _ in range(3))
+        out3, scale3, flop3 = torch.empty_like(q3), d**-0.5, 4 * bh * N3 * N3 * d
+
+        def k3_mma_sync(q3=q3, k3=k3, v3=v3, out3=out3, bh=bh, d=d, scale3=scale3):
+            fa._launch("K3 mma.sync body", q3, k3.data_ptr(), v3.data_ptr(), out3, bh, 1, N3, N3, d,
+                       (N3 * d, d) * 4, scale3)
+
+        calls[name] = (lambda q3=q3, k3=k3, v3=v3, s=scale3: fa.flash_attention(q3, k3, v3, s), flop3, f"{name} sdpa")
+        calls[f"{name} mma.sync"] = (k3_mma_sync, flop3, f"{name} sdpa")
+        calls[f"{name} sdpa"] = (
+            lambda q3=q3, k3=k3, v3=v3, s=scale3: F.scaled_dot_product_attention(q3[None], k3[None], v3[None], scale=s),
+            flop3, f"{name} sdpa")
+        refs[name] = fa.flash_attention_plain(q3.float(), k3.float(), v3.float(), scale3)
     record = {"card": smi, "registers": int(regs.group(1)) if regs else None}
     hopper = (fa.flash_attention_qkv, fa.flash_attention_packed, fa.flash_attention)
-    for name, want in (("K1", ref), ("K4", ref), ("K3", ref3)):
+    for name, want in refs.items():
         before = sum(fn.hopper_launches for fn in hopper)
         got = calls[name][0]()
         torch.cuda.synchronize()

@@ -7,9 +7,10 @@ need not have):
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py -q
 
 bf16 I/O runs the tensor-core kernels the model launches (at head dim 64
-attn_fwd_wgmma, the Hopper body K1, K3 and K4 share with K6 and K7; at the
-other head dims, every multiple of 8 up to 128, attn_fwd_bf16; ln_dense_wgmma
-for K2 on its gate, ln_dense_bf16 off it).
+attn_fwd_wgmma, the Hopper body K1, K3 and K4 share with K6 and K7, and K3's
+at 32 and 48; at the other head dims, every multiple of 8 up to 128,
+attn_fwd_bf16; ln_dense_wgmma for K2 on its gate, ln_dense_bf16 off it;
+conv3x3_wgmma for K5 with Cin and Cout multiples of 8, conv3x3_bf16 off it).
 Each is held against its
 plain version computed in fp32 from the same bf16 inputs, elementwise at
 rtol 1.6e-2, atol 1e-2 (bf16 output rounding) and, tighter, at a relative RMS error
@@ -22,13 +23,16 @@ fp32 dot product per output). The int8 GEMM of the int8 serving path
 (``torch._int_mm``, padded for M <= 16) is held exactly against an integer
 product and its dequant against float64. K5 (conv3x3_lowchannel) is held
 like the others, in bf16 and fp32, at the V2 heads' hr conv shape and the
-JAX test's shapes in all three padding modes. K6 and K7 (the A/B attention
+JAX test's shapes in all three padding modes; its Hopper body at the hr
+shapes of ViT-L, ViT-B and ViT-S, ragged and exact strips, 1-5 rows and
+every padding mode at both borders; its mma.sync body through its C entry.
+K6 and K7 (the A/B attention
 variants, bf16 only on the card; the Hopper body at head dim 64, K6's
 mma.sync body at 32) are held against their plain versions at the bf16
 gates with the elementwise atol scaled by the output's size, ``noexp``
-(outputs ~1e31) by relative RMS alone. UniDepthV2 ViT-B/14, whose decoder
-attends at head dim 48, runs ``infer()`` at 518x518 against its fp32 plain
-path.
+(outputs ~1e31) by relative RMS alone. UniDepthV2 ViT-B/14 and ViT-S/14,
+whose decoders attend at head dims 48 and 32, run ``infer()`` at 518x518
+against their fp32 plain paths.
 """
 
 import json
@@ -149,15 +153,16 @@ def test_attention_head_dim_without_kernel_raises(dev, d):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("d", [48, 96])
 def test_attention_head_dim_48_and_96_run_the_kernel(dev, dtype, d):
-    """The ViT-B decoder's head dim (48) and twice it: the dispatch takes K3
-    on attention.cu's bodies (not the Hopper one) at the plain version's
-    gates."""
+    """The ViT-B decoder's head dim (48) and twice it: the dispatch takes K3,
+    on the Hopper body in bf16 at 48 and on attention.cu's bodies otherwise,
+    at the plain version's gates."""
     rng = np.random.default_rng(d)
     q, k, v = (_t(rng.standard_normal((2, 4, 1100, d)), dev, dtype) for _ in range(3))
     before = flash_attention.launches, flash_attention.hopper_launches
     out = attention(q, k, v)
     torch.cuda.synchronize()
-    assert (flash_attention.launches, flash_attention.hopper_launches) == (before[0] + 1, before[1])
+    hopper = dtype == torch.bfloat16 and d == 48
+    assert (flash_attention.launches, flash_attention.hopper_launches) == (before[0] + 1, before[1] + hopper)
     ref = flash_attention_plain(q.float(), k.float(), v.float(), d**-0.5)
     _close(out, ref, dtype, 1e-4)
 
@@ -307,6 +312,81 @@ def test_conv3x3_lowchannel_rejects_what_it_lacks(dev):
     with pytest.raises(ValueError, match="Cout"):
         conv3x3_lowchannel(x.float(), torch.randn(3, 3, 12, 40, device=dev), None)
     assert conv3x3_lowchannel.launches == before
+
+
+# ---- K5's Hopper body (conv3x3_wgmma.cu: bf16, Cin and Cout multiples of 8) ----
+
+K5_HOPPER_CASES = [
+    ((8, 518, 518, 64, 32), "reflect"),  # the hr convs of ViT-L/14, ViT-B/14 and ViT-S/14
+    ((8, 518, 518, 48, 32), "reflect"),
+    ((8, 518, 518, 32, 32), "reflect"),
+    ((1, 7, 518, 64, 32), "zeros"),  # W = 518: 9 strips, the last with 6 pixels
+    ((2, 6, 70, 64, 32), "replicate"),  # W = 70: a strip and 6 pixels
+    ((2, 6, 64, 32, 32), "reflect"),  # W = 64: exactly one strip
+    ((3, 1, 70, 32, 32), "zeros"),  # H = 1..5
+    ((2, 1, 70, 64, 32), "replicate"),
+    ((2, 2, 70, 48, 32), "reflect"),
+    ((2, 3, 70, 64, 32), "zeros"),
+    ((1, 4, 130, 32, 32), "replicate"),
+    ((2, 5, 130, 48, 32), "reflect"),
+    ((2, 9, 130, 64, 32), "zeros"),  # every mode at both borders: 3 strips, the last with 2 pixels
+    ((2, 9, 130, 64, 32), "reflect"),
+    ((2, 9, 130, 64, 32), "replicate"),
+    ((1, 9, 66, 8, 8), "reflect"),  # every Cout and Cin / 16 the body instantiates
+    ((1, 9, 66, 24, 16), "replicate"),
+    ((1, 9, 66, 40, 24), "zeros"),
+    ((2, 33, 45, 16, 8), "reflect"),
+]
+
+
+@pytest.mark.parametrize("shape,mode", K5_HOPPER_CASES, ids=[f"{'x'.join(map(str, s))}-{m}" for s, m in K5_HOPPER_CASES])
+def test_conv3x3_lowchannel_hopper_body(dev, shape, mode):
+    b, h, w, cin, cout = shape
+    rng = np.random.default_rng(sum(shape))
+    x = _t(rng.standard_normal((b, h, w, cin)), dev, torch.bfloat16)
+    wk = _t(rng.standard_normal((3, 3, cin, cout)) / np.sqrt(9 * cin), dev, torch.bfloat16)
+    bias = _t(rng.standard_normal(cout) * 0.1, dev, torch.bfloat16)
+    before = conv3x3_lowchannel.launches, conv3x3_lowchannel.hopper_launches
+    out = conv3x3_lowchannel(x, wk, bias, mode)
+    torch.cuda.synchronize()
+    assert (conv3x3_lowchannel.launches, conv3x3_lowchannel.hopper_launches) == (before[0] + 1, before[1] + 1)
+    _close(out, conv3x3_lowchannel_plain(x.float(), wk.float(), bias.float(), mode), torch.bfloat16, 0)
+
+
+def test_conv3x3_lowchannel_hopper_body_without_bias(dev):
+    rng = np.random.default_rng(15)
+    x = _t(rng.standard_normal((2, 11, 100, 64)), dev, torch.bfloat16)
+    wk = _t(rng.standard_normal((3, 3, 64, 32)) / 24, dev, torch.bfloat16)
+    before = conv3x3_lowchannel.hopper_launches
+    out = conv3x3_lowchannel(x, wk, None, "reflect")
+    torch.cuda.synchronize()
+    assert conv3x3_lowchannel.hopper_launches == before + 1
+    _close(out, conv3x3_lowchannel_plain(x.float(), wk.float(), None, "reflect"), torch.bfloat16, 0)
+
+
+@pytest.mark.parametrize(
+    "shape,mode",
+    [((8, 518, 518, 64, 32), "reflect"), ((2, 37, 45, 64, 32), "zeros"), ((2, 37, 45, 64, 32), "replicate"),
+     ((2, 21, 37, 16, 8), "reflect"), ((1, 10, 40, 32, 16), "zeros")],
+)
+def test_conv3x3_mma_sync_entry_matches_plain(dev, shape, mode):
+    """The mma.sync body of conv3x3.cu at the bf16 shapes the route now
+    sends to the Hopper body, through its C entry (no wrapper counts it)."""
+    from unidepth_tpu_torch.ops import _cuda
+    from unidepth_tpu_torch.ops.conv_kernels import PAD_MODES
+
+    b, h, w, cin, cout = shape
+    rng = np.random.default_rng(7)
+    x = _t(rng.standard_normal((b, h, w, cin)), dev, torch.bfloat16)
+    wk = _t(rng.standard_normal((3, 3, cin, cout)) / np.sqrt(9 * cin), dev, torch.bfloat16)
+    bias = _t(rng.standard_normal(cout) * 0.1, dev, torch.bfloat16)
+    out = torch.empty((b, h, w, cout), dtype=torch.bfloat16, device=dev)
+    err = _cuda.library().ud_conv3x3_fwd(
+        x.data_ptr(), wk.data_ptr(), bias.data_ptr(), out.data_ptr(), b, h, w, cin, cout, PAD_MODES[mode],
+        _cuda.DTYPE_CODES[torch.bfloat16], _cuda.stream_handle(x))
+    _cuda.check(err, "ud_conv3x3_fwd")
+    torch.cuda.synchronize()
+    _close(out, conv3x3_lowchannel_plain(x.float(), wk.float(), bias.float(), mode), torch.bfloat16, 0)
 
 
 AB_FAMILY_NAMES = ["tr_max", "bf16p", "nomax_guard", "tr_lmxu", "nomax", "noexp", "gemmonly", "qk_only", "pv_only"]
@@ -611,6 +691,46 @@ def test_flash_attention_hopper_body_keeps_the_row_max(dev):
     _close(out, flash_attention_plain(q.float(), k.float(), v.float(), 0.125), torch.bfloat16, 0)
 
 
+K3_NARROW_CASES = [
+    (16, 1369, 1369, 48),  # the ViT-B/14 decoder at B = 2: 8 heads of 48, ragged Nk
+    (64, 1369, 1369, 32),  # the ViT-S/14 decoder at B = 8: 8 heads of 32
+    (4, 300, 1369, 48),  # Nq != Nk
+    (4, 1024, 700, 32),
+    (3, 200, 100, 48),  # Nk < one key tile
+    (2, 70, 40, 32),
+    (2, 130, 4097, 48),  # a last key tile of one key
+]
+
+
+@pytest.mark.parametrize("bh,nq,nk,d", K3_NARROW_CASES, ids=[f"bh{b}-nq{q}-nk{k}-d{d}" for b, q, k, d in K3_NARROW_CASES])
+def test_flash_attention_hopper_body_at_head_dims_32_and_48(dev, bh, nq, nk, d):
+    """K3 in bf16 at D = 32 and 48 on the Hopper body: 64-channel rows that
+    TMA fills past D with zeros, stores clipped at D."""
+    rng = np.random.default_rng(bh + nq + nk + d)
+    q = _t(rng.standard_normal((bh, nq, d)), dev, torch.bfloat16)
+    k, v = (_t(rng.standard_normal((bh, nk, d)), dev, torch.bfloat16) for _ in range(2))
+    before = flash_attention.launches, _hopper_counts()
+    out = flash_attention(q, k, v, d**-0.5)
+    torch.cuda.synchronize()
+    assert (flash_attention.launches, _hopper_counts()) == (before[0] + 1, _plus_one(before[1], 2))
+    _close(out, flash_attention_plain(q.float(), k.float(), v.float(), d**-0.5), torch.bfloat16, 0)
+
+
+@pytest.mark.parametrize("d", [32, 48])
+def test_flash_attention_hopper_body_keeps_the_row_max_at_head_dims_32_and_48(dev, d):
+    """q and k x 10: logits ~100, past exp's fp32 range without the row max."""
+    rng = np.random.default_rng(16 + d)
+    q, k = (_t(rng.standard_normal((4, 300, d)) * 10, dev, torch.bfloat16) for _ in range(2))
+    v = _t(rng.standard_normal((4, 300, d)), dev, torch.bfloat16)
+    assert (torch.einsum("bnd,bmd->bnm", q.float(), k.float()) * d**-0.5).abs().max() > 100
+    before = _hopper_counts()
+    out = flash_attention(q, k, v, d**-0.5)
+    torch.cuda.synchronize()
+    assert _hopper_counts() == _plus_one(before, 2)
+    assert torch.isfinite(out).all()
+    _close(out, flash_attention_plain(q.float(), k.float(), v.float(), d**-0.5), torch.bfloat16, 0)
+
+
 # ---- K2's Hopper body (ln_dense_wgmma.cu: bf16, C % 64, C <= 2048, F % 256) ----
 
 K2_HOPPER_CASES = [
@@ -673,7 +793,7 @@ def test_from_config_defaults_to_the_card(dev):
 def test_vitb14_v2_infer_on_the_card(dev):
     """UniDepthV2 ViT-B/14 at 518x518: its encoder runs K1 and K2 on their
     Hopper bodies (C = 768, 12 heads of 64), its decoder's 4 camera-prompt
-    cross-attentions K3 at head dim 48 on attention.cu's body; depth within
+    cross-attentions K3 at head dim 48 on the Hopper body too; depth within
     the bf16 gate of the fp32 plain path."""
     from unidepth_tpu_torch.models.unidepthv2.model import UniDepthV2
 
@@ -685,7 +805,30 @@ def test_vitb14_v2_infer_on_the_card(dev):
         fn.launches = fn.hopper_launches = 0
     out = model.infer(rgb, outputs=("depth",))
     torch.cuda.synchronize()
-    assert [(fn.launches, fn.hopper_launches) for fn in counted] == [(12, 12), (12, 12), (4, 0), (0, 0)]
+    assert [(fn.launches, fn.hopper_launches) for fn in counted] == [(12, 12), (12, 12), (4, 4), (0, 0)]
+    ref_model = UniDepthV2.from_config(cfg, device=dev, dtype=torch.float32).init_params(seed=0)
+    ref = ref_model.set_kernels(False).eval().infer(rgb, outputs=("depth",))
+    assert out["depth"].shape == ref["depth"].shape == (1, 518, 518, 1)
+    assert torch.isfinite(out["depth"]).all() and (out["depth"] > 0).all()
+    rel = ((out["depth"] - ref["depth"]).abs() / ref["depth"].abs()).flatten()
+    assert rel.median().item() <= 1e-2
+
+
+def test_vits14_v2_infer_on_the_card(dev):
+    """UniDepthV2 ViT-S/14 at 518x518: K1 and K2 on their Hopper bodies (C =
+    384, 6 heads of 64), the decoder's 4 cross-attentions K3 at head dim 32
+    on the Hopper body; depth within the bf16 gate of the fp32 plain path."""
+    from unidepth_tpu_torch.models.unidepthv2.model import UniDepthV2
+
+    cfg = json.loads((Path(__file__).resolve().parents[1] / "configs" / "config_v2_vits14.json").read_text())
+    rgb = np.random.default_rng(0).integers(0, 256, (1, 518, 518, 3), dtype=np.uint8)
+    model = UniDepthV2.from_config(cfg).init_params(seed=0).eval()
+    counted = (flash_attention_qkv, ln_dense, flash_attention, flash_attention_packed)
+    for fn in counted:
+        fn.launches = fn.hopper_launches = 0
+    out = model.infer(rgb, outputs=("depth",))
+    torch.cuda.synchronize()
+    assert [(fn.launches, fn.hopper_launches) for fn in counted] == [(12, 12), (12, 12), (4, 4), (0, 0)]
     ref_model = UniDepthV2.from_config(cfg, device=dev, dtype=torch.float32).init_params(seed=0)
     ref = ref_model.set_kernels(False).eval().infer(rgb, outputs=("depth",))
     assert out["depth"].shape == ref["depth"].shape == (1, 518, 518, 1)

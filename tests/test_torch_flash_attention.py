@@ -240,16 +240,17 @@ def test_k4_routes_by_dtype_and_head_dim(stub_library, dtype, d, entry):
 @pytest.mark.parametrize(
     "dtype,d,nk,entry",
     [(torch.bfloat16, 64, 100, HOPPER), (torch.bfloat16, 64, 5000, HOPPER), (torch.float32, 64, 100, "ud_attention_fwd"),
-     (torch.bfloat16, 32, 100, "ud_attention_fwd"), (torch.float32, 32, 100, "ud_attention_fwd"),
-     (torch.bfloat16, 48, 100, "ud_attention_fwd"), (torch.float32, 48, 100, "ud_attention_fwd"),
+     (torch.bfloat16, 32, 100, HOPPER), (torch.float32, 32, 100, "ud_attention_fwd"),
+     (torch.bfloat16, 48, 100, HOPPER), (torch.float32, 48, 100, "ud_attention_fwd"),
      (torch.bfloat16, 96, 100, "ud_attention_fwd"), (torch.float32, 96, 100, "ud_attention_fwd")],
     ids=["bf16-d64", "bf16-d64-nk5000", "fp32-d64", "bf16-d32", "fp32-d32", "bf16-d48", "fp32-d48", "bf16-d96",
          "fp32-d96"],
 )
 def test_k3_routes_by_dtype_and_head_dim(stub_library, dtype, d, nk, entry):
-    """K3 takes the Hopper body for bf16 at D = 64 (flat (BH, N, D) tensors
-    as BH batches of one head; any Nk, past the TPU kernel's 4096 too) and
-    attention.cu's body otherwise; only its own ``hopper_launches`` moves."""
+    """K3 takes the Hopper body for bf16 at D = 64, 48 and 32 (flat (BH, N,
+    D) tensors as BH batches of one head; any Nk, past the TPU kernel's 4096
+    too) and attention.cu's body otherwise (fp32, D = 96); only its own
+    ``hopper_launches`` moves."""
     from unidepth_tpu_torch.ops import flash_attention as fa
 
     q = torch.zeros(4, 100, d, dtype=dtype)
@@ -297,3 +298,38 @@ def test_k3_head_dim_off_the_grid_raises_before_the_library(stub_library, d):
     with pytest.raises(ValueError, match="head dim"):
         fa._flash_kernel(q, q, q, d**-0.5)
     assert stub_library.calls == [] and fa.flash_attention.launches == before
+
+
+@pytest.mark.parametrize("kernel", ["k1", "k4"])
+@pytest.mark.parametrize("c,heads", [(96, 2), (64, 2), (48, 1), (32, 1)], ids=["d48-h2", "d32-h2", "d48-h1", "d32-h1"])
+def test_k1_and_k4_keep_attention_cu_at_head_dims_32_and_48(stub_library, kernel, c, heads):
+    """K1 and K4 read heads packed in one row, where the Hopper body's
+    64-channel box at D < 64 would reach into the next head: in bf16 at D =
+    32 and 48 they launch attention.cu's bodies, whatever the head count."""
+    from unidepth_tpu_torch.ops import flash_attention as fa
+
+    x = torch.zeros(2, 140, 3 * c, dtype=torch.bfloat16)
+    fn = fa.flash_attention_qkv if kernel == "k1" else fa.flash_attention_packed
+    before = fa.flash_attention_qkv.hopper_launches, fa.flash_attention_packed.hopper_launches, fn.launches
+    if kernel == "k1":
+        fa._qkv_kernel(x, heads, (c // heads) ** -0.5)
+    else:
+        fa._packed_kernel(*x.split(c, dim=-1), heads, (c // heads) ** -0.5)
+    assert stub_library.calls == ["ud_attention_fwd" if kernel == "k1" else "ud_attention_packed_fwd"]
+    assert (fa.flash_attention_qkv.hopper_launches, fa.flash_attention_packed.hopper_launches, fn.launches) == (
+        before[0], before[1], before[2] + 1)
+
+
+@pytest.mark.parametrize(
+    "dtype,d,heads,hopper",
+    [(torch.bfloat16, 64, None, True), (torch.bfloat16, 64, 16, True), (torch.bfloat16, 48, 1, True),
+     (torch.bfloat16, 32, 1, True), (torch.bfloat16, 48, 2, False), (torch.bfloat16, 32, 8, False),
+     (torch.bfloat16, 48, None, False), (torch.bfloat16, 96, 1, False), (torch.bfloat16, 16, 1, False),
+     (torch.float32, 48, 1, False), (torch.float32, 64, None, False)],
+)
+def test_entry_mirrors_the_hopper_entrys_one_head_rule(dtype, d, heads, hopper):
+    """``_entry`` holds the C entry's rule: the Hopper body takes bf16 at D =
+    64 for any head count, and D = 32 or 48 only for a map of one head."""
+    from unidepth_tpu_torch.ops import flash_attention as fa
+
+    assert (fa._entry(dtype, d, "other", heads=heads) == fa.HOPPER_ENTRY) is hopper

@@ -364,8 +364,8 @@ extern "C" int ud_attention_ab_hopper_fwd(const void* q, const void* k, const vo
                                           long long o_bs, long long o_rs, int family, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define UD_AB_HOPPER(F)                                                                                      \
-  hopper::launch<F, 1, 3>(q, k, v, o, batch, heads, nq, nk, q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, o_bs, o_rs, \
-                          hopper::kLog2e, s)
+  hopper::launch<F, 1, 3, 64>(q, k, v, o, batch, heads, nq, nk, q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, o_bs, o_rs, \
+                              hopper::kLog2e, s)
   switch (family) {
     case kM1: return UD_AB_HOPPER(kM1);
     case kM2: return UD_AB_HOPPER(kM2);
@@ -388,8 +388,8 @@ extern "C" int ud_attention_bd_hopper_fwd(const void* q, const void* k, const vo
                                           long long k_bs, long long k_rs, long long v_bs, long long v_rs,
                                           long long o_bs, long long o_rs, int l_from_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return l_from_bf16 ? hopper::launch<kM4, 2, kPairStages>(q, k, v, o, batch, heads, nq, nk, q_bs, q_rs, k_bs, k_rs,
-                                                           v_bs, v_rs, o_bs, o_rs, hopper::kLog2e, s)
-                     : hopper::launch<kM3, 2, kPairStages>(q, k, v, o, batch, heads, nq, nk, q_bs, q_rs, k_bs, k_rs,
-                                                           v_bs, v_rs, o_bs, o_rs, hopper::kLog2e, s);
+  return l_from_bf16 ? hopper::launch<kM4, 2, kPairStages, 64>(q, k, v, o, batch, heads, nq, nk, q_bs, q_rs, k_bs,
+                                                               k_rs, v_bs, v_rs, o_bs, o_rs, hopper::kLog2e, s)
+                     : hopper::launch<kM3, 2, kPairStages, 64>(q, k, v, o, batch, heads, nq, nk, q_bs, q_rs, k_bs,
+                                                               k_rs, v_bs, v_rs, o_bs, o_rs, hopper::kLog2e, s);
 }

@@ -1,8 +1,9 @@
-// The Hopper attention body on wgmma and TMA, bf16 I/O, head dim 64,
-// templated on a softmax policy and a work-tile mapping. Two sources
-// instantiate it:
+// The Hopper attention body on wgmma and TMA, bf16 I/O, templated on a
+// softmax policy, a work-tile mapping and the head dim D (32, 48 or 64).
+// Two sources instantiate it:
 //   * attention_wgmma.cu: the exact softmax of K1, K3 and K4 (the model's
-//     attention; kExact, one head a work tile);
+//     attention; kExact, one head a work tile) at D = 64, and K3's at D =
+//     32 and 48 (one head a map);
 //   * attention_ab.cu: the A/B families M1-M9 of K6 (one head a work tile)
 //     and K7's head pairs (M3 or M4, two heads a work tile).
 //
@@ -30,8 +31,9 @@
 //     strides, the head chosen by the channel coordinate h * 64: rows past
 //     N fall out of bounds within their own batch and TMA fills them with
 //     0, and the 128-byte swizzle it writes is the layout wgmma reads;
-//   * S = Q K^T is wgmma m64n128k16 with both operands in shared memory;
-//     O += P V is wgmma m64n64k16 with P in registers (the fp32 S
+//   * S = Q K^T is wgmma m64n128k16 with both operands in shared memory,
+//     D / 16 steps deep;
+//     O += P V is wgmma m64n{D}k16 with P in registers (the fp32 S
 //     accumulator, rounded to bf16, is the A fragment, as the TPU kernel
 //     casts p to v's type) and V MN-major through the transpose bit;
 //   * each warpgroup runs Q K^T, softmax, P V in turn; the two warpgroups
@@ -47,7 +49,14 @@
 //     kernel exact for any logits;
 //   * epilogue: O / l rounded to bf16 into the warpgroup's 64 rows of an
 //     output buffer in the 128-byte swizzle, then one TMA store that clips
-//     rows >= Nq.
+//     rows >= Nq;
+//   * D = 32 and 48 keep every shared-memory layout and descriptor of D =
+//     64: a row is still one 128-byte swizzled row of 64 channels. The
+//     map's channel extent is D (one head a map), so TMA fills channels
+//     D..63 of each loaded row with zeros and the store through the same
+//     map clips them; the products only read the first D channels. A map
+//     of several heads at D < 64 would load the next head there and store
+//     over it, so launch() takes D < 64 for one head only.
 // The products are asm volatile, so a family whose product result is dead
 // (M8's later tiles) still runs it, and the time it is priced at is real.
 
@@ -87,7 +96,7 @@ namespace hopper {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kD = 64;         // head dim: one 128-byte swizzled row
+constexpr int kD = 64;         // channels a shared-memory row holds: one 128-byte swizzled row
 constexpr int kQRows = 128;    // q rows a work tile holds: 128 queries, or 64 queries x 2 heads
 constexpr int kBlockN = 128;   // keys per K/V tile
 constexpr int kConsumers = 2;  // consumer warpgroups, 64 query rows each
@@ -153,6 +162,40 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// The same at head dims 48 and 32 (m64n48k16, m64n32k16): the first D
+// columns of the swizzled V rows.
+__device__ __forceinline__ void wgmma_m64n48k16_rs(float (&d)[24], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23}, "
+      "{%24, %25, %26, %27}, %28, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_m64n32k16_rs(float (&d)[16], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <int D>
+__device__ __forceinline__ void wgmma_pv(float (&d)[D / 2], const uint32_t (&a)[4], uint64_t db) {
+  if constexpr (D == 64) wgmma_m64n64k16_rs(d, a, db);
+  else if constexpr (D == 48) wgmma_m64n48k16_rs(d, a, db);
+  else wgmma_m64n32k16_rs(d, a, db);
+}
+
 struct Work {
   int q0, h, b;  // first query row, head (or head pair), batch
 };
@@ -162,13 +205,14 @@ __device__ __forceinline__ Work work_tile(int tile, int q_tiles, int groups) {
   return {(tile % q_tiles) * BlockM, (tile / q_tiles) % groups, tile / (q_tiles * groups)};
 }
 
-template <int F, int NH, int Stages>
+template <int F, int NH, int Stages, int D>
 __global__ void __launch_bounds__(kThreads, 1)
     attn_fwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                    const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap to, int nq,
                    int nk, int heads, int tiles, float scale_log2) {
   using P = Policy<F>;
   static_assert(NH == 1 || NH == kConsumers, "one head a work tile, or one head a consumer");
+  static_assert(D == 32 || D == 48 || D == 64, "head dim 32, 48 or 64");
   constexpr int kBlockM = kQRows / NH;  // queries per work tile
   constexpr uint32_t kTileBytes = NH * kBlockN * kD * 2;
   constexpr int kPasses = P::kTwoPass ? 2 : 1;
@@ -207,7 +251,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         ud::mbar_arrive_expect_tx(&sm.q_full, kQBytes);
 #pragma unroll
         for (int hh = 0; hh < NH; ++hh)
-          ud::tma_load_3d(sm.q + hh * kBlockM * kD, &tq, &sm.q_full, (w.h * NH + hh) * kD, w.q0, w.b);
+          ud::tma_load_3d(sm.q + hh * kBlockM * kD, &tq, &sm.q_full, (w.h * NH + hh) * D, w.q0, w.b);
         for (int pass = 0; pass < kPasses; ++pass) {
           const bool load_v = P::kPV && pass == kPasses - 1;  // M6 streams K alone in its first pass
           for (int it = 0; it < ntiles; ++it, ++ring) {
@@ -217,7 +261,7 @@ __global__ void __launch_bounds__(kThreads, 1)
               ud::mbar_arrive_expect_tx(&sm.k_full[st], kTileBytes);
 #pragma unroll
               for (int hh = 0; hh < NH; ++hh)
-                ud::tma_load_3d(sm.k[st] + hh * kBlockN * kD, &tk, &sm.k_full[st], (w.h * NH + hh) * kD,
+                ud::tma_load_3d(sm.k[st] + hh * kBlockN * kD, &tk, &sm.k_full[st], (w.h * NH + hh) * D,
                                 it * kBlockN, w.b);
             } else {
               ud::mbar_arrive(&sm.k_full[st]);
@@ -226,7 +270,7 @@ __global__ void __launch_bounds__(kThreads, 1)
               ud::mbar_arrive_expect_tx(&sm.v_full[st], kTileBytes);
 #pragma unroll
               for (int hh = 0; hh < NH; ++hh)
-                ud::tma_load_3d(sm.v[st] + hh * kBlockN * kD, &tv, &sm.v_full[st], (w.h * NH + hh) * kD,
+                ud::tma_load_3d(sm.v[st] + hh * kBlockN * kD, &tv, &sm.v_full[st], (w.h * NH + hh) * D,
                                 it * kBlockN, w.b);
             } else {
               ud::mbar_arrive(&sm.v_full[st]);
@@ -251,9 +295,9 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x, ++round) {
       const Work w = work_tile<kBlockM>(tile, q_tiles, groups);
       const int head = NH == 1 ? w.h : w.h * NH + wg;
-      float o[32];
+      float o[D / 2];
 #pragma unroll
-      for (int i = 0; i < 32; ++i) o[i] = 0.f;
+      for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
       float m0 = -INFINITY, m1 = -INFINITY;  // running max of the raw scores, rows g and g + 8
       float l0 = 0.f, l1 = 0.f;              // this lane's partial row sums
 
@@ -278,12 +322,12 @@ __global__ void __launch_bounds__(kThreads, 1)
           const uint32_t parity = (ring / Stages) & 1;
 
           if constexpr (P::kQK) {
-            // S = Q K^T: four 16-deep steps, each 32 bytes further along the swizzled rows
+            // S = Q K^T: D / 16 steps 16 deep, each 32 bytes further along the swizzled rows
             ud::mbar_wait(&sm.k_full[st], parity);
             const uint64_t kdesc = ud::wgmma_desc_sw128(sm.k[st] + kv_off);
             ud::wgmma_fence();
 #pragma unroll
-            for (int kk = 0; kk < kD / 16; ++kk) wgmma_m64n128k16_ss(s, qdesc + 2 * kk, kdesc + 2 * kk, kk);
+            for (int kk = 0; kk < D / 16; ++kk) wgmma_m64n128k16_ss(s, qdesc + 2 * kk, kdesc + 2 * kk, kk);
             ud::wgmma_commit();
             ud::wgmma_wait<0>();
 #pragma unroll
@@ -292,10 +336,10 @@ __global__ void __launch_bounds__(kThreads, 1)
           if (pass == kPasses - 1 && it == ntiles - 1) ud::mbar_arrive(&sm.q_empty);  // the next q may load
 
           if constexpr (F == kM8) {
-            // out = s[:, :64]: the first tile's columns 0..63 have O's accumulator layout
+            // out = s[:, :D]: the first tile's columns 0..D-1 have O's accumulator layout
             if (it == 0) {
 #pragma unroll
-              for (int i = 0; i < 32; ++i) o[i] = s[i];
+              for (int i = 0; i < D / 2; ++i) o[i] = s[i];
             }
             ud::mbar_arrive(&sm.empty[st]);
             continue;
@@ -350,7 +394,7 @@ __global__ void __launch_bounds__(kThreads, 1)
             l0 *= al0;
             l1 *= al1;
 #pragma unroll
-            for (int j = 0; j < kD / 8; ++j) {
+            for (int j = 0; j < D / 8; ++j) {
               o[4 * j] *= al0;
               o[4 * j + 1] *= al0;
               o[4 * j + 2] *= al1;
@@ -411,11 +455,11 @@ __global__ void __launch_bounds__(kThreads, 1)
           const uint64_t vdesc = ud::wgmma_desc_sw128(sm.v[st] + kv_off);
           ud::wgmma_fence();
 #pragma unroll
-          for (int kk = 0; kk < kBlockN / 16; ++kk) wgmma_m64n64k16_rs(o, p[kk], vdesc + kk * (2048 >> 4));
+          for (int kk = 0; kk < kBlockN / 16; ++kk) wgmma_pv<D>(o, p[kk], vdesc + kk * (2048 >> 4));
           ud::wgmma_commit();
           ud::wgmma_wait<0>();
 #pragma unroll
-          for (int i = 0; i < 32; ++i) ud::reg_fence(o[i]);
+          for (int i = 0; i < D / 2; ++i) ud::reg_fence(o[i]);
 #pragma unroll
           for (int kk = 0; kk < kBlockN / 16; ++kk)
 #pragma unroll
@@ -452,7 +496,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       unsigned char* ob = reinterpret_cast<unsigned char*>(os);
       const int r0 = warp * 16 + g;  // r0 % 8 == (r0 + 8) % 8 == g
 #pragma unroll
-      for (int j = 0; j < kD / 8; ++j) {
+      for (int j = 0; j < D / 8; ++j) {
         const int off = ((j ^ g) << 4) + 4 * t;
         *reinterpret_cast<uint32_t*>(ob + r0 * 128 + off) = ud::pack_bf16(o[4 * j] * inv0, o[4 * j + 1] * inv0);
         *reinterpret_cast<uint32_t*>(ob + (r0 + 8) * 128 + off) =
@@ -461,7 +505,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       ud::fence_proxy_async();
       ud::named_barrier_sync(1 + wg, 128);
       if (tid == 0 && w.q0 + row0 < nq) {
-        ud::tma_store_3d(&to, os, head * kD, w.q0 + row0, w.b);
+        ud::tma_store_3d(&to, os, head * D, w.q0 + row0, w.b);
         ud::tma_store_commit();
       }
     }
@@ -469,12 +513,13 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-// Launch the body on (B, N, heads * 64) bf16 tensors with element strides
-// (head h at column h * 64 of each row; NH = 2 takes heads in pairs).
+// Launch the body on (B, N, heads * D) bf16 tensors with element strides
+// (head h at column h * D of each row; NH = 2 takes heads in pairs).
 // Needs 16-byte aligned base pointers, row and batch strides that are
-// multiples of 8 elements, rows that hold all heads, and an even head count
-// for pairs. The tensor maps are built here, on the host, for every call.
-template <int F, int NH, int Stages>
+// multiples of 8 elements, rows that hold all heads, an even head count
+// for pairs, and one head at D < 64. The tensor maps are built here, on
+// the host, for every call.
+template <int F, int NH, int Stages, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, int batch, int heads, int nq, int nk,
                    long long q_bs, long long q_rs, long long k_bs, long long k_rs, long long v_bs, long long v_rs,
                    long long o_bs, long long o_rs, float scale_log2, cudaStream_t stream) {
@@ -482,7 +527,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int bat
   constexpr int kSmem = smem_bytes<NH, Stages>();
   static_assert(kSmem <= kMaxSmem, "the ring does not fit in shared memory");
   if (batch <= 0 || heads <= 0 || nq <= 0 || nk <= 0 || heads % NH) return cudaErrorInvalidValue;
-  const long long c = static_cast<long long>(heads) * kD;
+  if (D != kD && heads != 1) return cudaErrorInvalidValue;  // a 64-channel box would reach the next head
+  const long long c = static_cast<long long>(heads) * D;
   const long long tiles = static_cast<long long>((nq + kBlockM - 1) / kBlockM) * (heads / NH) * batch;
   if (tiles > 0x7fffffff || c > 0x7fffffff) return cudaErrorInvalidValue;
   if (q_rs < c || k_rs < c || v_rs < c || o_rs < c) return cudaErrorInvalidValue;
@@ -500,11 +546,11 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int bat
   cudaError_t e = cudaGetDevice(&device);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(attn_fwd_wgmma<F, NH, Stages>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+    e = cudaFuncSetAttribute(attn_fwd_wgmma<F, NH, Stages, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (e != cudaSuccess) return e;
   const int grid = static_cast<int>(tiles < sms ? tiles : sms);
-  attn_fwd_wgmma<F, NH, Stages><<<grid, kThreads, kSmem, stream>>>(tq, tk, tv, to, nq, nk, heads,
-                                                                    static_cast<int>(tiles), scale_log2);
+  attn_fwd_wgmma<F, NH, Stages, D><<<grid, kThreads, kSmem, stream>>>(tq, tk, tv, to, nq, nk, heads,
+                                                                       static_cast<int>(tiles), scale_log2);
   return cudaGetLastError();
 }
 

@@ -136,6 +136,16 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const void* map, uint64_t
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(smem_u32(bar))
       : "memory");
 }
+// 4-D TMA tile load (coordinates innermost first) completing on `bar`;
+// coordinates outside the tensor, negative ones too, load zeros
+__device__ __forceinline__ void tma_load_4d(void* dst, const void* map, uint64_t* bar, int c0, int c1, int c2,
+                                            int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(smem_u32(bar))
+      : "memory");
+}
 // 3-D TMA tile store; elements outside the tensor are not written
 __device__ __forceinline__ void tma_store_3d(const void* map, const void* src, int c0, int c1, int c2) {
   asm volatile("cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n" ::"l"(
@@ -218,21 +228,28 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// (channels, rows, batch) bf16 tensor with row and batch strides in
-// elements; boxes of 64 channels (one 128-byte row) x `box_rows` rows x 1,
-// in the 128-byte swizzle that wgmma_desc_sw128 describes. Elements outside
-// the tensor load as 0 and are not stored.
-inline bool make_map_sw128(CUtensorMap* map, const void* base, int channels, int rows, int batch, long long rs,
-                           long long bs, int box_rows) {
+// A bf16 tensor of `rank` dims (innermost first) with the byte strides of
+// dims 1.. and boxes of `box` elements. Elements outside the tensor load as
+// 0 and are not stored.
+inline bool make_map(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
+                     const cuuint64_t* byte_strides, const cuuint32_t* box, CUtensorMapSwizzle swizzle) {
   EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return false;
+  const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, cuuint32_t(rank), const_cast<void*>(base), dims, byte_strides,
+            box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// (channels, rows, batch) bf16 tensor with row and batch strides in
+// elements; boxes of 64 channels (one 128-byte row) x `box_rows` rows x 1,
+// in the 128-byte swizzle that wgmma_desc_sw128 describes.
+inline bool make_map_sw128(CUtensorMap* map, const void* base, int channels, int rows, int batch, long long rs,
+                           long long bs, int box_rows) {
   const cuuint64_t dims[3] = {cuuint64_t(channels), cuuint64_t(rows), cuuint64_t(batch)};
   const cuuint64_t strides[2] = {cuuint64_t(rs) * 2, cuuint64_t(bs) * 2};
   const cuuint32_t box[3] = {64, cuuint32_t(box_rows), 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides, box, elem,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return make_map(map, base, 3, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 }  // namespace ud

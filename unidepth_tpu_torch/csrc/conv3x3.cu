@@ -3,7 +3,10 @@
 // Replaces the TPU Pallas kernel conv3x3_lowchannel (_conv3x3_fwd / _kernel,
 // unidepth_tpu/ops/conv_kernels.py): x (B, H, W, Cin), w (3, 3, Cin, Cout)
 // HWIO, optional bias, zeros / reflect / replicate padding, fp32
-// accumulation, output in x's type with the bias added in that type.
+// accumulation, output in x's type with the bias added in that type. This
+// source serves fp32 and the bf16 shapes off conv3x3_wgmma.cu's envelope (a
+// Cout that is not a multiple of 8); bf16 with Cin and Cout multiples of 8
+// runs the Hopper body of conv3x3_wgmma.cu.
 //
 // What bounds it on the H100: memory. At the V2 heads' hr conv,
 // (8, 518, 518, 64 -> 32) bf16, the work is 79.1 GFLOP against at least

@@ -148,6 +148,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.ud_ln_dense_hopper_fwd.restype = i
     lib.ud_conv3x3_fwd.argtypes = [p, p, p, p] + [i] * 7 + [p]
     lib.ud_conv3x3_fwd.restype = i
+    lib.ud_conv3x3_hopper_fwd.argtypes = [p, p, p, p] + [i] * 6 + [p]
+    lib.ud_conv3x3_hopper_fwd.restype = i
     lib.ud_attention_ab_fwd.argtypes = [p, p, p, p] + [i] * 6 + [p]
     lib.ud_attention_ab_fwd.restype = i
     lib.ud_attention_bd_fwd.argtypes = [p, p, p, p] + [i] * 5 + [p]

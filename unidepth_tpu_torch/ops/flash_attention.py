@@ -23,10 +23,15 @@ Which body runs is fixed by dtype and head dim, never by a failure: K1, K3
 and K4 in bf16 at D = 64 (every ViT preset, and the ViT-L/14 V2 decoder's
 cross-attentions) launch the Hopper body (``attention_wgmma.cu``: wgmma for
 both products, TMA loads through an mbarrier ring, 128 x 128 tiles, any
-number of keys streamed through the online softmax); fp32 and the other
-head dims launch the mma.sync body (``attention.cu``), which takes every
-multiple of 8 up to 128 (the ViT-B/14 V2 decoder's cross-attentions run it
-at 48; a head dim off that grid raises: 16-byte rows). Both are bound by
+number of keys streamed through the online softmax). K3 in bf16 at D = 48
+(the ViT-B/14 V2 decoder) and 32 (ViT-S/14) launches the same body: its
+flat (BH, N, D) tensors are maps of one head, whose 64-channel rows TMA
+fills past D with zeros and whose stores clip there. K1 and K4 read several
+heads packed in one row, where a 64-channel box at D < 64 would reach into
+the next head, so they take the Hopper body at D = 64 only (no ViT preset
+has another encoder head dim). fp32 and the other head dims launch the
+mma.sync body (``attention.cu``), which takes every multiple of 8 up to 128
+(a head dim off that grid raises: 16-byte rows). Both are bound by
 compute on the H100 (~61.5 GFLOP per K1 call at the ViT-L serving shape
 against < 0.1 GB moved): they keep fp32 softmax statistics and the online
 row max (exact for any logits, so the TPU's logit audit has no
@@ -56,11 +61,12 @@ __all__ = [
 
 SUPPORTED_HEAD_DIMS = tuple(range(8, 129, 8))  # attention.cu: 16-byte rows, at most 128
 PACKED_MAX_KEYS = 4096  # the TPU kernel's whole-K VMEM bound (_packed_supported)
-HOPPER_ENTRY = "ud_attention_hopper_fwd"  # attention_wgmma.cu: bf16, head dim 64
-# the mangled name of the instantiation that entry launches, attn_fwd_wgmma<kExact, 1, 3>
+HOPPER_ENTRY = "ud_attention_hopper_fwd"  # attention_wgmma.cu: bf16, head dim 64 (one head: 32, 48)
+# the mangled name of the main path's instantiation, attn_fwd_wgmma<kExact, 1, 3, 64>
 # (attention_wgmma.cuh), as ptxas reports it
-HOPPER_KERNEL = "attn_fwd_wgmmaILi0ELi1ELi3E"
+HOPPER_KERNEL = "attn_fwd_wgmmaILi0ELi1ELi3ELi64EE"
 HOPPER_HEAD_DIM = 64
+HOPPER_ONE_HEAD_DIMS = (32, 48)  # the Hopper body's narrower rows, for a map of one head
 
 
 def flash_attention_plain(q, k, v, scale: float):
@@ -99,10 +105,16 @@ def packed_supported(nk: int, c: int, num_heads: int) -> bool:
     return -(-nk // 128) * 128 <= PACKED_MAX_KEYS
 
 
-def _entry(dtype: torch.dtype, d: int, other: str) -> str:
+def _entry(dtype: torch.dtype, d: int, other: str, heads: int | None = None) -> str:
     """The C entry K1, K3 or K4 launches: the Hopper body for bf16 at D = 64,
-    else ``other`` (the mma.sync / CUDA-core body of attention.cu)."""
-    return HOPPER_ENTRY if dtype == torch.bfloat16 and d == HOPPER_HEAD_DIM else other
+    or at D = 32 and 48 for a map of one head (``heads == 1``: K3 alone
+    passes it, as the C entry requires), else ``other`` (the mma.sync /
+    CUDA-core body of attention.cu)."""
+    if dtype != torch.bfloat16:
+        return other
+    if d == HOPPER_HEAD_DIM or (heads == 1 and d in HOPPER_ONE_HEAD_DIMS):
+        return HOPPER_ENTRY
+    return other
 
 
 def _launch(name, q, k_ptr, v_ptr, o, batch, heads, nq, nk, d, strides, scale, entry="ud_attention_fwd"):
@@ -178,7 +190,7 @@ def _flash_kernel(q, k, v, scale):
     nk = k.shape[1]
     if k.shape != (bh, nk, d) or v.shape != k.shape:
         raise ValueError(f"flash_attention: shapes {q.shape}, {k.shape}, {v.shape} do not match")
-    entry = _entry(q.dtype, d, "ud_attention_fwd")
+    entry = _entry(q.dtype, d, "ud_attention_fwd", heads=1)
     out = torch.empty_like(q)
     _launch(
         "flash_attention", q, k.data_ptr(), v.data_ptr(), out, bh, 1, nq, nk, d,
