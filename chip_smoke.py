@@ -93,6 +93,22 @@ fails (non-zero exit, no result line) without CUDA or outside a checkout.
    blocks, C = 384, 6 heads of 64; decoder hidden 256, 8 heads of 32):
    launches K1 12, K2 12, K3 4 (head dim 32), each on its Hopper body, K4
    never; the same checks and timing as ViT-B.
+8. UniDepthV1 from configs/config_v1_vitl14.json (DINOv2 ViT-L/14, max_cls
+   stacking, the offset-0.1 pos-embed; decoder hidden 512, depths (3, 2,
+   1)) and configs/config_v1_cnvnxtl.json (ConvNeXt-L, the same decoder),
+   each built with no device named and random weights, ``infer()`` on 8
+   seeded uint8 462x616 images: depth, points and intrinsics of the right
+   shapes, finite, depth > 0; launches K1 24, K2 30, K3 3 (ViT-L) and K2
+   42, K3 3 (ConvNeXt-L), each on its Hopper body, K4 never; the first 2
+   images' depth against the fp32 plain path at B = 2 at the V1 gate
+   (median relative error <= V1_DEPTH_GATE, set from the JAX package's own
+   bf16 drift, PERF.md section 2); images/s at B = 8. Before the models, K2
+   at ConvNeXt-L's four stage shapes and the V1 decoder's three CvnxtBlock
+   shapes (eps 1e-5), K1 at 1453 tokens and K3 at (64, 1452, 64) and (64,
+   1064, 64), in bf16 on their Hopper bodies, held to their plain versions
+   at the bf16 gates and timed beside their library calls, with bound and
+   share; these join K1's, K2's and K3's records, as do the V1 paths'
+   launch counts.
 
 Each path's launch counts (and the Hopper-body counts of K1-K7) are set
 to 0 just before it runs and read just after. A K2 call
@@ -120,7 +136,11 @@ ROOT = Path(__file__).resolve().parent
 CONFIG = ROOT / "configs" / "config_v2_vitl14.json"
 CONFIG_B = ROOT / "configs" / "config_v2_vitb14.json"
 CONFIG_S = ROOT / "configs" / "config_v2_vits14.json"
+CONFIG_V1 = {"V1 ViT-L/14": ROOT / "configs" / "config_v1_vitl14.json",
+             "V1 ConvNeXt-L": ROOT / "configs" / "config_v1_cnvnxtl.json"}
 BATCH, SIDE, SEED = 8, 518, 0
+V1_SHAPE = (462, 616)  # both V1 configurations' fixed network shape
+V1_DEPTH_GATE = 8e-2  # V1 bf16 depth median relative error against fp32: PERF.md section 2
 BATCH_B_CHECK = 2  # ViT-B's and ViT-S's check against the fp32 plain path; their timing runs at BATCH
 TOL_BF16 = dict(rtol=1.6e-2, atol=1e-2)
 REL_RMS_BF16 = 5e-3
@@ -141,6 +161,22 @@ HOPPER = ("flash_attention_qkv", "ln_dense", "flash_attention", "flash_attention
 # K3 at the decoders' narrower head dims, 8 heads an image: name -> (BH, N, D)
 K3_NARROW_SHAPES = {"d48_b2": (2 * 8, 1369, 48), "d48": (BATCH * 8, 1369, 48), "d32": (BATCH * 8, 1369, 32)}
 K5_HR_SHAPES = {64: (BATCH, SIDE, SIDE, 64, 32), 48: (BATCH, SIDE, SIDE, 48, 32), 32: (BATCH, SIDE, SIDE, 32, 32)}
+# K2 on the V1 paths at B = 8, 462 x 616: name -> (M, C, F, eps). ConvNeXt-L's
+# four stages (grids 115 x 154, 57 x 77, 28 x 38, 14 x 19), then the V1
+# decoder's CvnxtBlocks on ViT-L/14's 33 x 44 grid and its 2x and 4x
+V1_K2_SHAPES = {
+    "cnvnxtl_stage0": (BATCH * 115 * 154, 192, 768, 1e-6),
+    "cnvnxtl_stage1": (BATCH * 57 * 77, 384, 1536, 1e-6),
+    "cnvnxtl_stage2": (BATCH * 28 * 38, 768, 3072, 1e-6),
+    "cnvnxtl_stage3": (BATCH * 14 * 19, 1536, 6144, 1e-6),
+    "v1_decoder_c512": (BATCH * 33 * 44, 512, 2048, 1e-5),
+    "v1_decoder_c256": (BATCH * 66 * 88, 256, 1024, 1e-5),
+    "v1_decoder_c128": (BATCH * 132 * 176, 128, 512, 1e-5),
+}
+# K1 on V1 ViT-L/14 (33 x 44 patches + cls) and K3 on the V1 decoder's
+# layers_16 (8 heads of 64 an image) at ViT-L's and ConvNeXt-L's grids
+V1_K1_TOKENS = 33 * 44 + 1
+V1_K3_SHAPES = {"v1_vitl14": (BATCH * 8, 33 * 44, 64), "v1_cnvnxtl": (BATCH * 8, 28 * 38, 64)}
 
 
 def log(*args):
@@ -216,6 +252,24 @@ def kernel_phase(name, kernel, plain, make_inputs, fp32_tol, flops, library=None
             **bound(flops, nbytes(*args, out))}
 
 
+def shape_phase(name, kernel, plain, make_args, flops, library, smi):
+    """``kernel`` in bf16 at one more shape of a model path: it must take its
+    Hopper body; held to its plain version (fp32, same inputs) at the bf16
+    gates; timed beside ``library(*args)()``; its bound and share."""
+    args = make_args()
+    hopper = kernel.hopper_launches
+    out = kernel(*args)
+    torch.cuda.synchronize()
+    if kernel.hopper_launches != hopper + 1:
+        raise RuntimeError(f"{name}: the bf16 call did not run the Hopper body")
+    err, rel_rms = check_bf16(name, out, plain(*[a.float() if torch.is_tensor(a) else a for a in args]))
+    ms, library_ms = time_ms(lambda: kernel(*args)), time_ms(library(*args))
+    bd = bound(flops, nbytes(*args, out))
+    log(f"{name}: bf16 max_abs_err {err:.3e} rel_rms {rel_rms:.3e}; kernel {ms:.4f} ms, {bd['bound_ms'] / ms:.1%} of "
+        f"its {bd['bound_ms']:.4f} ms bound ({bd['bound_by']}), library {library_ms:.4f} ms ({smi})")
+    return {"ms": ms, "library_ms": library_ms, "max_abs_err": err, "rel_rms": rel_rms, **bd}
+
+
 def sdpa(q, k, v, scale):
     """One F.scaled_dot_product_attention call on (..., N, D) views: the
     library yardstick of the attention kernels."""
@@ -269,39 +323,40 @@ def check_outputs(name, out, batch=BATCH):
         raise RuntimeError(f"{name}: depth is not positive everywhere")
 
 
-def images_per_s(name, model, rgb, smi, iters=5):
-    """Depth-only ``infer()`` in three timed rounds; returns the median rate."""
+def images_per_s(name, infer, smi, what=f"depth-only B={BATCH} {SIDE}x{SIDE}", iters=5):
+    """``infer()`` of one batch of BATCH images in three timed rounds;
+    returns the median rate."""
     rounds = []
     for _ in range(2):
-        model.infer(rgb, outputs=("depth",))
+        infer()
     for _ in range(3):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(iters):
-            model.infer(rgb, outputs=("depth",))
+            infer()
         torch.cuda.synchronize()
         rounds.append(BATCH * iters / (time.perf_counter() - t0))
     rate = statistics.median(rounds)
-    log(f"infer depth-only B={BATCH} {SIDE}x{SIDE} {name}: {BATCH / rate * 1e3:.2f} ms/batch, "
+    log(f"infer {what} {name}: {BATCH / rate * 1e3:.2f} ms/batch, "
         f"{rate:.2f} images/s, median of rounds {', '.join(f'{r:.2f}' for r in rounds)} ({smi})")
     return rate
 
 
-def depth_against_plain(name, model_cls, config, rgb, out, kernels, dev):
+def depth_against_plain(name, model_cls, config, rgb, depth, kernels, dev, gate=1e-2, **infer_kwargs):
     """Run ``config`` with the same seeded weights on the plain path in fp32
-    on the card, check it launched no kernel, and hold ``out``'s depth to it
-    (median relative error <= 1e-2). Returns the reference outputs."""
+    on the card, check it launched no kernel, and hold ``depth`` to its
+    depth (median relative error <= ``gate``). Returns the reference
+    outputs."""
     ref_model = model_cls.from_config(config, device=dev, dtype=torch.float32).init_params(seed=SEED)
     ref_model.set_kernels(False).eval()
-    ref, ref_launches = run_path(f"{name} fp32 plain infer()", kernels,
-                                 lambda: ref_model.infer(rgb, outputs=("depth", "intrinsics")))
+    ref, ref_launches = run_path(f"{name} fp32 plain infer()", kernels, lambda: ref_model.infer(rgb, **infer_kwargs))
     if any(ref_launches.values()):
         raise RuntimeError(f"{name}: the plain reference run launched a kernel")
-    rel = ((out["depth"] - ref["depth"]).abs() / ref["depth"].abs()).flatten()
+    rel = ((depth - ref["depth"]).abs() / ref["depth"].abs()).flatten()
     med, mx = rel.median().item(), rel.max().item()
-    log(f"{name} depth vs fp32 plain path: median rel err {med:.3e}, max rel err {mx:.3e}")
-    if not med <= 1e-2:
-        raise RuntimeError(f"{name}: depth median relative error {med} > 1e-2")
+    log(f"{name} depth vs fp32 plain path: median rel err {med:.3e}, max rel err {mx:.3e} (gate {gate})")
+    if not med <= gate:
+        raise RuntimeError(f"{name}: depth median relative error {med} > {gate}")
     return ref
 
 
@@ -312,6 +367,7 @@ def main():
         raise SystemExit(f"chip_smoke: {CONFIG} not found; run from the root of a checkout")
     t_start = time.perf_counter()
     sys.path.insert(0, str(ROOT))
+    from unidepth_tpu_torch.models.unidepthv1.model import UniDepthV1
     from unidepth_tpu_torch.models.unidepthv2.model import UniDepthV2
     from unidepth_tpu_torch.ops import _cuda
     from unidepth_tpu_torch.ops.conv_kernels import PAD_MODES, conv3x3_lowchannel, conv3x3_lowchannel_plain
@@ -497,6 +553,32 @@ def main():
             f"({ms / lib:.3f}x SDPA, {ms / old:.3f}x the old body; turns {turns}) ({smi})")
     del k3_calls
 
+    # --- K2, K1 and K3 at the V1 paths' shapes (462 x 616, B = 8) -------------
+    m["ln_dense"]["v1_shapes"] = {}
+    for key, (rows, c, f, eps) in V1_K2_SHAPES.items():
+        def k2_v1(rows=rows, c=c, f=f, eps=eps):
+            gen.manual_seed(rows + c)
+            return (randn(rows, c, dtype=torch.bfloat16, std=2.0, mean=0.5),
+                    randn(f, c, dtype=torch.bfloat16, std=c**-0.5), randn(f, dtype=torch.bfloat16, std=0.1),
+                    randn(c, dtype=torch.bfloat16, std=0.1, mean=1.0), randn(c, dtype=torch.bfloat16, std=0.1), eps, "gelu")
+        m["ln_dense"]["v1_shapes"][key] = {"shape": [rows, c, f], "eps": eps, **shape_phase(
+            f"K2 {key} (M {rows}, C {c}, F {f}, eps {eps})", ln_dense, ln_dense_plain, k2_v1, 2 * rows * c * f, ln_dense_library, smi)}
+
+    def k1_v1():
+        gen.manual_seed(11)
+        return randn(BATCH, V1_K1_TOKENS, 3 * 1024, dtype=torch.bfloat16), 16, 64**-0.5
+
+    m["flash_attention_qkv"]["v1_vitl14"] = {"shape": [BATCH, V1_K1_TOKENS, 16, 64], **shape_phase(
+        f"K1 V1 ViT-L/14 (8, {V1_K1_TOKENS}, 16 x 64)", flash_attention_qkv, flash_attention_qkv_plain, k1_v1,
+        4 * BATCH * V1_K1_TOKENS**2 * 1024, sdpa_qkv, smi)}
+    for key, (bh, n, d) in V1_K3_SHAPES.items():
+        def k3_v1(bh=bh, n=n, d=d):
+            gen.manual_seed(bh + n)
+            return tuple(randn(bh, n, d, dtype=torch.bfloat16) for _ in range(3)) + (d**-0.5,)
+        m["flash_attention"][key] = {"shape": [bh, n, d], **shape_phase(
+            f"K3 {key} {(bh, n, d)}", flash_attention, flash_attention_plain, k3_v1, 4 * bh * n * n * d,
+            lambda q, k, v, scale: sdpa(q[None], k[None], v[None], scale), smi)}
+
     # --- K5: conv3x3_lowchannel, its entry point the op itself ---------------
     def floats(args):
         return [a.float() if torch.is_tensor(a) else a for a in args]
@@ -620,9 +702,10 @@ def main():
                                               "flash_attention": 4, "flash_attention/wgmma": 4})
     check_outputs("bf16 infer()", out)
 
-    ref = depth_against_plain("ViT-L/14", UniDepthV2, config, rgb, out, kernels, dev)
+    ref = depth_against_plain("ViT-L/14", UniDepthV2, config, rgb, out["depth"], kernels, dev,
+                              outputs=("depth", "intrinsics"))
     del out
-    images_per_s("bf16", model, rgb, smi)
+    images_per_s("bf16", lambda: model.infer(rgb, outputs=("depth",)), smi)
 
     # --- the int8 serving path: same weights, encoder GEMMs in int8 -----------
     model.set_serving_precision("int8")
@@ -653,7 +736,7 @@ def main():
     check_outputs("masked int8 infer()", out_m)
     del out_m
     model._int8_stages = None
-    images_per_s("int8", model, rgb, smi)
+    images_per_s("int8", lambda: model.infer(rgb, outputs=("depth",)), smi)
     del model, ref
 
     # --- ViT-B/14 and ViT-S/14: the decoders' cross-attentions at head dims 48 and 32
@@ -670,10 +753,43 @@ def main():
                        {**none, "flash_attention_qkv": 12, "flash_attention_qkv/wgmma": 12, "ln_dense": 12,
                         "ln_dense/wgmma": 12, "flash_attention": 4, "flash_attention/wgmma": 4})
         check_outputs(f"{label} bf16 infer()", out_b, BATCH_B_CHECK)
-        depth_against_plain(label, UniDepthV2, config_b, rgb_b, out_b, kernels, dev)
+        depth_against_plain(label, UniDepthV2, config_b, rgb_b, out_b["depth"], kernels, dev,
+                            outputs=("depth", "intrinsics"))
         del out_b
-        images_per_s(f"bf16 {label}", model_b, rgb, smi)
+        images_per_s(f"bf16 {label}", lambda: model_b.infer(rgb, outputs=("depth",)), smi)
         del model_b
+
+    # --- UniDepthV1: ViT-L/14 and ConvNeXt-L at 462 x 616 ---------------------
+    rgb_v1 = np.random.default_rng(SEED).integers(0, 256, (BATCH, *V1_SHAPE, 3), dtype=np.uint8)
+    v1_expected = {
+        "V1 ViT-L/14": {"flash_attention_qkv": 24, "ln_dense": 30, "flash_attention": 3},  # 24 blocks; 24 + 6 CvnxtBlocks
+        "V1 ConvNeXt-L": {"ln_dense": 42, "flash_attention": 3},  # 36 ConvNeXt blocks + 6 CvnxtBlocks
+    }
+    v1_launches = {}
+    for label, path in CONFIG_V1.items():
+        config_v1 = json.loads(path.read_text())
+        t0 = time.perf_counter()
+        model_v1 = UniDepthV1.from_config(config_v1).init_params(seed=SEED).eval()  # no device named: the card
+        log(f"model: {label} {sum(p.numel() for p in model_v1.parameters()) / 1e6:.1f} M params, "
+            f"{next(model_v1.parameters()).dtype} on {next(model_v1.parameters()).device}, "
+            f"built in {time.perf_counter() - t0:.1f} s")
+        out_v1, v1_launches[label] = run_path(f"{label} bf16 infer()", kernels, lambda: model_v1.infer(rgb_v1))
+        expected = v1_expected[label]
+        check_launches(f"{label} bf16 infer()", v1_launches[label],
+                       {**none, **expected, **{f"{k}/wgmma": n for k, n in expected.items()}})
+        for key, ch in (("depth", 1), ("points", 3)):
+            if tuple(out_v1[key].shape) != (BATCH, *V1_SHAPE, ch) or not torch.isfinite(out_v1[key]).all():
+                raise RuntimeError(f"{label}: {key} has shape {tuple(out_v1[key].shape)} or is not finite")
+        if tuple(out_v1["intrinsics"].shape) != (BATCH, 3, 3) or not torch.isfinite(out_v1["intrinsics"]).all():
+            raise RuntimeError(f"{label}: intrinsics malformed")
+        if not (out_v1["depth"] > 0).all():
+            raise RuntimeError(f"{label}: depth is not positive everywhere")
+        depth_against_plain(label, UniDepthV1, config_v1, rgb_v1[:BATCH_B_CHECK], out_v1["depth"][:BATCH_B_CHECK],
+                            kernels, dev, gate=V1_DEPTH_GATE)
+        del out_v1
+        images_per_s(f"bf16 {label}", lambda: model_v1.infer(rgb_v1), smi,
+                     what=f"B={BATCH} {V1_SHAPE[0]}x{V1_SHAPE[1]} (depth, points, intrinsics)")
+        del model_v1
 
     # each kernel's count from the path it serves: K1-K3 the bf16 ViT-L path,
     # K4 the int8 one, K5 its own call, K6 and K7 the harness
@@ -704,6 +820,9 @@ def main():
     }
     # K3 at the narrower head dims joins K3's record (the path's record is D = 64)
     m["flash_attention"].update(k3_narrow)
+    # the V1 paths' counts beside the V2 main path's
+    for name in ("flash_attention_qkv", "ln_dense", "flash_attention"):
+        m[name]["v1_launches"] = {label: counts[name] for label, counts in v1_launches.items()}
     record = [
         {"name": name, "route": "cuda", "source": f"unidepth_tpu_torch/csrc/{src}", "replaces": rep, "body": body,
          "launches": path_launches[name],

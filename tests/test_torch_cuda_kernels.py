@@ -32,7 +32,11 @@ mma.sync body at 32) are held against their plain versions at the bf16
 gates with the elementwise atol scaled by the output's size, ``noexp``
 (outputs ~1e31) by relative RMS alone. UniDepthV2 ViT-B/14 and ViT-S/14,
 whose decoders attend at head dims 48 and 32, run ``infer()`` at 518x518
-against their fp32 plain paths.
+against their fp32 plain paths. K1, K2 and K3 also run at the UniDepthV1
+shapes (462x616 at B = 8: K1 at 1453 tokens, K3 at 1452 and 1064, K2 at
+ConvNeXt-L's four stages and the V1 decoder's three CvnxtBlock widths), and
+UniDepthV1 ViT-L/14 and ConvNeXt-L at full width with the encoder's depth
+cut run ``infer()`` against their fp32 plain paths at the V1 gate.
 """
 
 import json
@@ -532,6 +536,7 @@ HOPPER_K1_CASES = (
     [(1, n, 1) for n in (5, 64, 127, 128, 129, 1370, 4096)]
     + [(2, n, 4) for n in (5, 64, 127, 128, 129, 1370, 4096)]
     + [(8, 129, 16), (8, 1370, 16)]  # B * H = 128
+    + [(8, 1453, 16)]  # the V1 ViT-L/14 encoder at 462 x 616: 33 x 44 patches + cls
 )
 
 
@@ -660,6 +665,8 @@ K3_HOPPER_CASES = [
     (2, 300, 5000),  # past the TPU kernel's 4096 keys (it switches to blocked softmax there)
     (3, 200, 333),  # ragged last q tile and ragged last key tile together
     (2, 70, 4097),  # one ragged q tile; a last key tile of one key
+    (64, 1452, 1452),  # the V1 decoder's layers_16 at B = 8: ViT-L/14's 33 x 44 grid
+    (64, 1064, 1064),  # ConvNeXt-L's 28 x 38 grid
 ]
 
 
@@ -740,6 +747,15 @@ K2_HOPPER_CASES = [
     (1000, 256, 512, 1e-5, None),  # no activation, the decoder's eps
     (300, 192, 768, 1e-6, "gelu"),  # ConvNeXt's C = 192, F = 4C: an odd count of 64-deep slices
     (77, 64, 256, 1e-6, "gelu"),  # one slice, one tile
+    # ConvNeXt-L's four stages at B = 8, 462 x 616 (141680 = 1106 x 128 + 112: a ragged last row block)
+    (141680, 192, 768, 1e-6, "gelu"),
+    (35112, 384, 1536, 1e-6, "gelu"),
+    (8512, 768, 3072, 1e-6, "gelu"),
+    (2128, 1536, 6144, 1e-6, "gelu"),  # 24 slices of 64 a tile, gamma and beta staged beside the ring
+    # the V1 decoder's CvnxtBlocks at B = 8 (ViT-L/14 grid): C = 128 has two 64-deep slices a tile
+    (185856, 128, 512, 1e-5, "gelu"),
+    (46464, 256, 1024, 1e-5, "gelu"),
+    (11616, 512, 2048, 1e-5, "gelu"),
 ]
 
 
@@ -835,3 +851,39 @@ def test_vits14_v2_infer_on_the_card(dev):
     assert torch.isfinite(out["depth"]).all() and (out["depth"] > 0).all()
     rel = ((out["depth"] - ref["depth"]).abs() / ref["depth"].abs()).flatten()
     assert rel.median().item() <= 1e-2
+
+
+V1_CASES = {
+    # full widths, depth cut: ViT-L/14 with 4 blocks (K1 4, K2 4 + the decoder's 6 CvnxtBlocks, K3 3)
+    "vitl14": ("config_v1_vitl14.json", {"depth": 4, "output_idx": [1, 2, 3, 4]}, [(4, 4), (10, 10), (3, 3), (0, 0)]),
+    # ConvNeXt-L with depths (1, 1, 3, 1) (K2 6 + 6, K3 3 at ConvNeXt-L's 28 x 38 grid)
+    "cnvnxtl": ("config_v1_cnvnxtl.json", {"depths": [1, 1, 3, 1]}, [(0, 0), (12, 12), (3, 3), (0, 0)]),
+}
+
+
+@pytest.mark.parametrize("name", list(V1_CASES))
+def test_v1_infer_on_the_card(dev, name):
+    """UniDepthV1 at full width with the encoder's depth cut, one 462 x 616
+    image, from ``from_config`` with no device (the card, bf16): K1, K2 and
+    K3 on their Hopper bodies at the V1 shapes, K4 never; depth within the
+    V1 bf16 gate of the fp32 plain path (median relative error <= 8e-2,
+    PERF.md section 2)."""
+    from unidepth_tpu_torch.models.unidepthv1.model import UniDepthV1
+
+    path, encoder, launches = V1_CASES[name]
+    cfg = json.loads((Path(__file__).resolve().parents[1] / "configs" / path).read_text())
+    cfg["model"]["pixel_encoder"].update(encoder)
+    rgb = np.random.default_rng(0).integers(0, 256, (1, 462, 616, 3), dtype=np.uint8)
+    model = UniDepthV1.from_config(cfg).init_params(seed=0).eval()
+    counted = (flash_attention_qkv, ln_dense, flash_attention, flash_attention_packed)
+    for fn in counted:
+        fn.launches = fn.hopper_launches = 0
+    out = model.infer(rgb)
+    torch.cuda.synchronize()
+    assert [(fn.launches, fn.hopper_launches) for fn in counted] == launches
+    ref = UniDepthV1.from_config(cfg, device=dev, dtype=torch.float32).init_params(seed=0).set_kernels(False).infer(rgb)
+    assert out["depth"].shape == ref["depth"].shape == (1, 462, 616, 1)
+    assert out["points"].shape == (1, 462, 616, 3) and out["intrinsics"].shape == (1, 3, 3)
+    assert all(torch.isfinite(out[k]).all() for k in out) and (out["depth"] > 0).all()
+    rel = ((out["depth"] - ref["depth"]).abs() / ref["depth"].abs()).flatten()
+    assert rel.median().item() <= 8e-2

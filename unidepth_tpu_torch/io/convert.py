@@ -1,13 +1,16 @@
 """Carry weights from the JAX package to the port (inverse of
-unidepth_tpu/io/convert.py ``convert_v2_state_dict``).
+unidepth_tpu/io/convert.py ``convert_v2_state_dict`` and
+``convert_v1_state_dict`` with ``convert_v1_decoder`` and
+``convert_convnext``).
 
-``from_jax_params`` turns the JAX ``UniDepthV2`` parameter tree, as numpy
-arrays, into a state_dict with the reference checkpoint keys that
-``unidepth_tpu_torch``'s ``UniDepthV2`` holds: it un-stacks the scanned
-``stage_{si}`` encoder blocks, transposes Dense kernels back to (out, in),
-turns ``patch_kernel`` (p*p*3, C) back into the conv (C, 3, p, p), turns
-HWIO conv and (in, k, k, out) ConvTranspose kernels back into torch's
-layouts, and reshapes ``level_embeds`` and the ResidualConvUnit gammas.
+``from_jax_params`` turns the JAX ``UniDepthV2`` or ``UniDepthV1``
+parameter tree (DINOv2 or ConvNeXt encoder), as numpy arrays, into a
+state_dict with the reference checkpoint keys that the port's model holds:
+it un-stacks the scanned ``stage_{si}`` encoder blocks, transposes Dense
+kernels back to (out, in), turns ``patch_kernel`` (p*p*3, C) back into the
+conv (C, 3, p, p), turns HWIO conv and (in, k, k, out) ConvTranspose
+kernels back into torch's layouts, and reshapes V2's ``level_embeds`` and
+ResidualConvUnit gammas.
 """
 
 from __future__ import annotations
@@ -17,7 +20,7 @@ from typing import Mapping
 import numpy as np
 import torch
 
-__all__ = ["decoder_state_dict", "encoder_state_dict", "from_jax_params"]
+__all__ = ["conv_upsample_state_dict", "convnext_state_dict", "decoder_state_dict", "encoder_state_dict", "from_jax_params", "v1_decoder_state_dict"]
 
 
 def _t(a) -> torch.Tensor:
@@ -35,10 +38,15 @@ def _ln(out: dict, prefix: str, p: Mapping) -> None:
     out[f"{prefix}.bias"] = _t(p["bias"])
 
 
+def _conv_kernel(out: dict, prefix: str, p: Mapping) -> None:
+    """flax Conv: HWIO kernel -> (O, I, kh, kw)."""
+    out[f"{prefix}.weight"] = _t(np.asarray(p["kernel"]).transpose(3, 2, 0, 1))
+    out[f"{prefix}.bias"] = _t(p["bias"])
+
+
 def _conv(out: dict, prefix: str, p: Mapping) -> None:
-    """flax Conv under a ``conv`` scope: HWIO kernel -> (O, I, kh, kw)."""
-    out[f"{prefix}.weight"] = _t(np.asarray(p["conv"]["kernel"]).transpose(3, 2, 0, 1))
-    out[f"{prefix}.bias"] = _t(p["conv"]["bias"])
+    """flax Conv under a ``conv`` scope (``nn.conv.Conv2d``)."""
+    _conv_kernel(out, prefix, p["conv"])
 
 
 def _mlp(out: dict, prefix: str, p: Mapping) -> None:
@@ -147,13 +155,104 @@ def decoder_state_dict(p: Mapping, num_levels: int, pre: str = "") -> dict[str, 
     return out
 
 
+def convnext_state_dict(p: Mapping, pre: str = "") -> dict[str, torch.Tensor]:
+    """JAX ``ConvNeXt`` parameters -> the port's ``ConvNeXt`` state_dict
+    (timm keys, prefixed with ``pre``)."""
+    out: dict[str, torch.Tensor] = {}
+    _conv_kernel(out, f"{pre}stem.0", p["stem_conv"])
+    _ln(out, f"{pre}stem.1", p["stem_norm"])
+    for s in range(len([k for k in p if k.startswith("stage_")])):
+        sp = f"{pre}stages.{s}"
+        if s > 0:
+            _ln(out, f"{sp}.downsample.0", p[f"down_norm_{s}"])
+            _conv_kernel(out, f"{sp}.downsample.1", p[f"down_conv_{s}"])
+        stage = p[f"stage_{s}"]
+        for j in range(np.asarray(stage["norm"]["scale"]).shape[0]):
+            blk, bp = _index_tree(stage, j), f"{sp}.blocks.{j}"
+            _conv(out, f"{bp}.conv_dw", blk["dwconv"])
+            _ln(out, f"{bp}.norm", blk["norm"])
+            _dense(out, f"{bp}.mlp.fc1", blk["pwconv1"])
+            _dense(out, f"{bp}.mlp.fc2", blk["pwconv2"])
+            if "gamma" in blk:
+                out[f"{bp}.gamma"] = _t(blk["gamma"])
+            if "grn_gamma" in blk:
+                out[f"{bp}.mlp.grn.weight"] = _t(blk["grn_gamma"])
+                out[f"{bp}.mlp.grn.bias"] = _t(blk["grn_beta"])
+    return out
+
+
+def _adapter(out: dict, prefix: str, p: Mapping) -> None:
+    _ln(out, f"{prefix}.0", p["norm"])
+    _dense(out, f"{prefix}.1", p["linear"])
+
+
+def v1_decoder_state_dict(p: Mapping, pre: str = "") -> dict[str, torch.Tensor]:
+    """JAX ``DecoderV1`` parameters -> the port's ``DecoderV1`` state_dict
+    (keys prefixed with ``pre``)."""
+    out: dict[str, torch.Tensor] = {}
+    for i in range(len([k for k in p if k.startswith("input_adapter_")])):
+        _adapter(out, f"{pre}input_adapter.input_adapters.{i}", p[f"input_adapter_{i}"])
+        _adapter(out, f"{pre}token_adapter.input_adapters.{i}", p[f"token_adapter_{i}"])
+    out[f"{pre}level_embeds"] = _t(p["level_embeds"])
+    _dense(out, f"{pre}level_embed_layer.0", p["le_fc1"])
+    _dense(out, f"{pre}level_embed_layer.2", p["le_fc2"])
+    _ln(out, f"{pre}level_embed_layer.3", p["le_norm"])
+
+    cam, cp = p["camera_layer"], f"{pre}camera_layer"
+    out[f"{cp}.latents_pos"] = _t(cam["latents_pos"])
+    _ln(out, f"{cp}.cls_project.0", cam["cls_norm"])
+    _dense(out, f"{cp}.cls_project.1", cam["cls_fc1"])
+    _dense(out, f"{cp}.cls_project.3", cam["cls_fc2"])
+    _mlp(out, f"{cp}.in_features", cam["in_features"])
+    _attention_block(out, f"{cp}.aggregate", cam["aggregate"])
+    for name in (k for k in cam if k.startswith("layers_")):
+        _attention_block(out, f"{cp}.layers.{int(name.removeprefix('layers_'))}", cam[name])
+    _mlp(out, f"{cp}.out", cam["out"])
+
+    d, dp = p["depth_layer"], f"{pre}depth_layer"
+    for name in ("project_rays16", "project_rays8", "project_rays4", "to_latents"):
+        _mlp(out, f"{dp}.{name}", d[name])
+    _dense(out, f"{dp}.features_channel_cat", d["features_channel_cat"])
+    _attention_block(out, f"{dp}.aggregate_16", d["aggregate_16"])
+    _attention_block(out, f"{dp}.prompt_camera", d["prompt_camera"])
+    for name in (k for k in d if k.startswith("layers_")):
+        scale, j = name.removeprefix("layers_").split("_")
+        _attention_block(out, f"{dp}.layers_{scale}.{j}", d[name])
+    for scale in (8, 4, 2):
+        out.update(conv_upsample_state_dict(d[f"up{scale}"], f"{dp}.up{scale}."))
+        _conv(out, f"{dp}.out{scale}", d[f"out{scale}"])
+    return out
+
+
+def conv_upsample_state_dict(p: Mapping, pre: str = "") -> dict[str, torch.Tensor]:
+    """JAX ``ConvUpsample`` parameters -> the port's ``ConvUpsample``
+    state_dict (keys prefixed with ``pre``)."""
+    out: dict[str, torch.Tensor] = {}
+    for name in (k for k in p if k.startswith("convs_")):
+        blk, bp = p[name], f"{pre}convs.{int(name.removeprefix('convs_'))}"
+        _conv(out, f"{bp}.dwconv", blk["dwconv"])
+        _ln(out, f"{bp}.norm", blk["norm"])
+        _dense(out, f"{bp}.pwconv1", blk["pwconv1"])
+        _dense(out, f"{bp}.pwconv2", blk["pwconv2"])
+        out[f"{bp}.gamma"] = _t(blk["gamma"])
+    _conv(out, f"{pre}up.0", p["up_conv1"])
+    _conv(out, f"{pre}up.2", p["up_conv2"])
+    return out
+
+
 def from_jax_params(params: Mapping, config: dict) -> dict[str, torch.Tensor]:
     """JAX ``{'encoder', 'decoder'}`` parameter tree (arrays of any kind
     numpy can read) -> float32 state_dict with reference checkpoint keys.
     ``config``: the reference-schema config dict the JAX model was built
-    from (it gives the decoder's number of levels)."""
-    num_levels = len(config["model"]["pixel_decoder"].get("depths", (2, 2, 2)))
-    return {
-        **encoder_state_dict(params["encoder"], "pixel_encoder."),
-        **decoder_state_dict(params["decoder"], num_levels, "pixel_decoder."),
-    }
+    from: ``model.name`` picks the V1 or V2 decoder, an encoder name holding
+    ``convnext`` the ConvNeXt encoder, and V2's decoder depths give its
+    number of levels."""
+    model = config["model"]
+    if "convnext" in model["pixel_encoder"]["name"]:
+        encoder = convnext_state_dict(params["encoder"], "pixel_encoder.")
+    else:
+        encoder = encoder_state_dict(params["encoder"], "pixel_encoder.")
+    if model.get("name") == "UniDepthV1":
+        return {**encoder, **v1_decoder_state_dict(params["decoder"], "pixel_decoder.")}
+    num_levels = len(model["pixel_decoder"].get("depths", (2, 2, 2)))
+    return {**encoder, **decoder_state_dict(params["decoder"], num_levels, "pixel_decoder.")}

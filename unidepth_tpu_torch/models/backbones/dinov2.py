@@ -1,9 +1,19 @@
 """DINOv2 ViT encoder (counterpart of unidepth_tpu/models/backbones/dinov2.py).
 
 ``DinoViT`` takes channel-last images (B, H, W, 3) and returns, per entry of
-``output_idx``, a (B, h, w, C) feature map and a (B, 1, C) cls token, with
-``stacking='last'`` (the features of each stage's last block). Register
-tokens, SwiGLU and the other stacking modes are not ported yet.
+``output_idx``, a (B, h, w, C) feature map and a (B, 1, C) cls token:
+
+* ``stacking='last'`` (V2): the features and cls token of each stage's last
+  block;
+* ``stacking='max_cls'`` (V1): each stage's elementwise max over its blocks
+  of patches + that block's cls token (a running max: no block's output is
+  kept), and the cls tokens of the last ``len(output_idx)`` blocks in
+  natural order.
+
+``ViTConfig.interpolate_offset`` (V1 builds its encoder with 0.1) resizes
+the position embedding with torch's explicit ``scale_factor`` semantics,
+(grid + offset) / pos_embed_size. Register tokens, SwiGLU and the other
+stacking modes are not ported yet.
 
 ``ViTBlock`` has the JAX block's two branches, chosen by the JAX rule
 ``_use_fused``: int8 GEMMs turn fusion off.
@@ -54,6 +64,7 @@ class ViTConfig:
     init_values: float = 1.0  # LayerScale
     output_idx: tuple[int, ...] = (5, 12, 18, 24)
     use_norm: bool = True
+    interpolate_offset: float = 0.0  # V1: 0.1, scale_factor semantics for the pos-embed resize
 
     @property
     def num_patches(self) -> int:
@@ -140,11 +151,12 @@ class DinoViT(nn.Module):
 
     def __init__(self, cfg: ViTConfig, stacking: str = "last"):
         super().__init__()
-        if stacking != "last":
-            raise NotImplementedError(f"stacking {stacking!r}: only 'last' is ported")
+        if stacking not in ("last", "max_cls"):
+            raise NotImplementedError(f"stacking {stacking!r}: only 'last' and 'max_cls' are ported")
         if cfg.num_register_tokens:
             raise NotImplementedError("register tokens are not ported")
         self.cfg = cfg
+        self.stacking = stacking
         c = cfg.embed_dim
         self.patch_embed = _PatchEmbed(cfg.patch_size, c)
         self.cls_token = nn.Parameter(torch.zeros(1, 1, c))
@@ -181,15 +193,32 @@ class DinoViT(nn.Module):
 
         pos = self.pos_embed
         patch_pos = pos[:, 1:].reshape(1, cfg.pos_embed_size, cfg.pos_embed_size, c)
-        # bicubic, antialias off, sized to the patch grid (V2 builds its
-        # encoder with interpolate_offset 0: no scale_factor semantics)
-        patch_pos = resize(patch_pos, (gh, gw), mode="bicubic", align_corners=False)
+        if (gh, gw) != (cfg.pos_embed_size, cfg.pos_embed_size):
+            # bicubic, antialias off, sized to the patch grid; with an
+            # offset, torch's scale_factor semantics (the source grid at
+            # pos_embed_size / (grid + offset))
+            off = cfg.interpolate_offset
+            scales = ((gh + off) / cfg.pos_embed_size, (gw + off) / cfg.pos_embed_size) if off else None
+            patch_pos = resize(patch_pos, (gh, gw), mode="bicubic", align_corners=False, scale_factors=scales)
         x = x + patch_pos.reshape(1, gh * gw, c).to(x.dtype)
         cls = (self.cls_token + pos[:, :1]).expand(b, 1, c).to(x.dtype)
         x = torch.cat([cls, x], dim=1)
 
         feats, cls_tokens = [], []
         ends = set(cfg.output_idx)
+        if self.stacking == "max_cls":
+            last = cfg.output_idx[-1]
+            stage_max = None
+            for i, block in enumerate(self.blocks[:last]):
+                x = block(x)
+                y = x[:, 1:] + x[:, :1]
+                stage_max = y if stage_max is None else torch.maximum(stage_max, y)
+                if i >= last - len(cfg.output_idx):
+                    cls_tokens.append(x[:, :1])
+                if i + 1 in ends:
+                    feats.append(stage_max.reshape(b, gh, gw, c))
+                    stage_max = None
+            return feats, cls_tokens
         for i, block in enumerate(self.blocks):
             x = block(x)
             if i + 1 in ends:

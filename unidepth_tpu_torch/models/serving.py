@@ -26,6 +26,11 @@ the build is seen at the next build (``set_serving_precision`` to
 
 The JAX logit audit (``audit_attention_logits``, ``serving_safe_softmax``)
 is not ported: the port's attention kernels keep the row max.
+
+UniDepthV1 takes only the pre-cast (``from_config(dtype=...)``): its int8
+mode needs ``calibrate_int8_stages`` first (the JAX
+``INT8_REQUIRES_CALIBRATION``) and the ConvNeXt encoder has none, so its
+``set_serving_precision('int8')`` raises (ROADMAP A5).
 """
 
 from __future__ import annotations

@@ -83,10 +83,22 @@ def resolve_device(device) -> torch.device:
         return torch.device(device)
     if not torch.cuda.is_available():
         raise RuntimeError(
-            "UniDepthV2: no CUDA device is available and no device was named; "
+            "no CUDA device is available and no device was named; "
             'pass device="cpu" to build the model on the CPU'
         )
     return torch.device("cuda")
+
+
+def trunc_normal(shape, std: float, g: torch.Generator) -> torch.Tensor:
+    """``std`` times a [-2, 2]-truncated standard normal, drawn from ``g``."""
+    t = torch.empty(shape)
+    nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=g)
+    return t * std
+
+
+def lecun_normal(shape, fan_in: int, g: torch.Generator) -> torch.Tensor:
+    """flax ``lecun_normal``: variance 1/fan_in of a [-2, 2]-truncated normal."""
+    return trunc_normal(shape, math.sqrt(1.0 / fan_in) / 0.87962566103423978, g)
 
 
 class UniDepthV2(ServingPrecisionMixin, nn.Module):
@@ -206,13 +218,10 @@ class UniDepthV2(ServingPrecisionMixin, nn.Module):
         drawn = {}
 
         def trunc(shape, std):
-            t = torch.empty(shape)
-            nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=g)
-            return t * std
+            return trunc_normal(shape, std, g)
 
         def lecun(shape, fan_in):
-            # flax lecun_normal: variance 1/fan_in of a [-2, 2]-truncated normal
-            return trunc(shape, math.sqrt(1.0 / fan_in) / 0.87962566103423978)
+            return lecun_normal(shape, fan_in, g)
 
         def put(p, value):
             p.copy_(value)

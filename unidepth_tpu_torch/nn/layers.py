@@ -15,12 +15,25 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from unidepth_tpu_torch.ops.attention import attention, sdpa
+from unidepth_tpu_torch.ops.fused_block import ln_dense, ln_dense_plain
 
 
 def layer_norm(norm: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
     """``norm`` applied in fp32, cast to the norm's parameter dtype."""
     y = F.layer_norm(x.float(), norm.normalized_shape, norm.weight.float(), norm.bias.float(), norm.eps)
     return y.to(norm.weight.dtype)
+
+
+def ln_linear_gelu(norm: nn.LayerNorm, linear: nn.Linear, x: torch.Tensor, use_kernels: bool = True) -> torch.Tensor:
+    """``GELU(linear(norm(x)))`` on channel-last ``x``: kernel K2
+    (``ops.fused_block.ln_dense``) where its shape gate holds (C % 32 == 0
+    and F % 128 == 0), else its plain version, the same function. The choice
+    is made by shape, before the call: the JAX package fuses wherever
+    ``ln_dense_supported`` holds (C % 16, F % 128), which K2 does not
+    cover."""
+    fits = linear.in_features % 32 == 0 and linear.out_features % 128 == 0
+    fn = ln_dense if use_kernels and fits else ln_dense_plain
+    return fn(x, linear.weight, linear.bias, norm.weight, norm.bias, norm.eps, "gelu")
 
 
 def split_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -87,6 +100,9 @@ class AttentionBlock(nn.Module):
         self.ls1 = LayerScale(dim, layer_scale) if layer_scale > 0.0 else None
         self.ls2 = LayerScale(dim, layer_scale) if layer_scale > 0.0 else None
 
+    def _attend(self, q, k, v):
+        return attention(q, k, v) if self.use_kernels else sdpa(q, k, v)
+
     def forward(self, x, context=None, pos_embed=None, pos_embed_context=None):
         context = x if context is None else context
         y = layer_norm(self.norm_attnx, x)
@@ -100,8 +116,7 @@ class AttentionBlock(nn.Module):
             q = q + split_heads(pos_embed.to(q.dtype), self.num_heads)
         if pos_embed_context is not None:
             k = k + split_heads(pos_embed_context.to(k.dtype), self.num_heads)
-        attn = attention(q, k, v) if self.use_kernels else sdpa(q, k, v)
-        attn = self.out(merge_heads(attn))
+        attn = self.out(merge_heads(self._attend(q, k, v)))
         if self.ls1 is not None:
             attn = self.ls1(attn)
         x = x + attn

@@ -1,5 +1,11 @@
-"""Upsampling stacks of the V2 depth head (counterpart of
-unidepth_tpu/nn/upsample.py). Maps are NCHW here."""
+"""Upsampling stacks of the depth heads (counterpart of
+unidepth_tpu/nn/upsample.py).
+
+V2's residual conv units and bilinear upsampler take NCHW maps. V1's
+``CvnxtBlock`` takes channel-last (B, H, W, C) maps, so its LN -> pwconv1
+-> GELU reads rows in place (kernel K2 on the card where its shape gate
+holds, ``nn.layers.ln_linear_gelu``); its 7x7 depthwise conv reads them as
+a channels-last NCHW view. ``ConvUpsample`` returns flat tokens."""
 
 from __future__ import annotations
 
@@ -8,6 +14,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from unidepth_tpu_torch.nn.conv import Conv2d
+from unidepth_tpu_torch.nn.layers import ln_linear_gelu
 from unidepth_tpu_torch.ops.resize import resize
 
 
@@ -55,3 +62,46 @@ class ResUpsampleBil(nn.Module):
         x = self.up(x)
         h, w = x.shape[-2:]
         return resize(x, (2 * h, 2 * w), mode="bilinear", align_corners=False, channel_last=False)
+
+
+class CvnxtBlock(nn.Module):
+    """ConvNeXt block of the V1 decoder on (B, H, W, C): 7x7 depthwise conv
+    (zeros), LN (eps 1e-5, torch's default) -> pwconv1 -> exact GELU,
+    pwconv2, layer scale (init 1), residual."""
+
+    def __init__(self, dim: int, expansion: int = 4):
+        super().__init__()
+        self.use_kernels = True
+        self.dwconv = nn.Conv2d(dim, dim, 7, padding=3, groups=dim)
+        self.norm = nn.LayerNorm(dim, eps=1e-5)
+        self.pwconv1 = nn.Linear(dim, expansion * dim)
+        self.pwconv2 = nn.Linear(expansion * dim, dim)
+        self.gamma = nn.Parameter(torch.ones(dim))
+
+    def forward(self, x):
+        y = self.dwconv(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        y = self.pwconv2(ln_linear_gelu(self.norm, self.pwconv1, y, self.use_kernels))
+        return x + y * self.gamma
+
+
+class ConvUpsample(nn.Module):
+    """V1 upsampler: two CvnxtBlocks, then a 1x1 conv to half the channels,
+    a 2x bilinear upsample with align_corners=True
+    (``nn.UpsamplingBilinear2d``) and a 3x3 conv. (B, h, w, C) -> (B, 4hw,
+    C/2) tokens."""
+
+    def __init__(self, hidden_dim: int, expansion: int = 4):
+        super().__init__()
+        self.convs = nn.ModuleList([CvnxtBlock(hidden_dim, expansion) for _ in range(2)])
+        half = hidden_dim // 2
+        self.up = nn.Sequential(
+            Conv2d(hidden_dim, half, kernel_size=1, padding=0),
+            nn.UpsamplingBilinear2d(scale_factor=2),
+            Conv2d(half, half, kernel_size=3),
+        )
+
+    def forward(self, x):
+        for conv in self.convs:
+            x = conv(x)
+        x = self.up(x.permute(0, 3, 1, 2))
+        return x.flatten(2).transpose(1, 2)

@@ -7,7 +7,7 @@ import math
 import numpy as np
 import torch
 
-__all__ = ["generate_fourier_features"]
+__all__ = ["generate_fourier_features", "position_embedding_sine"]
 
 
 def generate_fourier_features(
@@ -39,3 +39,28 @@ def generate_fourier_features(
     if cat_orig:
         out = torch.cat([out, x], dim=-1)
     return out
+
+
+def position_embedding_sine(h: int, w: int, num_pos_feats: int = 64, normalize: bool = False, device=None) -> torch.Tensor:
+    """DETR sine embedding of an unmasked (H, W) grid -> float32 (H, W,
+    2 * num_pos_feats): the row embedding, then the column one, each with
+    sin and cos interleaved, temperature 10000. Positions run 1..H and 1..W,
+    optionally normalised to (0, 2 pi]. Evaluated in float64 and rounded
+    once, as the JAX package does."""
+    y = np.arange(1, h + 1, dtype=np.float64)
+    x = np.arange(1, w + 1, dtype=np.float64)
+    if normalize:
+        y = y / (y[-1] + 1e-6) * 2.0 * math.pi
+        x = x / (x[-1] + 1e-6) * 2.0 * math.pi
+    dim_t = 10000.0 ** (2 * np.floor(np.arange(num_pos_feats) / 2) / num_pos_feats)
+
+    def interleave(p):  # (L, F): sin of the even columns beside cos of the odd ones
+        return np.stack([np.sin(p[:, 0::2]), np.cos(p[:, 1::2])], axis=2).reshape(p.shape[0], -1)
+
+    pos_y = interleave(y[:, None] / dim_t)
+    pos_x = interleave(x[:, None] / dim_t)
+    out = np.concatenate(
+        [np.broadcast_to(pos_y[:, None], (h, w, num_pos_feats)), np.broadcast_to(pos_x[None], (h, w, num_pos_feats))],
+        axis=-1,
+    )
+    return torch.as_tensor(out, dtype=torch.float32, device=device)
