@@ -110,6 +110,39 @@ fails (non-zero exit, no result line) without CUDA or outside a checkout.
    share; these join K1's, K2's and K3's records, as do the V1 paths'
    launch counts.
 
+9. The kernels' gradients, then V2 training. K1 at (8, 1531, 16 x 64), K2
+   at M = 12248 (C 1024, F 4096), K3 at (64, 1530, 64) (the training path's
+   shapes, 476 x 630) and K4 on the views of an (8, 1370, 3072) projection
+   (its int8 path): each kernel route's gradients (a random cotangent; the
+   launch forward on the Hopper body, the plain VJP backward, which
+   launches nothing) against the plain version's autograd in fp32 on the
+   same bf16 inputs at the bf16 gates (the elementwise atol scaled by
+   max(1, max |ref|): a gradient sums over rows), and the backward timed;
+   these join
+   the kernels' records as ``grad``. Then UniDepthV2 ViT-L/14 from
+   configs/config_v2_vitl14.json through ``build_trainer`` with no device
+   named (bf16 model, fp32 masters, moments and EMA on the card, random
+   weights from ``init_params(seed=0)``) and its training section (the five
+   losses, AdamW with its schedules, clipping 1.0, EMA every 10 steps), one
+   seeded ``collate``d Dummy batch of 2 x 8 images at 476 x 630:
+   (a) one micro-batch of its first 2 images, no update, on the kernel path
+   (K1 48, K2 48, K3 4: forward and the blocks' recompute, all on the
+   Hopper bodies) against the same weights on the fp32 plain path (no
+   launch): each loss slot's relative drift <= TRAIN_LOSS_GATE, each
+   parameter's gradient cosine >= TRAIN_COSINE_GATE (PERF.md section 2,
+   from tests/train_bf16_drift.py), and no gradient exactly where the fp32
+   path has none (the camera head: the given rays replace its prediction);
+   (b) one optimizer step: launches K1 96, K2 96, K3 8, all on the Hopper
+   bodies, K4 0 (``train_launches`` in the record); finite loss slots and
+   grad_norm; every parameter but the camera head's with a finite, non-zero
+   gradient (read from its first Adam moment) and moved; (c) 4 more steps
+   on the same batch: the total loss of step 5 below step 1, the EMA shadow
+   unmoved (it moves every 10th update), and after ``sync_model`` the int8
+   path's fp32 masters are the trained weights; (d) ms per step (median of
+   steps 3-5, host clock around a synchronize), images/s (16 a step) and
+   the peak of ``torch.cuda.max_memory_allocated``, beside the card's name
+   and power limit. A ``{"train": ...}`` line carries the figures.
+
 Each path's launch counts (and the Hopper-body counts of K1-K7) are set
 to 0 just before it runs and read just after. A K2 call
 counts once, though it launches its row statistics and its GEMM. The K6
@@ -177,6 +210,19 @@ V1_K2_SHAPES = {
 # layers_16 (8 heads of 64 an image) at ViT-L's and ConvNeXt-L's grids
 V1_K1_TOKENS = 33 * 44 + 1
 V1_K3_SHAPES = {"v1_vitl14": (BATCH * 8, 33 * 44, 64), "v1_cnvnxtl": (BATCH * 8, 28 * 38, 64)}
+# V2 training (configs/config_v2_vitl14.json): 8 images a micro-batch, 2
+# micro-batches a step, 480 x 640 floored to 476 x 630 (34 x 45 patches + cls)
+TRAIN_TOKENS = 34 * 45 + 1
+TRAIN_CHECK_BATCH = 2  # the micro-batch held against the fp32 plain path
+TRAIN_DESCENT_STEPS = 5
+# the train gate (PERF.md section 2, from tests/train_bf16_drift.py): each
+# loss slot's relative drift and each parameter's gradient cosine, bf16
+# kernel path against the fp32 plain path
+TRAIN_LOSS_GATE = 7e-3  # twice JAX's worst, 3.22e-3 (ViT-S/14), rounded up
+TRAIN_COSINE_GATE = 0.85  # 1 - twice (1 - JAX's worst, 0.9299 (the small test model)), rounded down
+# parameters the V2 loss gives no gradient, in JAX as here: the given rays
+# replace the camera head's prediction
+NO_GRADIENT = ("pixel_decoder.camera_layer.", "pixel_decoder.camera_token_adapter.")
 
 
 def log(*args):
@@ -358,6 +404,173 @@ def depth_against_plain(name, model_cls, config, rgb, depth, kernels, dev, gate=
     if not med <= gate:
         raise RuntimeError(f"{name}: depth median relative error {med} > {gate}")
     return ref
+
+
+def grad_phase(name, fn, plain, inputs, args, seed, wrapper):
+    """The kernel route's gradients (``fn``, which launches ``wrapper``'s
+    kernel once) against the plain version's autograd in fp32 on the same
+    bf16 inputs (``inputs`` require grad; the gradient of a random
+    cotangent), at the bf16 gates with the elementwise atol scaled by
+    max(1, max |ref|); the forward takes the Hopper body and the backward
+    launches nothing. Times the route's backward (CUDA events)."""
+    before = wrapper.launches, wrapper.hopper_launches
+    out = fn(*inputs, *args)
+    gen = torch.Generator(device=out.device).manual_seed(seed)
+    g = torch.randn(out.shape, generator=gen, device=out.device).to(out.dtype)
+    grads = torch.autograd.grad(out, inputs, g, retain_graph=True)
+    torch.cuda.synchronize()
+    if (wrapper.launches, wrapper.hopper_launches) != (before[0] + 1, before[1] + 1):
+        raise RuntimeError(f"{name}: the forward did not launch the Hopper body once, or the backward launched")
+    ref_inputs = [t.detach().float().requires_grad_() for t in inputs]
+    refs = torch.autograd.grad(plain(*ref_inputs, *args), ref_inputs, g.float())
+    errs, rms = [], []
+    for i, (got, ref) in enumerate(zip(grads, refs)):
+        # a gradient is a sum over rows (K2's weight over M = 12248): the
+        # elementwise atol scales with it, max(1, max |ref|), as K6's does
+        atol = TOL_BF16["atol"] * max(1.0, ref.abs().max().item())
+        errs.append(check_close(f"{name} grad {i} bf16", got, ref, rtol=TOL_BF16["rtol"], atol=atol))
+        rms.append(((got.float() - ref).norm() / ref.norm()).item())
+        if not rms[-1] <= REL_RMS_BF16:
+            raise RuntimeError(f"{name} grad {i} bf16: relative RMS error {rms[-1]:.3e} > {REL_RMS_BF16}")
+    del refs, ref_inputs
+    bwd_ms = time_ms(lambda: torch.autograd.grad(out, inputs, g, retain_graph=True), iters=3, reps=2, warmup=1)
+    log(f"{name} gradient: max_abs_err {max(errs):.3e}, rel_rms {max(rms):.3e} (bf16 gates); plain-VJP backward "
+        f"{bwd_ms:.3f} ms")
+    return {"max_abs_err": max(errs), "rel_rms": max(rms), "backward_ms": bwd_ms, "inputs": len(inputs)}
+
+
+def train_phase(config, kernels, none, smi, dev):
+    """UniDepthV2 ViT-L/14 training on the card (``build_trainer`` with no
+    device named). Returns (the launches of one optimizer step, the phase's
+    figures)."""
+    from unidepth_tpu_torch.datasets.dummy import Dummy
+    from unidepth_tpu_torch.datasets.loader import make_batch
+    from unidepth_tpu_torch.models.unidepthv2.model import UniDepthV2
+    from unidepth_tpu_torch.training.losses import build_losses
+    from unidepth_tpu_torch.training.step import forward_backward, to_device
+    from unidepth_tpu_torch.training.trainer import build_trainer, train_image_shape
+
+    tr = config["training"]
+    shape = train_image_shape(config)
+    batch_size, accum = tr["batch_size"], tr["nsteps_accumulation_gradient"]
+    t0 = time.perf_counter()
+    trainer = build_trainer(config, seed=SEED)  # no device named: the card
+    model, state = trainer.model, trainer.state
+    placed = {(p.device.type, p.dtype) for p in model.parameters()}
+    masters = {(t.device.type, t.dtype) for t in state.params.values()}
+    if placed != {("cuda", torch.bfloat16)} or masters != {("cuda", torch.float32)}:
+        raise RuntimeError(f"build_trainer placed the model on {placed} and the masters on {masters}")
+    log(f"trainer: ViT-L/14 {sum(t.numel() for t in state.params.values()) / 1e6:.1f} M trained params, bf16 model, "
+        f"fp32 masters, moments and EMA, built in {time.perf_counter() - t0:.1f} s")
+    batch = make_batch(Dummy(image_shape=shape, length=1024, seed=SEED), batch_size, accum,
+                       np.random.default_rng(SEED))
+    if batch["image"].shape != (accum, batch_size, *shape, 3):
+        raise RuntimeError(f"train batch {batch['image'].shape}")
+    losses = build_losses(config)
+    names = list(state.params)
+    camera = [n for n in names if n.startswith(NO_GRADIENT)]
+
+    # 3. one micro-batch of 2 images, no update: the kernel path (bf16)
+    # against the same weights on the fp32 plain path
+    micro = to_device({k: v[0, :TRAIN_CHECK_BATCH] for k, v in batch.items()}, dev)
+    weights = dict(model.named_parameters())
+    slots, micro_launches = run_path("train micro-batch (B=2), kernel path", kernels,
+                                     lambda: forward_backward(model, losses, micro))
+    per_micro = {"flash_attention_qkv": 24 * 2, "ln_dense": 24 * 2, "flash_attention": 4}  # forward + recompute
+    check_launches("train micro-batch", micro_launches,
+                   {**none, **per_micro, **{f"{k}/wgmma": v for k, v in per_micro.items()}})
+    grads = {n: (torch.zeros_like(state.params[n]) if weights[n].grad is None else weights[n].grad.float())
+             for n in names}
+    model.zero_grad(set_to_none=True)
+    ref_model = UniDepthV2.from_config(config, device=dev, dtype=torch.float32).init_params(seed=SEED)
+    ref_model.set_kernels(False)
+    ref_slots, ref_launches = run_path("train micro-batch (B=2), fp32 plain path", kernels,
+                                       lambda: forward_backward(ref_model, losses, micro))
+    if any(ref_launches.values()):
+        raise RuntimeError("the fp32 plain train path launched a kernel")
+    ref_weights = dict(ref_model.named_parameters())
+    drift = {k: abs(slots[k].item() - ref_slots[k].item()) / abs(ref_slots[k].item()) for k in slots}
+    cosines, zero = {}, []
+    for n in names:
+        ref = ref_weights[n].grad
+        got = grads[n]
+        if not torch.isfinite(got).all():
+            raise RuntimeError(f"train micro-batch: the gradient of {n} is not finite")
+        if ref is None or not ref.any():
+            zero.append(n)
+            if got.any():
+                raise RuntimeError(f"train micro-batch: {n} has a gradient where the fp32 plain path has none")
+            continue
+        cosines[n] = (torch.dot(got.flatten().double(), ref.flatten().double())
+                      / (got.double().norm() * ref.double().norm()).clamp_min(1e-300)).item()
+    del ref_model, ref_weights, grads
+    model.zero_grad(set_to_none=True)
+    worst = min(cosines, key=cosines.get)
+    log(f"train micro-batch kernel vs fp32 plain: loss slots {', '.join(f'{k} {v:.3e}' for k, v in drift.items())} "
+        f"relative drift (gate {TRAIN_LOSS_GATE}); smallest gradient cosine {cosines[worst]:.6f} ({worst}; gate "
+        f"{TRAIN_COSINE_GATE}), median {statistics.median(cosines.values()):.6f} over {len(cosines)} parameters")
+    if sorted(zero) != sorted(camera):
+        raise RuntimeError(f"parameters without a gradient: {sorted(set(zero) ^ set(camera))} differ from the camera head's")
+    if max(drift.values()) > TRAIN_LOSS_GATE:
+        raise RuntimeError(f"train loss slots drift {drift} past the gate {TRAIN_LOSS_GATE}")
+    if cosines[worst] < TRAIN_COSINE_GATE:
+        raise RuntimeError(f"gradient cosine {cosines[worst]} of {worst} below the gate {TRAIN_COSINE_GATE}")
+
+    # 1. the launches of one optimizer step; 2. finiteness and coverage
+    start = {n: t.clone() for n, t in state.params.items()}
+    torch.cuda.reset_peak_memory_stats(dev)
+    metrics, launches = run_path("train step (2 x 8 images)", kernels, lambda: trainer.step(batch, (SEED, 0)))
+    state = trainer.state
+    expected = {k: v * accum for k, v in per_micro.items()}
+    check_launches("train step", launches, {**none, **expected, **{f"{k}/wgmma": v for k, v in expected.items()}})
+    values = {k: v.item() for k, v in metrics.items()}
+    if not all(np.isfinite(list(values.values()))):
+        raise RuntimeError(f"train step metrics not finite: {values}")
+    for n in names:  # mu = (1 - b1) x the clipped gradient after one step
+        mu = state.opt_state.mu[n]
+        if not torch.isfinite(mu).all() or bool(mu.any()) == (n in camera):
+            raise RuntimeError(f"train step: {n} gradient finite {bool(torch.isfinite(mu).all())}, "
+                               f"non-zero {bool(mu.any())}, expected non-zero {n not in camera}")
+        if n not in camera and torch.equal(state.params[n], start[n]):
+            raise RuntimeError(f"train step: {n} did not move")
+    log(f"train step 1: {values}; every parameter but the camera head's {len(camera)} has a finite, non-zero "
+        "gradient, and moved")
+
+    # 4. descent over 5 steps on the same batch; 5. ms a step (steps 3-5)
+    totals, step_ms = [values["total"]], []
+    for i in range(1, TRAIN_DESCENT_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = trainer.step(batch, (SEED, i))
+        totals.append(metrics["total"].item())
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated(dev)
+    state = trainer.state
+    if not all(np.isfinite(totals)) or not totals[-1] < totals[0]:
+        raise RuntimeError(f"train loss did not descend over {TRAIN_DESCENT_STEPS} steps: {totals}")
+    n_updates = state.ema.num_updates
+    stale = [n for n in names if not torch.equal(state.ema.shadow[n], start[n])]
+    if n_updates != TRAIN_DESCENT_STEPS or stale:  # the shadow moves every 10th update only
+        raise RuntimeError(f"EMA after {TRAIN_DESCENT_STEPS} steps: {n_updates} updates, moved {stale[:3]}")
+    # the trainer hands the trained fp32 weights to the model: int8 serving
+    # then quantizes them, not the init-time masters
+    trainer.sync_model()
+    for lin, (w, b) in model._int8_weights().items():
+        trained = state.params[f"pixel_encoder.{lin}.weight"], state.params[f"pixel_encoder.{lin}.bias"]
+        if not (torch.equal(w.to(dev), trained[0]) and torch.equal(b.to(dev), trained[1])):
+            raise RuntimeError(f"int8 serving's master of {lin} is not the trained weight")
+    ms = statistics.median(step_ms[-3:])
+    rate = batch_size * accum / (ms / 1e3)
+    log(f"train descent: total {', '.join(f'{t:.4f}' for t in totals)}; EMA {n_updates} updates, shadow unmoved "
+        f"(every 10th); int8 masters follow the trained weights")
+    log(f"train step (ViT-L/14, {accum} x {batch_size} images at {shape[0]}x{shape[1]}, bf16 + fp32 masters): "
+        f"{ms:.1f} ms/step median of steps {', '.join(f'{t:.1f}' for t in step_ms[-3:])}, {rate:.2f} images/s, "
+        f"peak {peak / 2**30:.2f} GiB allocated ({smi})")
+    figures = {"ms_per_step": ms, "images_per_s": rate, "peak_gib": peak / 2**30, "totals": totals,
+               "loss_drift": drift, "min_grad_cosine": cosines[worst], "min_grad_cosine_param": worst}
+    del trainer, model, state, start, batch, micro
+    torch.cuda.empty_cache()
+    return launches, figures
 
 
 def main():
@@ -791,6 +1004,38 @@ def main():
                      what=f"B={BATCH} {V1_SHAPE[0]}x{V1_SHAPE[1]} (depth, points, intrinsics)")
         del model_v1
 
+    # --- K1-K4 gradients at the training shapes, then V2 ViT-L/14 training ---
+    def train_grad_inputs(seed, *shapes, std=1.0, mean=0.0):
+        gen.manual_seed(seed)
+        return [randn(*s, dtype=torch.bfloat16, std=std, mean=mean).requires_grad_() for s in shapes]
+
+    qkv_t = train_grad_inputs(21, (BATCH, TRAIN_TOKENS, 3 * 1024))
+    m["flash_attention_qkv"]["grad"] = grad_phase(
+        f"K1 ({BATCH}, {TRAIN_TOKENS}, 16 x 64)", flash_attention_qkv, flash_attention_qkv_plain, qkv_t,
+        (16, 64**-0.5), 21, flash_attention_qkv)
+    gen.manual_seed(22)
+    k2_t = [randn(BATCH * TRAIN_TOKENS, 1024, dtype=torch.bfloat16, std=2.0, mean=0.5),
+            randn(4096, 1024, dtype=torch.bfloat16, std=1024**-0.5), randn(4096, dtype=torch.bfloat16, std=0.1),
+            randn(1024, dtype=torch.bfloat16, std=0.1, mean=1.0), randn(1024, dtype=torch.bfloat16, std=0.1)]
+    m["ln_dense"]["grad"] = grad_phase(f"K2 (M {BATCH * TRAIN_TOKENS}, C 1024, F 4096)", ln_dense, ln_dense_plain,
+                                       [t.requires_grad_() for t in k2_t], (1e-6, "gelu"), 22, ln_dense)
+    k3_t = train_grad_inputs(23, *[(BATCH * 8, TRAIN_TOKENS - 1, 64)] * 3)
+    m["flash_attention"]["grad"] = grad_phase(f"K3 ({BATCH * 8}, {TRAIN_TOKENS - 1}, 64)", flash_attention,
+                                              flash_attention_plain, k3_t, (64**-0.5,), 23, flash_attention)
+    # K4 on the three channel slices of one projection, its int8 path's call
+    k4_base = train_grad_inputs(24, (BATCH, 1370, 3 * 1024))
+
+    def k4_views(base):
+        return flash_attention_packed(*base.split(1024, dim=-1), 16, 64**-0.5)
+
+    def k4_views_plain(base):
+        return flash_attention_packed_plain(*base.split(1024, dim=-1), 16, 64**-0.5)
+
+    m["flash_attention_packed"]["grad"] = grad_phase(
+        f"K4 ({BATCH}, 1370, 16 x 64) views", k4_views, k4_views_plain, k4_base, (), 24, flash_attention_packed)
+    del qkv_t, k2_t, k3_t, k4_base
+    train_launches, train_figures = train_phase(config, kernels, none, smi, dev)
+
     # each kernel's count from the path it serves: K1-K3 the bf16 ViT-L path,
     # K4 the int8 one, K5 its own call, K6 and K7 the harness
     path_launches = {
@@ -823,6 +1068,7 @@ def main():
     # the V1 paths' counts beside the V2 main path's
     for name in ("flash_attention_qkv", "ln_dense", "flash_attention"):
         m[name]["v1_launches"] = {label: counts[name] for label, counts in v1_launches.items()}
+        m[name]["train_launches"] = train_launches[name]  # one optimizer step, 2 micro-batches
     record = [
         {"name": name, "route": "cuda", "source": f"unidepth_tpu_torch/csrc/{src}", "replaces": rep, "body": body,
          "launches": path_launches[name],
@@ -830,6 +1076,7 @@ def main():
          "library": library}
         for name, (src, rep, body, library) in sources.items()
     ]
+    log(json.dumps({"train": train_figures}))
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s, the build included")
     log(json.dumps({"kernels": record}))
     log(json.dumps({"ok": True, "device": {

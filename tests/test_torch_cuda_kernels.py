@@ -887,3 +887,76 @@ def test_v1_infer_on_the_card(dev, name):
     assert all(torch.isfinite(out[k]).all() for k in out) and (out["depth"] > 0).all()
     rel = ((out["depth"] - ref["depth"]).abs() / ref["depth"].abs()).flatten()
     assert rel.median().item() <= 8e-2
+
+
+# the training path's shapes (UniDepthV2 ViT-L/14, B = 8 at 476 x 630: 34 x 45
+# patches + cls = 1531 tokens): K1 on the (8, 1531, 3072) projection, K2 at M
+# = 12248, K3 on the decoder's (64, 1530, 64); K4 at its int8 serving shape
+TRAIN_GRAD_CASES = {
+    "k1": lambda rng: ((rng.standard_normal((8, 1531, 3 * 1024)),), (16, 64**-0.5)),
+    "k2": lambda rng: ((rng.standard_normal((8 * 1531, 1024)) * 2 + 0.5, rng.standard_normal((4096, 1024)) / 32,
+                        rng.standard_normal(4096) * 0.1, 1 + 0.1 * rng.standard_normal(1024),
+                        0.1 * rng.standard_normal(1024)), (1e-6, "gelu")),
+    "k3": lambda rng: (tuple(rng.standard_normal((64, 1530, 64)) for _ in range(3)), (64**-0.5,)),
+    "k4": lambda rng: (tuple(rng.standard_normal((8, 1370, 1024)) for _ in range(3)), (16, 64**-0.5)),
+}
+TRAIN_GRAD_FNS = {
+    "k1": (flash_attention_qkv, flash_attention_qkv_plain),
+    "k2": (ln_dense, ln_dense_plain),
+    "k3": (flash_attention, flash_attention_plain),
+    "k4": (flash_attention_packed, flash_attention_packed_plain),
+}
+
+
+@pytest.mark.parametrize("name", list(TRAIN_GRAD_CASES))
+def test_kernel_gradient_matches_plain_autograd(dev, name):
+    """The kernel route's gradients (bf16 inputs: the launch forward, the
+    plain VJP backward in the plain version's dtypes) against the plain
+    version's autograd in fp32 on the same bf16 inputs, at the bf16 gates
+    with the elementwise atol scaled by max(1, max |ref|) (a gradient sums
+    over rows: K2's weight over 12,248); the backward launches no kernel,
+    and the forward took the Hopper body."""
+    kernel, plain = TRAIN_GRAD_FNS[name]
+    rng = np.random.default_rng(20)
+    arrays, args = TRAIN_GRAD_CASES[name](rng)
+    inputs = [_t(a, dev, torch.bfloat16).requires_grad_() for a in arrays]
+    before = kernel.launches, kernel.hopper_launches
+    out = kernel(*inputs, *args)
+    assert (kernel.launches, kernel.hopper_launches) == (before[0] + 1, before[1] + 1)
+    g = _t(rng.standard_normal(out.shape), dev, torch.bfloat16)
+    grads = torch.autograd.grad(out, inputs, g)
+    torch.cuda.synchronize()
+    assert (kernel.launches, kernel.hopper_launches) == (before[0] + 1, before[1] + 1)
+    ref_inputs = [t.detach().float().requires_grad_() for t in inputs]
+    refs = torch.autograd.grad(plain(*ref_inputs, *args), ref_inputs, g.float())
+    for got, ref in zip(grads, refs):
+        assert got.dtype == torch.bfloat16
+        torch.testing.assert_close(got.float(), ref, rtol=1.6e-2, atol=1e-2 * max(1.0, ref.abs().max().item()))
+        assert ((got.float() - ref).norm() / ref.norm()).item() <= REL_RMS_BF16
+
+
+def test_v2_train_step_on_the_card(dev):
+    """UniDepthV2 at full ViT-L/14 width, the encoder cut to 4 blocks, one
+    optimizer step of 2 micro-batches of 2 images (SelfDistill pairs them)
+    at 448 x 448 (1024 tokens, so the decoder takes K3) from
+    ``build_trainer`` with no device named: K1 and K2 4 + 4 (forward and
+    recompute) a micro-batch, K3 4, all on their Hopper bodies; finite
+    losses, the parameters moved."""
+    from unidepth_tpu_torch.datasets.dummy import Dummy
+    from unidepth_tpu_torch.datasets.loader import make_batch
+    from unidepth_tpu_torch.training.trainer import build_trainer
+
+    cfg = json.loads((Path(__file__).resolve().parents[1] / "configs" / "config_v2_vitl14.json").read_text())
+    cfg["model"]["pixel_encoder"].update(depth=4, output_idx=[1, 2, 3, 4])
+    trainer = build_trainer(cfg, seed=0)
+    assert {(p.device.type, p.dtype) for p in trainer.model.parameters()} == {("cuda", torch.bfloat16)}
+    batch = make_batch(Dummy(image_shape=(448, 448), length=8), 2, 2, np.random.default_rng(0))
+    before = {n: p.clone() for n, p in trainer.state.params.items()}
+    counted = (flash_attention_qkv, ln_dense, flash_attention, flash_attention_packed)
+    for fn in counted:
+        fn.launches = fn.hopper_launches = 0
+    metrics = trainer.step(batch, 0)
+    torch.cuda.synchronize()
+    assert [(fn.launches, fn.hopper_launches) for fn in counted] == [(16, 16), (16, 16), (8, 8), (0, 0)]
+    assert all(torch.isfinite(v) for v in metrics.values())
+    assert any(not torch.equal(p, before[n]) for n, p in trainer.state.params.items())

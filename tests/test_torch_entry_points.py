@@ -57,3 +57,42 @@ def test_from_pretrained_passes_device_and_dtype(no_card, tmp_path):
     for key, value in loaded.state_dict().items():
         assert value.device.type == "cpu" and value.dtype == torch.bfloat16, key
         assert torch.equal(value, want[key].to(torch.bfloat16)), key
+
+
+def test_trainer_without_a_card_raises_naming_cpu(no_card):
+    from unidepth_tpu_torch.training.trainer import build_trainer
+
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        build_trainer({**CFG, "training": {}})
+
+
+def test_trainer_unnamed_device_is_the_card(monkeypatch):
+    """With a card and no device named, the trainer builds its model there
+    (the build is stopped before it touches CUDA)."""
+    from unidepth_tpu_torch.training import trainer
+
+    class Stop(Exception):
+        pass
+
+    asked = []
+
+    def from_config(config, device=None, dtype=None):
+        asked.append((device, dtype))
+        raise Stop
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(trainer.UniDepthV2, "from_config", from_config)
+    with pytest.raises(Stop):
+        trainer.build_trainer({**CFG, "training": {}})
+    assert asked == [(torch.device("cuda"), torch.float32)]  # fp32 masters first, then the compute dtype
+
+
+def test_encode_decode_runs_where_the_model_is(no_card):
+    """``encode_decode`` takes the batch to the model's device and dtype: a
+    model built on the CPU trains there, from numpy-made tensors."""
+    model = UniDepthV2.from_config({**CFG, "model": {**CFG["model"], "pixel_encoder": {
+        **CFG["model"]["pixel_encoder"], "depth": 4, "output_idx": [1, 2, 3, 4]}}}, device="cpu").init_params(seed=0)
+    image = torch.randn(1, 28, 28, 3, dtype=torch.float64)
+    out = model.encode_decode(image)
+    assert out["depth"].shape == (1, 28, 28, 1) and out["depth"].dtype == torch.float32
+    assert out["depth"].requires_grad

@@ -11,6 +11,11 @@ kernels back to (out, in), turns ``patch_kernel`` (p*p*3, C) back into the
 conv (C, 3, p, p), turns HWIO conv and (in, k, k, out) ConvTranspose
 kernels back into torch's layouts, and reshapes V2's ``level_embeds`` and
 ResidualConvUnit gammas.
+
+``from_jax_train_state`` carries a JAX ``TrainState`` across: the params,
+the Adam ``mu`` and ``nu`` (param-shaped trees, so ``from_jax_params`` maps
+them, as it maps gradients: the mapping is linear per leaf), the EMA shadow
+and its count, and the step.
 """
 
 from __future__ import annotations
@@ -20,7 +25,8 @@ from typing import Mapping
 import numpy as np
 import torch
 
-__all__ = ["conv_upsample_state_dict", "convnext_state_dict", "decoder_state_dict", "encoder_state_dict", "from_jax_params", "v1_decoder_state_dict"]
+__all__ = ["conv_upsample_state_dict", "convnext_state_dict", "decoder_state_dict", "encoder_state_dict", "from_jax_params",
+           "from_jax_train_state", "v1_decoder_state_dict"]
 
 
 def _t(a) -> torch.Tensor:
@@ -256,3 +262,39 @@ def from_jax_params(params: Mapping, config: dict) -> dict[str, torch.Tensor]:
         return {**encoder, **v1_decoder_state_dict(params["decoder"], "pixel_decoder.")}
     num_levels = len(model["pixel_decoder"].get("depths", (2, 2, 2)))
     return {**encoder, **decoder_state_dict(params["decoder"], num_levels, "pixel_decoder.")}
+
+
+def _adam_state(tree):
+    """The optax ``ScaleByAdamState`` (count, mu, nu) inside an optimizer
+    state, found by its fields."""
+    if hasattr(tree, "mu") and hasattr(tree, "nu"):
+        return tree
+    for child in tree if isinstance(tree, (tuple, list)) else ():
+        found = _adam_state(child)
+        if found is not None:
+            return found
+    return None
+
+
+def from_jax_train_state(state, config: dict, names=None):
+    """JAX ``TrainState`` (params, optax ``opt_state`` holding a
+    ``ScaleByAdamState``, ``EMAState``, step) -> the port's ``TrainState``
+    on the CPU. ``names``: the model's parameter names, in its order; the
+    other keys (buffers, such as V2's ``level_embeds``) are left out."""
+    from unidepth_tpu_torch.training.ema import EMAState
+    from unidepth_tpu_torch.training.optim import AdamWState
+    from unidepth_tpu_torch.training.step import TrainState
+
+    def tree(t):
+        sd = from_jax_params(t, config)
+        return sd if names is None else {n: sd[n] for n in names}
+
+    adam = _adam_state(state.opt_state)
+    if adam is None:
+        raise ValueError("opt_state holds no Adam state (mu, nu)")
+    return TrainState(
+        params=tree(state.params),
+        opt_state=AdamWState(count=int(np.asarray(adam.count)), mu=tree(adam.mu), nu=tree(adam.nu)),
+        ema=EMAState(shadow=tree(state.ema.shadow), num_updates=int(np.asarray(state.ema.num_updates))),
+        step=int(np.asarray(state.step)),
+    )

@@ -30,17 +30,28 @@ stacking modes are not ported yet.
 On CPU tensors the kernels' plain versions run; ``use_kernels=False`` pins
 the plain versions on any device. Every LayerNorm here uses eps 1e-6
 (DINOv2 builds all its norms so).
+
+Under autograd (training) each block runs under
+``torch.utils.checkpoint`` (non-reentrant): its activations are recomputed
+in the backward, the counterpart of the JAX ``nn.remat`` blocks, so K1 and
+K2 launch twice a block per micro-batch. ``forward(image, generator)`` with
+``drop_path_rate > 0`` applies stochastic depth at the JAX ramp
+``linspace(0, rate, depth)``: two per-sample keep masks a block (one a
+residual branch), drawn from ``generator`` before the block runs, so the
+recompute sees the same draw.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
-from unidepth_tpu_torch.nn.layers import LayerScale, layer_norm
+from unidepth_tpu_torch.nn.layers import LayerScale, drop_path, layer_norm
 from unidepth_tpu_torch.ops.flash_attention import (
     flash_attention_packed,
     flash_attention_packed_plain,
@@ -65,6 +76,7 @@ class ViTConfig:
     output_idx: tuple[int, ...] = (5, 12, 18, 24)
     use_norm: bool = True
     interpolate_offset: float = 0.0  # V1: 0.1, scale_factor semantics for the pos-embed resize
+    drop_path_rate: float = 0.0  # stochastic depth at train time, a linear per-block ramp
 
     @property
     def num_patches(self) -> int:
@@ -111,7 +123,9 @@ class ViTBlock(nn.Module):
         """int8 GEMMs: the block's linears are QuantLinears (``DinoViT.quantize``)."""
         return isinstance(self.attn.qkv, QuantLinear)
 
-    def forward(self, x):
+    def forward(self, x, keep_masks=None, keep: float = 1.0):
+        """``keep_masks``: None, or (2, B) bools, the stochastic-depth draw
+        of the attention and MLP branches at keep probability ``keep``."""
         c = x.shape[-1]
         scale = (c // self.num_heads) ** -0.5
         # the JAX rule _use_fused (dinov2.py:113-135): int8 GEMMs turn the
@@ -127,6 +141,8 @@ class ViTBlock(nn.Module):
         attn = self.attn.proj(attn)
         if self.ls1 is not None:
             attn = self.ls1(attn)
+        if keep_masks is not None:
+            attn = drop_path(attn, keep_masks[0], keep)
         x = x + attn
         n2, fc1 = self.norm2, self.mlp.fc1
         if fused:
@@ -137,6 +153,8 @@ class ViTBlock(nn.Module):
         y = self.mlp.fc2(y)
         if self.ls2 is not None:
             y = self.ls2(y)
+        if keep_masks is not None:
+            y = drop_path(y, keep_masks[1], keep)
         return x + y
 
 
@@ -183,8 +201,28 @@ class DinoViT(nn.Module):
         )
         return quantize_linear_tree(self, prefixes=prefixes, weights=weights) if prefixes else self
 
-    def forward(self, image: torch.Tensor):
-        """image: (B, H, W, 3), H and W multiples of the patch size."""
+    def _blocks(self, x, generator):
+        """Yield each block's output in turn: checkpointed under autograd,
+        with the stochastic-depth draw when ``generator`` is given and the
+        rate is positive."""
+        rates = np.linspace(0.0, self.cfg.drop_path_rate, self.cfg.depth)
+        use_dp = generator is not None and self.cfg.drop_path_rate > 0.0
+        for block, rate in zip(self.blocks, rates):
+            keep, masks = 1.0 - float(rate), None
+            if use_dp and rate > 0.0:
+                u = torch.rand((2, x.shape[0]), generator=generator, device=generator.device)
+                masks = (u < keep).to(x.device)
+            if torch.is_grad_enabled():
+                # the masks are inputs, so no RNG state needs restoring
+                x = checkpoint(block, x, masks, keep, use_reentrant=False, preserve_rng_state=False)
+            else:
+                x = block(x, masks, keep)
+            yield x
+
+    def forward(self, image: torch.Tensor, generator: torch.Generator | None = None):
+        """image: (B, H, W, 3), H and W multiples of the patch size.
+        ``generator`` turns stochastic depth on (training) when the
+        config's ``drop_path_rate`` is positive."""
         cfg = self.cfg
         b, h, w, _ = image.shape
         gh, gw = h // cfg.patch_size, w // cfg.patch_size
@@ -209,8 +247,7 @@ class DinoViT(nn.Module):
         if self.stacking == "max_cls":
             last = cfg.output_idx[-1]
             stage_max = None
-            for i, block in enumerate(self.blocks[:last]):
-                x = block(x)
+            for i, x in zip(range(last), self._blocks(x, generator)):
                 y = x[:, 1:] + x[:, :1]
                 stage_max = y if stage_max is None else torch.maximum(stage_max, y)
                 if i >= last - len(cfg.output_idx):
@@ -219,8 +256,7 @@ class DinoViT(nn.Module):
                     feats.append(stage_max.reshape(b, gh, gw, c))
                     stage_max = None
             return feats, cls_tokens
-        for i, block in enumerate(self.blocks):
-            x = block(x)
+        for i, x in enumerate(self._blocks(x, generator)):
             if i + 1 in ends:
                 out = layer_norm(self.norm, x) if self.norm is not None else x
                 cls_tokens.append(out[:, :1])

@@ -10,7 +10,10 @@ Compute dtype is the parameters' dtype: ``from_config`` puts the model in
 bf16 on CUDA and float32 on the CPU (the JAX package's rule), and the JAX
 serving pre-cast of the parameters is ``module.to(dtype)`` here.
 ``set_serving_precision('int8')`` (``models/serving.py``) makes ``infer()``
-run the encoder with int8 GEMMs, quantized from fp32 weights. The
+run the encoder with int8 GEMMs, quantized from fp32 weights.
+``encode_decode`` is the differentiable train forward on a normalised batch
+(the encoder checkpointed block by block, no serving cache, no
+``inference_mode``); ``get_params_info`` gives the optimizer's groups. The
 ``attention_logit_bound`` config key is read and kept; it selects nothing,
 because the port's attention kernels keep the row max.
 """
@@ -157,6 +160,9 @@ class UniDepthV2(ServingPrecisionMixin, nn.Module):
             output_idx=tuple(pe.get("output_idx", vit.output_idx if vit else (3, 6, 9, 12))),
             num_register_tokens=pe.get("num_register_tokens", 0),
             use_norm=pe.get("use_norm", False),
+            # the reference merges the training section into the encoder's
+            # config, so drop_path comes from either
+            drop_path_rate=pe.get("drop_path", config.get("training", {}).get("drop_path", 0.0)),
         )
         sc = config.get("data", {}).get("augmentations", {}).get("shape_constraints")
         shape_constraints = None
@@ -343,6 +349,24 @@ class UniDepthV2(ServingPrecisionMixin, nn.Module):
         }
         return self._postprocess(core, pads, padded, factor, out_key)
 
+    def encode_decode(self, image, rays_gt=None, generator: torch.Generator | None = None) -> dict:
+        """The train forward on a normalised batch (B, H, W, 3), H and W
+        multiples of 14, moved to the model's device and dtype. Returns the
+        decoder's outputs plus 'points' and 'depth' (fp32, channel-last).
+        ``rays_gt`` (B, H*W, 3) replaces the predicted rays in the depth
+        head; ``generator`` turns on stochastic depth where the config has
+        ``drop_path`` > 0."""
+        p = next(self.parameters())
+        _, h, w, _ = image.shape
+        feats, cls_tokens = self.pixel_encoder(image.to(p.device, p.dtype), generator=generator)
+        if rays_gt is not None:
+            rays_gt = rays_gt.to(p.device)
+        out = self.pixel_decoder(feats, cls_tokens, (h, w), rays_gt=rays_gt)
+        rays = out["rays"].reshape(-1, h, w, 3).float()
+        out["points"] = rays * out["radius"]
+        out["depth"] = out["points"][..., 2:3]
+        return out
+
     def _postprocess(self, core, pads, padded, factor, outputs=None):
         """Resize network-resolution maps back to the padded input grid, strip
         the pads, renormalise the rays and de-scale the intrinsics."""
@@ -376,3 +400,16 @@ class UniDepthV2(ServingPrecisionMixin, nn.Module):
         if outputs is not None:
             res = {k: res[k] for k in outputs}
         return res
+
+
+def get_params_info(model: UniDepthV2, config: dict):
+    """The optimizer's groups (the JAX ``get_params_info``): per parameter
+    name, the lr multiplier and the weight-decay flag of
+    ``training.optim``."""
+    from unidepth_tpu_torch.training.optim import lr_scale_tree, wd_mask_tree
+
+    tr = config.get("training", {})
+    enc_lr = config["model"]["pixel_encoder"].get("lr", 2e-6)
+    params = dict(model.named_parameters())
+    scales = lr_scale_tree(params, enc_lr / tr.get("lr", 1e-4), tr.get("ld", 1.0), model.encoder_cfg.depth)
+    return scales, wd_mask_tree(params)

@@ -36,6 +36,14 @@ def ln_linear_gelu(norm: nn.LayerNorm, linear: nn.Linear, x: torch.Tensor, use_k
     return fn(x, linear.weight, linear.bias, norm.weight, norm.bias, norm.eps, "gelu")
 
 
+def drop_path(x: torch.Tensor, keep_mask: torch.Tensor, keep: float) -> torch.Tensor:
+    """Stochastic depth over the batch axis (the JAX ``drop_path``): samples
+    whose ``keep_mask`` entry is False lose the branch, the others are
+    scaled by 1 / ``keep``."""
+    mask = keep_mask.reshape(-1, *(1,) * (x.ndim - 1))
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 def split_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
     b, n, c = x.shape
     return x.reshape(b, n, num_heads, c // num_heads).transpose(1, 2)

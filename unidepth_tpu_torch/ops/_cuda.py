@@ -10,6 +10,9 @@ raises: there is no fallback to the plain PyTorch versions.
 
 Every pointer and the stream cross the C boundary as ``c_void_p``, and every
 entry point returns the CUDA error of its launch, which ``check`` raises on.
+``plain_vjp`` is the backward every kernel's ``torch.autograd.Function``
+shares: the JAX package's ``custom_vjp`` policy of recomputing the plain
+formulation and taking its VJP.
 """
 
 from __future__ import annotations
@@ -202,3 +205,23 @@ def require_cuda(name: str, *tensors: torch.Tensor) -> None:
             raise ValueError(f"{name}: unsupported dtype {t.dtype} (float32 or bfloat16)")
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: base pointer is not 16-byte aligned")
+
+
+def wide(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in float32, or as it is when wider: the plain versions compute
+    in at least float32, and float64 stays float64 (``gradcheck``)."""
+    return t if t.dtype == torch.float64 else t.float()
+
+
+def plain_vjp(fn, saved, needs, g):
+    """The VJP of ``fn(*saved)`` for the cotangent ``g``: ``fn`` (a kernel's
+    plain version) recomputed from the saved inputs under autograd. Returns
+    one gradient per saved tensor, None where ``needs`` is False."""
+    inputs = [None if t is None else t.detach().requires_grad_(need) for t, need in zip(saved, needs)]
+    wanted = [t for t, need in zip(inputs, needs) if need]
+    if not wanted:
+        return (None,) * len(inputs)
+    with torch.enable_grad():
+        out = fn(*inputs)
+    grads = iter(torch.autograd.grad(out, wanted, g))
+    return tuple(next(grads) if need else None for need in needs)

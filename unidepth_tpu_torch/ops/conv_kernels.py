@@ -122,15 +122,8 @@ class _Conv3x3(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        needs = ctx.needs_input_grad[:3]
-        inputs = [
-            None if t is None else t.detach().requires_grad_(need)
-            for t, need in zip(ctx.saved_tensors, needs)
-        ]
-        with torch.enable_grad():
-            out = conv3x3_lowchannel_plain(*inputs, ctx.padding_mode)
-        grads = iter(torch.autograd.grad(out, [t for t, need in zip(inputs, needs) if need], g))
-        return (*(next(grads) if need else None for need in needs), None)
+        fn = lambda x, w, bias: conv3x3_lowchannel_plain(x, w, bias, ctx.padding_mode)  # noqa: E731
+        return (*_cuda.plain_vjp(fn, ctx.saved_tensors, ctx.needs_input_grad[:3], g), None)
 
 
 def conv3x3_lowchannel(x, w, bias=None, padding_mode: str = "zeros", rows: int = 8):

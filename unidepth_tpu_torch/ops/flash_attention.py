@@ -41,7 +41,16 @@ designs).
 A CPU tensor takes the plain version. A CUDA tensor launches a kernel, or
 raises when it cannot: nothing falls back. ``launches`` on each wrapper
 counts the kernel launches it made; ``hopper_launches`` counts those of the
-Hopper body among them.
+Hopper body among them. Both count forward launches only.
+
+Gradients: each kernel route is a ``torch.autograd.Function`` whose forward
+is the launch and whose backward (``_flash_attention_qkv_bwd``,
+``_flash_attention_bwd``, ``_flash_attention_packed_bwd``) is the VJP of the
+plain version recomputed from the saved inputs: the counterpart of the JAX
+``custom_vjp``s (``_bwd_qkv``, ``_bwd``, ``_bwd_packed``), which take
+``jax.vjp`` of the XLA formulation. It materialises the N x N weights in
+fp32, as the JAX backward does; a flash backward kernel is a speed item,
+not part of the port.
 """
 
 from __future__ import annotations
@@ -71,11 +80,11 @@ HOPPER_ONE_HEAD_DIMS = (32, 48)  # the Hopper body's narrower rows, for a map of
 
 def flash_attention_plain(q, k, v, scale: float):
     """softmax(scale * q k^T) v over the last two axes, scores and softmax in
-    fp32, the weights cast to v's dtype before the product (as the TPU
-    kernel does)."""
-    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    fp32 (float64 stays float64), the weights cast to v's dtype before the
+    product (as the TPU kernel does)."""
+    logits = torch.matmul(_cuda.wide(q), _cuda.wide(k).transpose(-1, -2)) * scale
     w = torch.softmax(logits, dim=-1)
-    return torch.matmul(w.to(v.dtype).float(), v.float()).to(v.dtype)
+    return torch.matmul(_cuda.wide(w.to(v.dtype)), _cuda.wide(v)).to(v.dtype)
 
 
 def flash_attention_qkv_plain(qkv, num_heads: int, scale: float):
@@ -147,9 +156,34 @@ def flash_attention_qkv(qkv: torch.Tensor, num_heads: int, scale: float) -> torc
     return _qkv_kernel(qkv, num_heads, scale)
 
 
+def _flash_attention_qkv_bwd(qkv, g, num_heads, scale):
+    """K1's backward (the JAX ``_bwd_qkv``): the VJP of
+    ``flash_attention_qkv_plain`` at ``qkv``. The softmax scale sits inside
+    it, so the gradient of the q columns carries ``scale``."""
+    return _cuda.plain_vjp(lambda t: flash_attention_qkv_plain(t, num_heads, scale), (qkv,), (True,), g)[0]
+
+
+class _FlashAttentionQKV(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, qkv, num_heads, scale):
+        ctx.save_for_backward(qkv)
+        ctx.num_heads, ctx.scale = num_heads, scale
+        return _qkv_launch(qkv, num_heads, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        (qkv,) = ctx.saved_tensors
+        return _flash_attention_qkv_bwd(qkv, g, ctx.num_heads, ctx.scale), None, None
+
+
 def _qkv_kernel(qkv, num_heads, scale):
-    """K1's launch, on whatever device ``qkv`` is (the CPU tests call it with
-    the library stubbed to see the route)."""
+    """K1's route, on whatever device ``qkv`` is (the CPU tests call it with
+    the library stubbed to see the route): the launch under autograd."""
+    return _FlashAttentionQKV.apply(qkv, num_heads, scale)
+
+
+def _qkv_launch(qkv, num_heads, scale):
+    """K1's launch."""
     if not qkv.is_contiguous():
         raise ValueError("flash_attention_qkv: qkv must be contiguous")
     b, n, c3 = qkv.shape
@@ -180,9 +214,32 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: fl
     return _flash_kernel(q, k, v, scale)
 
 
+def _flash_attention_bwd(q, k, v, g, scale, needs=(True, True, True)):
+    """K3's backward (the JAX ``_bwd``): the VJP of ``flash_attention_plain``."""
+    return _cuda.plain_vjp(lambda *t: flash_attention_plain(*t, scale), (q, k, v), needs, g)
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.scale = scale
+        return _flash_launch(q, k, v, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (*_flash_attention_bwd(*ctx.saved_tensors, g, ctx.scale, ctx.needs_input_grad[:3]), None)
+
+
 def _flash_kernel(q, k, v, scale):
-    """K3's launch, on whatever device the tensors are: each (BH, N, D)
-    tensor is a map with BH batches of one head, row stride D."""
+    """K3's route, on whatever device the tensors are: the launch under
+    autograd."""
+    return _FlashAttention.apply(q, k, v, scale)
+
+
+def _flash_launch(q, k, v, scale):
+    """K3's launch: each (BH, N, D) tensor is a map with BH batches of one
+    head, row stride D."""
     if not (q.dtype == k.dtype == v.dtype):
         raise ValueError("flash_attention: q, k and v must share a dtype")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
@@ -231,8 +288,33 @@ def flash_attention_packed(
     return _packed_kernel(q, k, v, num_heads, scale)
 
 
+def _flash_attention_packed_bwd(q, k, v, g, num_heads, scale, needs=(True, True, True)):
+    """K4's backward (the JAX ``_bwd_packed``): the VJP of
+    ``flash_attention_packed_plain``."""
+    return _cuda.plain_vjp(lambda *t: flash_attention_packed_plain(*t, num_heads, scale), (q, k, v), needs, g)
+
+
+class _FlashAttentionPacked(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, num_heads, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.num_heads, ctx.scale = num_heads, scale
+        return _packed_launch(q, k, v, num_heads, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        grads = _flash_attention_packed_bwd(*ctx.saved_tensors, g, ctx.num_heads, ctx.scale, ctx.needs_input_grad[:3])
+        return (*grads, None, None)
+
+
 def _packed_kernel(q, k, v, num_heads, scale):
-    """K4's launch in the packed regime, on whatever device the tensors are."""
+    """K4's route in the packed regime, on whatever device the tensors are:
+    the launch under autograd."""
+    return _FlashAttentionPacked.apply(q, k, v, num_heads, scale)
+
+
+def _packed_launch(q, k, v, num_heads, scale):
+    """K4's launch in the packed regime."""
     b, nq, c = q.shape
     nk, d = k.shape[1], c // num_heads
     if not (q.dtype == k.dtype == v.dtype):

@@ -23,7 +23,12 @@ fp32), which needs C % 32 == 0 and F % 128 == 0.
 A CPU tensor takes the plain version. A CUDA tensor launches a kernel or
 raises: nothing falls back. ``ln_dense.launches`` counts calls that
 launched a kernel (a Hopper call counts once), ``ln_dense.hopper_launches``
-those that ran the Hopper body.
+those that ran the Hopper body; both count forward launches only.
+
+The kernel route is a ``torch.autograd.Function``: its backward,
+``_ln_dense_bwd``, is the VJP of ``ln_dense_plain`` recomputed from the
+saved inputs, the counterpart of the JAX ``custom_vjp`` ``_bwd``, which
+takes ``jax.vjp`` of ``_xla_ln_dense``.
 """
 
 from __future__ import annotations
@@ -40,11 +45,12 @@ HOPPER_MAX_C = 2048  # gamma and beta are staged beside the ring in shared memor
 
 
 def ln_dense_plain(x, weight, bias, gamma, beta, eps: float, activation: str | None = None):
-    """``act(LayerNorm(x; gamma, beta, eps) @ weight.T + bias)``: LN in fp32,
-    cast to the weight's dtype for the product, bias and GELU in fp32, the
-    result in x's dtype."""
-    y = F.layer_norm(x.float(), x.shape[-1:], gamma.float(), beta.float(), eps)
-    out = F.linear(y.to(weight.dtype), weight).float() + bias.float()
+    """``act(LayerNorm(x; gamma, beta, eps) @ weight.T + bias)``: LN in fp32
+    (float64 stays float64), cast to the weight's dtype for the product,
+    bias and GELU in fp32, the result in x's dtype."""
+    wide = _cuda.wide
+    y = F.layer_norm(wide(x), x.shape[-1:], wide(gamma), wide(beta), eps)
+    out = wide(F.linear(y.to(weight.dtype), weight)) + wide(bias)
     if activation == "gelu":
         out = F.gelu(out)
     return out.to(x.dtype)
@@ -69,9 +75,34 @@ def ln_dense(
     return _ln_dense_kernel(x, weight, bias, gamma, beta, eps, activation)
 
 
+def _ln_dense_bwd(x, weight, bias, gamma, beta, g, eps, activation, needs=(True,) * 5):
+    """K2's backward (the JAX ``_bwd``): the VJP of ``ln_dense_plain``."""
+    fn = lambda *t: ln_dense_plain(*t, eps, activation)  # noqa: E731
+    return _cuda.plain_vjp(fn, (x, weight, bias, gamma, beta), needs, g)
+
+
+class _LnDense(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, weight, bias, gamma, beta, eps, activation):
+        ctx.save_for_backward(x, weight, bias, gamma, beta)
+        ctx.eps, ctx.activation = eps, activation
+        return _ln_dense_launch(x, weight, bias, gamma, beta, eps, activation)
+
+    @staticmethod
+    def backward(ctx, g):
+        grads = _ln_dense_bwd(*ctx.saved_tensors, g, ctx.eps, ctx.activation, ctx.needs_input_grad[:5])
+        return (*grads, None, None)
+
+
 def _ln_dense_kernel(x, weight, bias, gamma, beta, eps, activation):
-    """K2's launches, on whatever device the tensors are (the CPU tests call
-    it with the library stubbed to see the route)."""
+    """K2's route, on whatever device the tensors are (the CPU tests call it
+    with the library stubbed to see the route): the launches under
+    autograd."""
+    return _LnDense.apply(x, weight, bias, gamma, beta, eps, activation)
+
+
+def _ln_dense_launch(x, weight, bias, gamma, beta, eps, activation):
+    """K2's launches."""
     c = x.shape[-1]
     f = weight.shape[0]
     if weight.shape != (f, c):
