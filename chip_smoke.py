@@ -141,7 +141,39 @@ fails (non-zero exit, no result line) without CUDA or outside a checkout.
    path's fp32 masters are the trained weights; (d) ms per step (median of
    steps 3-5, host clock around a synchronize), images/s (16 a step) and
    the peak of ``torch.cuda.max_memory_allocated``, beside the card's name
-   and power limit. A ``{"train": ...}`` line carries the figures.
+   and power limit; (e) one validation under the EMA shadow after the steps
+   (``Trainer.validate``, 8 Dummy images at 476 x 630): K1 24, K2 24, K3 4
+   on the Hopper bodies, finite metrics, and the live bf16 weights and the
+   fp32 masters bitwise what they were before it. A ``{"train": ...}`` line
+   carries the figures.
+
+10. Evaluation (configs/config_v2_vitl14.json, random weights). (a) The six
+   camera models on the card, B = 8 seeded cameras each at 518 x 518 in
+   fp32: ``get_rays`` against the port's CPU result (atol RAY_ATOL on unit
+   rays) and ``project(unproject(uv))`` against the CPU's and against uv
+   (atol ROUND_TRIP_ATOL pixels); a mixed ``BatchCamera`` of all 48 equals
+   its members run one type at a time, bit for bit. (b) ``infer()`` of 8
+   seeded 518 x 518 images prompted by a mixed ``BatchCamera`` (Pinhole,
+   Fisheye624, OpenCV, MEI, two each): K1 24, K2 24, K3 4 on the Hopper
+   bodies; depth against the fp32 plain path (median relative error <=
+   1e-2); images/s. Then the 6-view surround, six pinhole cameras in one B =
+   6 batch: the same launches, finite outputs, rays that differ between
+   views. (c) ``validate()`` with the 3-D metrics on Dummy at 476 x 630, B =
+   8, 4 batches: every key of DEPTH_METRICS plus chamfer and F1, finite; K1
+   24, K2 24, K3 4 a batch on the Hopper bodies; ms a batch (host clock,
+   second run); on one batch's depth maps the card's depth metrics against
+   the CPU's (rtol EVAL_CPU_RTOL; the metrics that count pixels within one
+   pixel a sample; the ssi-rescaled ones at SSI_CPU_TOL), and ``eval_3d`` on two samples' clouds
+   (strided again by 2, so the CPU takes them) against the CPU's (Chamfer
+   rtol 1e-4, F1 atol 1e-3: the squared distances' float32 cancellation,
+   summed in another order); a perfect prediction's depth metrics (d1 1,
+   arel 0) and 3-D metrics (Chamfer within the float32 cancellation, F1 at
+   the formula's maximum, (T - 1) / T for T thresholds); ``eval_3d``'s ms a
+   batch. (d) ``scripts_torch/eval.py --dummy-data --eval-3d --max-iters 2``
+   and ``scripts_torch/demo.py`` (random weights) as subprocesses on the
+   card: both exit 0, the eval's metrics finite, the demo prints an ARel. A
+   ``{"eval": ...}`` line carries the figures; K1-K3's records gain
+   ``eval_launches``.
 
 Each path's launch counts (and the Hopper-body counts of K1-K7) are set
 to 0 just before it runs and read just after. A K2 call
@@ -157,6 +189,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 from pathlib import Path
@@ -223,6 +256,23 @@ TRAIN_COSINE_GATE = 0.85  # 1 - twice (1 - JAX's worst, 0.9299 (the small test m
 # parameters the V2 loss gives no gradient, in JAX as here: the given rays
 # replace the camera head's prediction
 NO_GRADIENT = ("pixel_decoder.camera_layer.", "pixel_decoder.camera_token_adapter.")
+# evaluation: validate() on Dummy at the training shape (476 x 630), 4
+# batches of 8; the cameras and the camera-prompted infer() at 518 x 518
+EVAL_BATCH, EVAL_BATCHES = 8, 4
+CAMERA_TYPES = ("Pinhole", "EUCM", "Spherical", "OpenCV", "Fisheye624", "MEI")
+PROMPT_TYPES = ("Pinhole", "Fisheye624", "OpenCV", "MEI")  # the prompted infer()'s mixed batch, two each
+RAY_ATOL = 1e-4  # unit rays, card against CPU
+# pixels, card against CPU and against uv: float32 spacing at 518 is 6.1e-5,
+# and on the CPU alone the round trip is 1.2e-4 (the Newton models) to 4.0e-4
+# (Spherical's asin near its poles) off its float64 value at these cameras
+ROUND_TRIP_ATOL = 1e-3
+EVAL_CPU_RTOL = 1e-5  # the depth metrics on the same maps, card against CPU
+COUNTING_METRICS = ("d1", "d2", "d3", "tau", "d_auc", "d1_si", "tau_si")  # within one pixel a sample
+# d1_ssi, tau_ssi and arel_ssi: their scale and shift come from float32 sums
+# over 299,880 pixels, which the card adds in another order (~1e-6 relative
+# apart), so tens of pixels near the 3% and 25% thresholds may flip: 1e-4 is
+# 30 pixels (the first card call saw 3)
+SSI_CPU_TOL = 1e-4
 
 
 def log(*args):
@@ -444,7 +494,7 @@ def train_phase(config, kernels, none, smi, dev):
     device named). Returns (the launches of one optimizer step, the phase's
     figures)."""
     from unidepth_tpu_torch.datasets.dummy import Dummy
-    from unidepth_tpu_torch.datasets.loader import make_batch
+    from unidepth_tpu_torch.datasets.loader import eval_batches, make_batch
     from unidepth_tpu_torch.models.unidepthv2.model import UniDepthV2
     from unidepth_tpu_torch.training.losses import build_losses
     from unidepth_tpu_torch.training.step import forward_backward, to_device
@@ -552,6 +602,26 @@ def train_phase(config, kernels, none, smi, dev):
     stale = [n for n in names if not torch.equal(state.ema.shadow[n], start[n])]
     if n_updates != TRAIN_DESCENT_STEPS or stale:  # the shadow moves every 10th update only
         raise RuntimeError(f"EMA after {TRAIN_DESCENT_STEPS} steps: {n_updates} updates, moved {stale[:3]}")
+    # (e) one validation under the EMA shadow: afterwards the live weights
+    # and the masters are bitwise what they were
+    live = {n: p.detach().clone() for n, p in model.named_parameters()}
+    masters = {n: t.clone() for n, t in state.params.items()}
+    val_data = Dummy(image_shape=shape, length=batch_size, seed=SEED + 1)
+    val, val_launches = run_path("validation under the EMA shadow", kernels,
+                                 lambda: trainer.validate({"Dummy": eval_batches(val_data, batch_size)}))
+    per_forward = {"flash_attention_qkv": 24, "ln_dense": 24, "flash_attention": 4}  # no recompute
+    check_launches("validation under the EMA shadow", val_launches,
+                   {**none, **per_forward, **{f"{k}/wgmma": v for k, v in per_forward.items()}})
+    if not all(np.isfinite(list(val["Dummy"].values()))):
+        raise RuntimeError(f"validation under the EMA shadow: {val}")
+    moved = [n for n, p in model.named_parameters() if not torch.equal(p, live[n])]
+    moved += [n for n, t in state.params.items() if not torch.equal(t, masters[n])]
+    if moved:
+        raise RuntimeError(f"validation under the EMA shadow changed {moved[:3]}")
+    log(f"validation under the EMA shadow ({batch_size} images): d1 {val['Dummy']['d1']:.4f}, arel "
+        f"{val['Dummy']['arel']:.4f}; the live bf16 weights and the fp32 masters bitwise unchanged")
+    del live, masters
+
     # the trainer hands the trained fp32 weights to the model: int8 serving
     # then quantizes them, not the init-time masters
     trainer.sync_model()
@@ -567,10 +637,211 @@ def train_phase(config, kernels, none, smi, dev):
         f"{ms:.1f} ms/step median of steps {', '.join(f'{t:.1f}' for t in step_ms[-3:])}, {rate:.2f} images/s, "
         f"peak {peak / 2**30:.2f} GiB allocated ({smi})")
     figures = {"ms_per_step": ms, "images_per_s": rate, "peak_gib": peak / 2**30, "totals": totals,
-               "loss_drift": drift, "min_grad_cosine": cosines[worst], "min_grad_cosine_param": worst}
+               "loss_drift": drift, "min_grad_cosine": cosines[worst], "min_grad_cosine_param": worst,
+               "ema_validation": val["Dummy"]}
     del trainer, model, state, start, batch, micro
     torch.cuda.empty_cache()
     return launches, figures
+
+
+def smoke_camera_params(name, b, side, rng):
+    """``b`` seeded cameras of model ``name`` for a side x side image,
+    (b, P) float32: focal lengths 380-460 px around a centred principal
+    point, mild distortion."""
+    f = rng.uniform(380, 460, (b, 1))
+    base = np.concatenate([f, f * rng.uniform(0.98, 1.02, (b, 1)), side / 2 + rng.uniform(-9, 9, (b, 2))], 1)
+    if name == "Pinhole":
+        extra = np.zeros((b, 0))
+    elif name == "EUCM":  # alpha, beta
+        extra = np.stack([rng.uniform(0.5, 0.65, b), rng.uniform(0.9, 1.1, b)], 1)
+    elif name == "Spherical":  # W, H, hfov / 2, vfov / 2
+        base[:, :2] = rng.uniform(80, 90, (b, 2))
+        extra = np.stack([np.full(b, side), np.full(b, side), rng.uniform(0.8, 1.0, b) * np.pi / 2,
+                          rng.uniform(0.35, 0.5, b) * np.pi], 1)
+    elif name in ("OpenCV", "Fisheye624"):  # k1, k2, k3..k6, p1, p2, s1..s4
+        extra = np.zeros((b, 12))
+        extra[:, 0], extra[:, 1] = rng.uniform(-0.05, 0.08, b), rng.uniform(-0.02, 0.02, b)
+        extra[:, 6:8], extra[:, 8:] = rng.uniform(-2e-3, 2e-3, (b, 2)), rng.uniform(-1e-3, 1e-3, (b, 4))
+    else:  # MEI: k1, k2, p1, p2, xi
+        extra = np.stack([rng.uniform(-0.05, 0.05, b), rng.uniform(-0.01, 0.01, b), rng.uniform(-1e-3, 1e-3, b),
+                          rng.uniform(-1e-3, 1e-3, b), rng.uniform(0.3, 0.9, b)], 1)
+    return np.concatenate([base, extra], 1).astype(np.float32)
+
+
+def cameras_phase(dev, side=SIDE):
+    """The six camera models on the card against the port's CPU results,
+    and a mixed BatchCamera against its members. Returns the cameras on the
+    card, by model, and the largest errors."""
+    from unidepth_tpu_torch.geometry import cameras
+    from unidepth_tpu_torch.geometry.coords import coords_grid
+
+    rng = np.random.default_rng(SEED)
+    uv_cpu = coords_grid(side, side).expand(EVAL_BATCH, side, side, 2)
+    uv = uv_cpu.to(dev)
+    on_card, errors = {}, {}
+    for name in CAMERA_TYPES:
+        params = torch.from_numpy(smoke_camera_params(name, EVAL_BATCH, side, rng))
+        cpu, card = getattr(cameras, name)(params), getattr(cameras, name)(params.to(dev))
+        ray_err = (card.get_rays(side, side).cpu() - cpu.get_rays(side, side)).abs().max().item()
+        round_trip = card.project(card.unproject(uv)).cpu()
+        rt_err = (round_trip - cpu.project(cpu.unproject(uv_cpu))).abs().max().item()
+        uv_err = (round_trip - uv_cpu).abs().max().item()
+        log(f"camera {name} (B={EVAL_BATCH}, {side}x{side}) card vs CPU: rays max_abs_err {ray_err:.3e} (atol "
+            f"{RAY_ATOL}), project(unproject(uv)) {rt_err:.3e}, against uv {uv_err:.3e} (atol {ROUND_TRIP_ATOL} px)")
+        if not (ray_err <= RAY_ATOL and rt_err <= ROUND_TRIP_ATOL and uv_err <= ROUND_TRIP_ATOL):
+            raise RuntimeError(f"camera {name} on the card: rays {ray_err}, round trip {rt_err}, against uv {uv_err}")
+        on_card[name] = card
+        errors[name] = {"rays": ray_err, "round_trip": rt_err, "round_trip_vs_uv": uv_err}
+    mixed = cameras.BatchCamera.concat([on_card[n] for n in CAMERA_TYPES])
+    rays = mixed.get_rays(side, side)
+    xyz = rays * 2.5
+    projected = mixed.project(xyz)
+    for i, name in enumerate(CAMERA_TYPES):
+        rows = slice(i * EVAL_BATCH, (i + 1) * EVAL_BATCH)
+        if not (torch.equal(rays[rows], on_card[name].get_rays(side, side))
+                and torch.equal(projected[rows], on_card[name].project(xyz[rows]))):
+            raise RuntimeError(f"mixed BatchCamera: the {name} members differ from {name} run alone")
+    log(f"mixed BatchCamera of {mixed.batch} ({', '.join(CAMERA_TYPES)}): rays and projections equal to each "
+        "model run alone, bit for bit")
+    del rays, xyz, projected
+    return on_card, errors
+
+
+def eval_phase(config, kernels, none, smi, dev):
+    """Evaluation on the card: the cameras, camera-prompted infer() and
+    the 6-view surround, validate() with the 3-D metrics, and the eval and
+    demo CLIs. Returns (the launches of one validate() batch, of one
+    prompted infer(), the figures)."""
+    from unidepth_tpu_torch.datasets.dummy import Dummy
+    from unidepth_tpu_torch.datasets.loader import eval_batches
+    from unidepth_tpu_torch.geometry.cameras import BatchCamera, Pinhole
+    from unidepth_tpu_torch.models.unidepthv2.model import UniDepthV2
+    from unidepth_tpu_torch.training.trainer import train_image_shape
+    from unidepth_tpu_torch.utils.evaluation import DEPTH_METRICS, eval_3d, eval_depth
+    from unidepth_tpu_torch.utils.misc import normalize_rgb
+    from unidepth_tpu_torch.utils.validation import points_3d, validate
+
+    figures = {}
+    on_card, figures["camera_errors"] = cameras_phase(dev)
+    per_forward = {"flash_attention_qkv": 24, "ln_dense": 24, "flash_attention": 4}
+    expected = {**none, **per_forward, **{f"{k}/wgmma": v for k, v in per_forward.items()}}
+
+    # (b) camera-prompted infer() and the 6-view surround
+    model = UniDepthV2.from_config(config).init_params(seed=SEED).eval()  # no device named: the card
+    rgb = np.random.default_rng(SEED).integers(0, 256, (EVAL_BATCH, SIDE, SIDE, 3), dtype=np.uint8)
+    prompt = BatchCamera.concat([type(on_card[n])(on_card[n].params[:2]) for n in PROMPT_TYPES])
+    out, infer_launches = run_path("camera-prompted infer()", kernels, lambda: model.infer(rgb, camera=prompt))
+    check_launches("camera-prompted infer()", infer_launches, expected)
+    check_outputs("camera-prompted infer()", out)
+    depth_against_plain("ViT-L/14 camera-prompted", UniDepthV2, config, rgb, out["depth"], kernels, dev,
+                        camera=prompt, outputs=("depth", "intrinsics"))
+    del out
+    figures["camera_infer_images_per_s"] = images_per_s(
+        "bf16 camera-prompted", lambda: model.infer(rgb, camera=prompt, outputs=("depth",)), smi,
+        what=f"depth-only B={EVAL_BATCH} {SIDE}x{SIDE}, a BatchCamera of {', '.join(PROMPT_TYPES)}")
+    surround = Pinhole(torch.tensor([[400.0 + 20 * i, 400.0 + 20 * i, SIDE / 2 + 4 * i, SIDE / 2 - 3 * i]
+                                     for i in range(6)], device=dev))
+    out6, launches6 = run_path("6-view surround infer()", kernels, lambda: model.infer(rgb[:6], camera=surround))
+    check_launches("6-view surround infer()", launches6, expected)
+    check_outputs("6-view surround infer()", out6, 6)
+    spread = (out6["rays"][0] - out6["rays"][5]).abs().max().item()
+    if not spread > 1e-3:
+        raise RuntimeError(f"6-view surround: the rays of views 0 and 5 differ by {spread} only")
+    log(f"6-view surround (six pinhole cameras, one B=6 batch): rays of views 0 and 5 differ by {spread:.3e}")
+    del out6
+
+    # (c) validate() on Dummy at the training shape, with the 3-D metrics
+    shape = train_image_shape(config)
+    data = Dummy(image_shape=shape, length=EVAL_BATCH * EVAL_BATCHES, seed=SEED)
+    run = lambda: validate(model, {"Dummy": eval_batches(data, EVAL_BATCH)}, with_3d=True)  # noqa: E731
+    results, val_launches = run_path(f"validate() ({EVAL_BATCHES} batches of {EVAL_BATCH} at {shape[0]}x{shape[1]})",
+                                     kernels, run)
+    check_launches("validate()", val_launches, {k: v * EVAL_BATCHES for k, v in expected.items()})
+    metrics = results["Dummy"]
+    if set(metrics) != {*DEPTH_METRICS, "chamfer", "F1"} or not all(np.isfinite(list(metrics.values()))):
+        raise RuntimeError(f"validate(): metrics {metrics}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    figures["validate_ms_per_batch"] = (time.perf_counter() - t0) * 1e3 / EVAL_BATCHES
+    # one batch's depth maps: the card's metrics against the CPU's
+    batch = next(eval_batches(data, EVAL_BATCH))
+    image, rays, gt, mask = (torch.as_tensor(batch[k]).to(dev) for k in ("image", "rays", "depth", "depth_mask"))
+    with torch.inference_mode():
+        pred = model.encode_decode(normalize_rgb(image), rays_gt=rays)["depth"].float()
+    card, cpu = eval_depth(gt, pred, mask), eval_depth(gt.cpu(), pred.cpu(), mask.cpu())
+    one_pixel = 1.0 / mask[0].sum().item()  # Dummy: every pixel valid
+    for k in DEPTH_METRICS:
+        # a metric that counts pixels may flip one a sample; the ssi family
+        # rescales by a least-squares fit from float32 sums over every pixel,
+        # summed in another order on the card
+        if k.endswith("_ssi"):
+            tol = dict(rtol=SSI_CPU_TOL, atol=SSI_CPU_TOL)
+        else:
+            tol = dict(rtol=EVAL_CPU_RTOL, atol=one_pixel if k in COUNTING_METRICS else 1e-6)
+        torch.testing.assert_close(card[k].cpu(), cpu[k], **tol,
+                                   msg=lambda msg, k=k: f"eval_depth {k}, card against CPU: {msg}")
+    figures["ssi_card_vs_cpu"] = {k: (card[k].cpu() - cpu[k]).abs().max().item() for k in DEPTH_METRICS
+                                  if k.endswith("_ssi")}
+    thresholds = torch.exp(torch.linspace(float(np.log(0.01)), float(np.log(80.0 / 20.0)), 100, device=dev))
+    pts = points_3d(rays, gt, pred, mask)
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eval_3d(pts["points_gt"], pts["points_pred"], pts["mask3d"], thresholds)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    figures["eval_3d_ms_per_batch"] = statistics.median(times)
+    sub = [pts[k][:2, ::2, ::2] for k in ("points_gt", "points_pred", "mask3d")]
+    card3, cpu3 = eval_3d(*sub, thresholds), eval_3d(*(t.cpu() for t in sub), thresholds.cpu())
+    torch.testing.assert_close(card3["chamfer"].cpu(), cpu3["chamfer"], rtol=1e-4, atol=0)
+    torch.testing.assert_close(card3["F1"].cpu(), cpu3["F1"], rtol=0, atol=1e-3)
+    perfect = eval_depth(gt, gt, mask)
+    perfect3 = eval_3d(pts["points_gt"], pts["points_gt"], pts["mask3d"], thresholds)
+    chamfer_bound = (8 * torch.finfo(torch.float32).eps) ** 0.5 * pts["points_gt"].norm(dim=-1).max().item()
+    f1_max = (len(thresholds) - 1) / len(thresholds)
+    if not (perfect["d1"].eq(1).all() and perfect["arel"].eq(0).all()
+            and (perfect3["chamfer"] <= chamfer_bound).all() and (perfect3["F1"] - f1_max).abs().max() < 1e-6):
+        raise RuntimeError(f"a perfect prediction: d1 {perfect['d1']}, arel {perfect['arel']}, chamfer "
+                           f"{perfect3['chamfer']} (bound {chamfer_bound}), F1 {perfect3['F1']} (max {f1_max})")
+    figures["validate"] = metrics
+    log(f"validate() metrics: {json.dumps(metrics)}")
+    log(f"validate(): {figures['validate_ms_per_batch']:.1f} ms a batch of {EVAL_BATCH} at {shape[0]}x{shape[1]} with "
+        f"the 3-D metrics, eval_3d {figures['eval_3d_ms_per_batch']:.1f} ms of it ({smi}); card = CPU on the same "
+        f"maps; a perfect prediction: chamfer <= {perfect3['chamfer'].max().item():.3e} (bound {chamfer_bound:.3e}), "
+        f"F1 {f1_max}")
+    del model, image, rays, gt, mask, pred, pts, sub
+    torch.cuda.empty_cache()
+
+    # (d) the CLIs, each its own process on the card
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, argv in (
+            ("eval", ["--config-file", str(CONFIG), "--dummy-data", "--eval-3d", "--max-iters", "2"]),
+            ("demo", ["--output", str(Path(tmp) / "demo.png")]),
+        ):
+            t0 = time.perf_counter()
+            proc = subprocess.run([sys.executable, str(ROOT / "scripts_torch" / f"{name}.py"), *argv], cwd=ROOT,
+                                  capture_output=True, text=True, timeout=600)
+            if proc.returncode != 0:
+                raise RuntimeError(f"scripts_torch/{name}.py exited {proc.returncode}:\n{proc.stdout[-3000:]}\n"
+                                   f"{proc.stderr[-3000:]}")
+            lines = proc.stdout.strip().splitlines()
+            if name == "eval":
+                cli = json.loads(lines[-1])["eval"]["Dummy"]
+                if set(cli) != {*DEPTH_METRICS, "chamfer", "F1"} or not all(np.isfinite(list(cli.values()))):
+                    raise RuntimeError(f"scripts_torch/eval.py: metrics {cli}")
+                figures["eval_cli"] = cli
+            else:
+                arel = [line for line in lines if line.startswith("ARel: ")]
+                if not arel:
+                    raise RuntimeError(f"scripts_torch/demo.py printed no ARel:\n{proc.stdout[-3000:]}")
+                figures["demo_arel"] = arel[0]
+            log(f"scripts_torch/{name}.py {' '.join(argv)}: exit 0 in {time.perf_counter() - t0:.1f} s"
+                + (f", {arel[0]} (random weights)" if name == "demo" else ""))
+    per_batch = {k: v // EVAL_BATCHES for k, v in val_launches.items()}
+    return per_batch, infer_launches, figures
 
 
 def main():
@@ -1035,6 +1306,7 @@ def main():
         f"K4 ({BATCH}, 1370, 16 x 64) views", k4_views, k4_views_plain, k4_base, (), 24, flash_attention_packed)
     del qkv_t, k2_t, k3_t, k4_base
     train_launches, train_figures = train_phase(config, kernels, none, smi, dev)
+    eval_launches, camera_infer_launches, eval_figures = eval_phase(config, kernels, none, smi, dev)
 
     # each kernel's count from the path it serves: K1-K3 the bf16 ViT-L path,
     # K4 the int8 one, K5 its own call, K6 and K7 the harness
@@ -1069,6 +1341,7 @@ def main():
     for name in ("flash_attention_qkv", "ln_dense", "flash_attention"):
         m[name]["v1_launches"] = {label: counts[name] for label, counts in v1_launches.items()}
         m[name]["train_launches"] = train_launches[name]  # one optimizer step, 2 micro-batches
+        m[name]["eval_launches"] = {"validate_batch": eval_launches[name], "camera_infer": camera_infer_launches[name]}
     record = [
         {"name": name, "route": "cuda", "source": f"unidepth_tpu_torch/csrc/{src}", "replaces": rep, "body": body,
          "launches": path_launches[name],
@@ -1077,6 +1350,7 @@ def main():
         for name, (src, rep, body, library) in sources.items()
     ]
     log(json.dumps({"train": train_figures}))
+    log(json.dumps({"eval": eval_figures}))
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s, the build included")
     log(json.dumps({"kernels": record}))
     log(json.dumps({"ok": True, "device": {

@@ -2,7 +2,8 @@
 """Train UniDepthV2 with the PyTorch port on one device.
 
     python3 scripts_torch/train.py --config-file configs/config_v2_vitl14.json --dummy-data --steps N \\
-        [--seed 13] [--image-shape H W] [--checkpoint-dir checkpoints] [--resume PATH] [--device cpu]
+        [--seed 13] [--image-shape H W] [--checkpoint-dir checkpoints] [--resume PATH] [--device cpu] \\
+        [--val-interval N] [--val-iters 25]
 
 The counterpart of scripts/train.py for one process and one device: the
 card unless ``--device`` names another (without a card and without
@@ -10,7 +11,10 @@ card unless ``--device`` names another (without a card and without
 config's training section (losses, AdamW with its schedules, clipping, EMA,
 ``batch_size`` x ``nsteps_accumulation_gradient``), the image shape floored
 to multiples of 14. Data: ``--dummy-data`` only; the real datasets wait for
-ROADMAP A8. It does not validate (ROADMAP A6) and does not shard (A8).
+ROADMAP A8. It does not shard (A8). Every ``--val-interval`` steps
+(default: ``training.validation_interval``, 0 or absent: never) it validates
+under the EMA shadow on a Dummy set of two batches, at most ``--val-iters``
+batches, and prints a ``{"val": ...}`` line of the depth metrics.
 
 Prints one JSON line a step (step, the loss slots, grad_norm, lr, seconds)
 and, on the card, the peak device memory. Saves the whole train state to
@@ -39,6 +43,9 @@ def parse_args(argv=None):
     ap.add_argument("--checkpoint-dir", default="checkpoints")
     ap.add_argument("--resume", default=None, help="a train-state file written by this script")
     ap.add_argument("--device", default=None, help="torch device (default: the card)")
+    ap.add_argument("--val-interval", type=int, default=None,
+                    help="validate every N steps (default: training.validation_interval; 0 disables)")
+    ap.add_argument("--val-iters", type=int, default=25, help="at most this many batches a validation")
     return ap.parse_args(argv)
 
 
@@ -47,7 +54,7 @@ def main(argv=None):
     import torch
 
     from unidepth_tpu_torch.datasets.dummy import Dummy
-    from unidepth_tpu_torch.datasets.loader import make_batch
+    from unidepth_tpu_torch.datasets.loader import eval_batches, make_batch
     from unidepth_tpu_torch.io.checkpoint import load_train_state, save_train_state
     from unidepth_tpu_torch.training.trainer import build_trainer, train_image_shape
 
@@ -66,8 +73,10 @@ def main(argv=None):
     batch_size, accum = tr.get("batch_size", 8), tr.get("nsteps_accumulation_gradient", 1)
     print(f"training UniDepthV2 on {device} ({next(trainer.model.parameters()).dtype} compute, fp32 masters), "
           f"{batch_size} x {accum} images a step at {image_shape[0]}x{image_shape[1]}; "
-          "no validation (ROADMAP A6), no sharding (ROADMAP A8)", flush=True)
+          "no sharding (ROADMAP A8)", flush=True)
     dataset = Dummy(image_shape=image_shape, length=1024)
+    val_dataset = Dummy(image_shape=image_shape, length=2 * batch_size)
+    val_every = tr.get("validation_interval", 0) if args.val_interval is None else args.val_interval
     n_iters = args.steps or tr.get("n_iters", 300000)
     every = tr.get("checkpoint_interval", 10000)
     saved = None
@@ -84,6 +93,9 @@ def main(argv=None):
         print(json.dumps(line), flush=True)
         if not all(np.isfinite(list(values.values()))):
             raise SystemExit(f"scripts_torch/train.py: non-finite metrics at step {step + 1}")
+        if val_every and trainer.state.step % val_every == 0:
+            results = trainer.validate({"Dummy": eval_batches(val_dataset, batch_size)}, max_iters=args.val_iters)
+            print(json.dumps({"step": trainer.state.step, "val": results}), flush=True)
         if trainer.state.step % every == 0 or trainer.state.step == n_iters:
             trainer.sync_model()
             saved = save_train_state(args.checkpoint_dir, trainer.state)

@@ -5,7 +5,9 @@ Pieces: the sine position embedding, the degree-8 spherical harmonics, the
 rays with their angles and the spherical z-buffer back-projection, the
 offset-0.1 pos-embed resize and the ViT ``max_cls`` stacking at 1e-5;
 Nystrom attention with the token count divisible and not divisible by the
-landmarks, ``CvnxtBlock`` and ``ConvUpsample`` at 1e-4. The whole model at
+landmarks, ``CvnxtBlock`` and ``ConvUpsample`` at 1e-4. ``encode_decode``
+(the eval forward) with nothing given, with the GT rays, and with a K and
+``skip_camera``. The whole model at
 the JAX V1 tests' size (C = 64, 4 blocks, 2 heads, pos-embed 8; decoder
 hidden 32, depths (1, 1, 1); network shape 56 x 70), without a camera,
 with a K, with a K and ``skip_camera``, and with an aspect ratio that gets
@@ -241,6 +243,34 @@ def _check_infer(out, ref, shape):
     np.testing.assert_allclose(out["intrinsics"].numpy(), np.asarray(ref["intrinsics"]), rtol=1e-4, atol=1e-4)
     p_ref = np.asarray(ref["points"])
     np.testing.assert_allclose(out["points"].numpy(), p_ref, rtol=1e-4, atol=1e-4 * np.abs(p_ref).max())
+
+
+@pytest.mark.parametrize("given", ["none", "rays", "K-skip-camera"])
+def test_encode_decode_matches_jax(models, given):
+    """The eval forward on a normalised batch at the network shape: depth
+    max relative error < 1e-3, points, rays, angles and intrinsics rtol
+    1e-4 (atol 1e-4 scaled by the largest point)."""
+    jm, tm = models
+    img = np.random.default_rng(3).standard_normal((2, 56, 70, 3)).astype(np.float32)
+    kwargs, jkwargs = {}, {}
+    if given != "none":
+        rays = np.array(j_generate_rays(jnp.asarray(KS), (56, 70))[0])
+        kwargs["rays_gt"], jkwargs["rays_gt"] = torch.from_numpy(rays), jnp.asarray(rays)
+    if given == "K-skip-camera":
+        kwargs.update(K_gt=torch.from_numpy(KS), skip_camera=True)
+        jkwargs.update(K_gt=jnp.asarray(KS), skip_camera=True)
+    out = tm.encode_decode(torch.from_numpy(img), **kwargs)
+    ref = jm.encode_decode(jm.params, jnp.asarray(img), **jkwargs)
+    assert set(out) == set(ref)
+    d_ref = np.asarray(ref["depth"])
+    assert out["depth"].shape == d_ref.shape == (2, 56, 70, 1)
+    assert (np.abs(out["depth"].detach().numpy() - d_ref) / np.abs(d_ref)).max() < 1e-3
+    for key in ("intrinsics", "rays", "angles", "points"):
+        want = np.asarray(ref[key])
+        np.testing.assert_allclose(out[key].detach().numpy(), want, rtol=1e-4, atol=1e-4 * max(1.0, np.abs(want).max()),
+                                   err_msg=key)
+    if given == "K-skip-camera":
+        np.testing.assert_array_equal(out["intrinsics"].numpy(), KS)
 
 
 def test_infer_leaves_the_callers_K(models):

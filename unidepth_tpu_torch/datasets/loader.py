@@ -1,11 +1,14 @@
 """Batch assembly (counterpart of part of unidepth_tpu/datasets/loader.py):
 ``collate`` stacks equal-shape samples into channel-last numpy arrays, with
-rays from the port's ``Pinhole``; ``make_batch`` draws the samples of one
+rays from the port's cameras; ``make_batch`` draws the samples of one
 optimizer step as ``Loader._make_batch`` does for one dataset (an index,
 ``num_copies`` interleaved copies a draw) and stacks the micro-batches
-along a leading accumulation axis. Only pinhole cameras and one
-fixed-shape dataset are ported; the threaded loader, weighted dataset
-mixing, shape sampling and the real datasets wait for ROADMAP A8.
+along a leading accumulation axis; ``eval_batches`` walks a dataset in
+order for validation. Samples may name a ``camera_model`` with its
+``camera_params``; a batch with any non-pinhole camera gets its rays from a
+``BatchCamera``. One fixed-shape dataset is ported; the threaded loader,
+weighted dataset mixing, shape sampling and the real datasets wait for
+ROADMAP A8.
 """
 
 from __future__ import annotations
@@ -13,9 +16,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from unidepth_tpu_torch.geometry.cameras import Pinhole
+from unidepth_tpu_torch.datasets.samplers import ShardedEvalSampler
+from unidepth_tpu_torch.geometry.cameras import CAMERA_TYPE_IDS, BatchCamera, Pinhole
 
-__all__ = ["collate", "make_batch"]
+__all__ = ["collate", "eval_batches", "make_batch"]
 
 
 def collate(samples: list[dict]) -> dict:
@@ -27,10 +31,18 @@ def collate(samples: list[dict]) -> dict:
     mask = np.stack([s.get("depth_mask", s["depth"] > 0) for s in samples])[..., None]
     validity = np.stack([s.get("validity", np.ones((h, w), bool)) for s in samples])[..., None].astype(np.float32)
     K = np.stack([s["K"] for s in samples]).astype(np.float32)
-    models = {s.get("camera_model", "Pinhole") for s in samples}
-    if models != {"Pinhole"}:
-        raise NotImplementedError(f"camera models {sorted(models)}: only Pinhole is ported (ROADMAP A4)")
-    rays = Pinhole.from_K(torch.from_numpy(K)).get_rays(h, w).reshape(len(samples), h * w, 3).numpy()
+    models = [s.get("camera_model", "Pinhole") for s in samples]
+    if set(models) == {"Pinhole"}:
+        cam = Pinhole.from_K(torch.from_numpy(K))
+    else:
+        # each camera from its params vector, padded to 16 (the dataset
+        # pipeline keeps it in step with every crop and resize)
+        params = np.zeros((len(samples), 16), np.float32)
+        for i, s in enumerate(samples):
+            cp = np.asarray(s.get("camera_params", K[i, [0, 1, 0, 1], [0, 1, 2, 2]]), np.float32)
+            params[i, : cp.shape[0]] = cp
+        cam = BatchCamera(torch.from_numpy(params), torch.tensor([CAMERA_TYPE_IDS[m] for m in models]))
+    rays = cam.get_rays(h, w).reshape(len(samples), h * w, 3).numpy()
     return {
         "image": imgs,
         "depth": depth,
@@ -63,3 +75,16 @@ def make_batch(dataset, batch_size: int, accum: int, rng: np.random.Generator, n
     if accum == 1:
         return micro[0]
     return {k: np.stack([m[k] for m in micro]) for k in micro[0]}
+
+
+def eval_batches(dataset, batch_size: int):
+    """Collated batches of ``dataset`` in index order, the last one ragged
+    (one process: the sampler's only shard)."""
+    batch = []
+    for i in ShardedEvalSampler(len(dataset), 1, 0):
+        batch.append(dataset[i])
+        if len(batch) == batch_size:
+            yield collate(batch)
+            batch = []
+    if batch:
+        yield collate(batch)

@@ -12,6 +12,9 @@ conv (C, 3, p, p), turns HWIO conv and (in, k, k, out) ConvTranspose
 kernels back into torch's layouts, and reshapes V2's ``level_embeds`` and
 ResidualConvUnit gammas.
 
+``from_jax_camera`` carries a JAX camera or ``BatchCamera`` across (params
+and type ids as numpy).
+
 ``from_jax_train_state`` carries a JAX ``TrainState`` across: the params,
 the Adam ``mu`` and ``nu`` (param-shaped trees, so ``from_jax_params`` maps
 them, as it maps gradients: the mapping is linear per leaf), the EMA shadow
@@ -25,8 +28,8 @@ from typing import Mapping
 import numpy as np
 import torch
 
-__all__ = ["conv_upsample_state_dict", "convnext_state_dict", "decoder_state_dict", "encoder_state_dict", "from_jax_params",
-           "from_jax_train_state", "v1_decoder_state_dict"]
+__all__ = ["conv_upsample_state_dict", "convnext_state_dict", "decoder_state_dict", "encoder_state_dict", "from_jax_camera",
+           "from_jax_params", "from_jax_train_state", "v1_decoder_state_dict"]
 
 
 def _t(a) -> torch.Tensor:
@@ -298,3 +301,18 @@ def from_jax_train_state(state, config: dict, names=None):
         ema=EMAState(shadow=tree(state.ema.shadow), num_updates=int(np.asarray(state.ema.num_updates))),
         step=int(np.asarray(state.step)),
     )
+
+
+def from_jax_camera(camera):
+    """A JAX camera of ``unidepth_tpu.geometry.cameras`` -> the port's class
+    of the same name on the CPU; a ``BatchCamera`` keeps its type ids (both
+    packages order the types alike), a Newton model its step count."""
+    from unidepth_tpu_torch.geometry import cameras
+
+    params = torch.from_numpy(np.array(camera.params, dtype=np.float32))
+    if type(camera).__name__ == "BatchCamera":
+        return cameras.BatchCamera(params, torch.from_numpy(np.array(camera.type_ids, dtype=np.int64)))
+    out = getattr(cameras, type(camera).__name__)(params)
+    if hasattr(camera, "iters"):
+        out.iters = camera.iters
+    return out

@@ -206,6 +206,36 @@ class UniDepthV1(nn.Module):
                 m.use_kernels = enabled
         return self
 
+    def encode_decode(self, image, rays_gt=None, K_gt=None, skip_camera: bool = False) -> dict:
+        """The eval forward on a normalised batch (B, H, W, 3), moved to the
+        model's device and dtype: the mean of the three depth scales, each
+        resized bilinearly (antialiased) to (H, W), and its points through
+        the spherical z-buffer along the rays of the predicted K (or of
+        ``K_gt`` with ``skip_camera``). Returns fp32 ``depth``, ``points``,
+        ``rays`` and ``angles`` (channel-last), ``intrinsics`` and
+        ``depth_features``."""
+        p = next(self.parameters())
+        _, h, w, _ = image.shape
+        feats, cls_tokens = self.pixel_encoder(image.to(p.device, p.dtype))
+        if rays_gt is not None:
+            rays_gt = rays_gt.to(p.device)
+        if K_gt is not None:
+            K_gt = K_gt.to(p.device, torch.float32)
+        K, preds, depth_features = self.pixel_decoder(feats, cls_tokens, (h, w), rays_gt=rays_gt,
+                                                      skip_camera=skip_camera, K_gt=K_gt)
+        pred = sum(resize(d, (h, w), mode="bilinear", align_corners=False, antialias=True) for d in preds) / len(preds)
+        rays, angles = generate_rays(K, (h, w))
+        angles = angles.reshape(-1, h, w, 2)
+        pred = pred.float()
+        return {
+            "intrinsics": K,
+            "depth": pred,
+            "points": spherical_zbuffer_to_euclidean(torch.cat([angles, pred], dim=-1)),
+            "rays": rays.reshape(-1, h, w, 3),
+            "angles": angles,
+            "depth_features": depth_features,
+        }
+
     @torch.inference_mode()
     def infer(self, rgbs, intrinsics=None, skip_camera: bool = False) -> dict:
         """rgbs: (H,W,3) | (B,H,W,3) channel-last or (3,H,W) | (B,3,H,W)

@@ -28,7 +28,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from unidepth_tpu_torch.geometry.cameras import Pinhole
+from unidepth_tpu_torch.geometry.cameras import CameraBase, Pinhole
 from unidepth_tpu_torch.models.backbones.dinov2 import VIT_PRESETS, DinoViT, ViTConfig
 from unidepth_tpu_torch.models.serving import ServingPrecisionMixin
 from unidepth_tpu_torch.models.unidepthv2.decoder import Decoder
@@ -302,10 +302,12 @@ class UniDepthV2(ServingPrecisionMixin, nn.Module):
     @torch.inference_mode()
     def infer(self, rgb, camera=None, normalize: bool = True, outputs=None) -> dict:
         """rgb: (H,W,3) | (B,H,W,3) channel-last or (3,H,W) | (B,3,H,W)
-        channel-first, uint8 or float, numpy or torch. camera: ``Pinhole`` or
-        a (3,3) / (B,3,3) K matrix. Returns channel-last float32 outputs at
-        the input resolution; ``outputs`` selects a subset of INFER_OUTPUTS
-        (leaving out 'confidence' skips the confidence head)."""
+        channel-first, uint8 or float, numpy or torch. camera: any camera
+        of ``geometry.cameras`` (a ``BatchCamera`` mixes models), or a (3,3)
+        / (B,3,3) K matrix; a one-camera batch is broadcast to B. Returns
+        channel-last float32 outputs at the input resolution; ``outputs``
+        selects a subset of INFER_OUTPUTS (leaving out 'confidence' skips
+        the confidence head)."""
         p = next(self.parameters())
         device, dtype = p.device, p.dtype
         rgb = torch.as_tensor(np.asarray(rgb) if not torch.is_tensor(rgb) else rgb)
@@ -315,10 +317,12 @@ class UniDepthV2(ServingPrecisionMixin, nn.Module):
             rgb = rgb.permute(0, 2, 3, 1)
         rgb = rgb.to(device).float()  # convert after the copy: uint8 moves 4x fewer bytes
         B, H, W, _ = rgb.shape
-        if camera is not None and not isinstance(camera, Pinhole):
-            camera = Pinhole.from_K(torch.as_tensor(np.asarray(camera), dtype=torch.float32, device=device))
-        if camera is not None and camera.batch == 1 and B > 1:
-            camera = camera.expand(B)
+        if camera is not None:
+            if not isinstance(camera, CameraBase):
+                camera = Pinhole.from_K(torch.as_tensor(camera if torch.is_tensor(camera) else np.asarray(camera)))
+            camera = camera.to(device)
+            if camera.batch == 1 and B > 1:
+                camera = camera.expand(B)
 
         key = self.serving_shape_key((H, W), camera is not None, normalize, outputs)
         _, _, pads, padded, (new_h, new_w), factor, _, _, out_key = key

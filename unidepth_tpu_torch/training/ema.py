@@ -1,15 +1,18 @@
 """Exponential moving average of the parameters (counterpart of
 unidepth_tpu/training/ema.py): the reference's tanh decay ramp with a
 delayed start, and its interval cadence. The shadow is updated in place.
+``ema_weights`` puts the shadow into a model for the length of a block (the
+reference's ``ema_handle.average_parameters()``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import torch
 
-__all__ = ["EMAState", "ema_decay", "ema_init", "ema_update"]
+__all__ = ["EMAState", "ema_decay", "ema_init", "ema_update", "ema_weights"]
 
 
 @dataclasses.dataclass
@@ -50,3 +53,22 @@ def ema_update(state: EMAState, params: dict, decay: float = 0.9995, update_afte
         torch._foreach_mul_(diff, float(1.0 - torch.tensor(d, dtype=torch.float32)))
         torch._foreach_sub_(shadow, diff)
     return state
+
+
+@contextlib.contextmanager
+def ema_weights(model: torch.nn.Module, state: EMAState):
+    """Inside the block the model's parameters hold the shadow, cast to
+    their dtype; after it they hold their own values again, bit for bit
+    (kept as a copy). Nothing else is written: the fp32 masters stay as they
+    are."""
+    params = dict(model.named_parameters())
+    live = {n: p.detach().clone() for n, p in params.items()}
+    with torch.no_grad():
+        for n, p in params.items():
+            p.copy_(state.shadow[n])
+    try:
+        yield model
+    finally:
+        with torch.no_grad():
+            for n, p in params.items():
+                p.copy_(live[n])

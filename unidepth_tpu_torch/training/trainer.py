@@ -1,7 +1,7 @@
 """A one-device trainer for UniDepthV2 (what ``scripts_torch/train.py``
 runs): the model from a config with random weights, float32 masters beside
 its compute-dtype copy, the optimizer and schedules of the config's
-training section, and the train step.
+training section, the train step, and validation under the EMA shadow.
 """
 
 from __future__ import annotations
@@ -11,8 +11,10 @@ import dataclasses
 import torch
 
 from unidepth_tpu_torch.models.unidepthv2.model import UniDepthV2, compute_dtype, resolve_device
+from unidepth_tpu_torch.training.ema import ema_weights
 from unidepth_tpu_torch.training.optim import AdamW, build_optimizer
 from unidepth_tpu_torch.training.step import TrainState, make_train_step, master_params, sync_model
+from unidepth_tpu_torch.utils.validation import validate
 
 __all__ = ["Trainer", "build_trainer", "train_image_shape"]
 
@@ -32,6 +34,13 @@ class Trainer:
         """Write the float32 masters into the model (its parameters and the
         int8 path's masters)."""
         sync_model(self.model, self.state)
+
+    def validate(self, val_loaders: dict, **kwargs) -> dict:
+        """``utils.validation.validate`` with the EMA shadow in the model (as
+        the reference validates); the model's own weights come back bit for
+        bit afterwards, and the masters are not touched."""
+        with ema_weights(self.model, self.state.ema):
+            return validate(self.model, val_loaders, **kwargs)
 
 
 def train_image_shape(config: dict, image_shape=None) -> tuple[int, int]:
