@@ -110,7 +110,29 @@ fails (non-zero exit, no result line) without CUDA or outside a checkout.
    share; these join K1's, K2's and K3's records, as do the V1 paths'
    launch counts.
 
-9. The kernels' gradients, then V2 training. K1 at (8, 1531, 16 x 64), K2
+9. UniDepthV2old from configs/config_v2old_vitl14.json (DINOv2 ViT-L/14,
+   'last' stacking of blocks 21-24 with the final norm; decoder hidden 512,
+   depths (6, 0, 0), 8 heads), built with no device named and random weights
+   (``init_params(seed=0)``), ``infer()`` on 8 seeded uint8 480 x 640
+   images, which its token budget resizes to 588 x 784 (42 x 56 patches +
+   cls = 2353 tokens). Before the model, the kernels at its new shapes on
+   their Hopper bodies, held to their plain versions at the bf16 gates and
+   timed beside their library calls, with bound and share: K1 at (8, 2353,
+   16 x 64), K4 on the views of an (8, 2353, 3072) projection, and K2 at the
+   encoder's M = 18824 (C 1024, F 4096) and the upsamplers' CvnxtBlocks
+   (M = 18816, 75264 and 301056 at C = 512, 256 and 128). Then bf16
+   ``infer()``: depth, confidence, points and intrinsics of the right shapes
+   and finite, depth > 0, confidence in [0, 1]; launches K1 24, K2 30 (24
+   encoder blocks + 6 CvnxtBlocks), K3 0, K4 0, all on the Hopper bodies;
+   depth against the fp32 plain path (median relative error <=
+   V2OLD_DEPTH_GATE, set from the JAX package's own bf16 drift,
+   tests/v2old_bf16_drift.py, PERF.md section 2); images/s. Then blanket
+   int8 (V2old needs no calibration): launches K4 24, K2 6, K1 0, K3 0, on
+   the Hopper bodies; depth and intrinsics against the same fp32 plain path
+   at the int8 gates; images/s. The phase prints its seconds; its records
+   join K1's, K2's and K4's (``v2old``, ``v2old_launches``).
+
+10. The kernels' gradients, then V2 training. K1 at (8, 1531, 16 x 64), K2
    at M = 12248 (C 1024, F 4096), K3 at (64, 1530, 64) (the training path's
    shapes, 476 x 630) and K4 on the views of an (8, 1370, 3072) projection
    (its int8 path): each kernel route's gradients (a random cotangent; the
@@ -147,7 +169,7 @@ fails (non-zero exit, no result line) without CUDA or outside a checkout.
    fp32 masters bitwise what they were before it. A ``{"train": ...}`` line
    carries the figures.
 
-10. Evaluation (configs/config_v2_vitl14.json, random weights). (a) The six
+11. Evaluation (configs/config_v2_vitl14.json, random weights). (a) The six
    camera models on the card, B = 8 seeded cameras each at 518 x 518 in
    fp32: ``get_rays`` against the port's CPU result (atol RAY_ATOL on unit
    rays) and ``project(unproject(uv))`` against the CPU's and against uv
@@ -243,6 +265,27 @@ V1_K2_SHAPES = {
 # layers_16 (8 heads of 64 an image) at ViT-L's and ConvNeXt-L's grids
 V1_K1_TOKENS = 33 * 44 + 1
 V1_K3_SHAPES = {"v1_vitl14": (BATCH * 8, 33 * 44, 64), "v1_cnvnxtl": (BATCH * 8, 28 * 38, 64)}
+# UniDepthV2old (configs/config_v2old_vitl14.json) at B = 8 on 480 x 640
+# images: its token budget (2400) resizes them to 588 x 784, 42 x 56 patches
+CONFIG_V2OLD = ROOT / "configs" / "config_v2old_vitl14.json"
+V2OLD_IMAGE, V2OLD_NET = (480, 640), (588, 784)
+V2OLD_TOKENS = 42 * 56 + 1
+# K2 at V2old's encoder, then at its upsamplers' CvnxtBlocks (1x, 2x and 4x
+# the patch grid): name -> (M, C, F, eps)
+V2OLD_K2_SHAPES = {
+    "v2old_encoder": (BATCH * V2OLD_TOKENS, 1024, 4096, 1e-6),
+    "v2old_ups_c512": (BATCH * 42 * 56, 512, 2048, 1e-5),
+    "v2old_ups_c256": (BATCH * 84 * 112, 256, 1024, 1e-5),
+    "v2old_ups_c128": (BATCH * 168 * 224, 128, 512, 1e-5),
+}
+# the V2old gates (PERF.md section 2, from tests/v2old_bf16_drift.py): twice
+# the JAX package's own worst drift against fp32 (ViT-S/14 under the shipped
+# decoder), rounded up in the first digit. bf16 kernel path against the fp32
+# plain path: depth median 3.14e-2 -> 7e-2. Int8 against the same: depth
+# mean 5.01e-2 -> 0.2 and p99 0.199 -> 0.4 (V2old misses V2's 0.05 and 0.15);
+# intrinsics 1.88e-2 keeps V2's 0.1
+V2OLD_DEPTH_GATE = 7e-2
+V2OLD_INT8_GATES = {"mean": 0.2, "p99": 0.4, "intrinsics": 0.1}
 # V2 training (configs/config_v2_vitl14.json): 8 images a micro-batch, 2
 # micro-batches a step, 480 x 640 floored to 476 x 630 (34 x 45 patches + cls)
 TRAIN_TOKENS = 34 * 45 + 1
@@ -844,6 +887,71 @@ def eval_phase(config, kernels, none, smi, dev):
     return per_batch, infer_launches, figures
 
 
+def check_v2old_outputs(name, out):
+    b, (h, w) = BATCH, V2OLD_IMAGE
+    for key, ch in (("depth", 1), ("confidence", 1), ("points", 3)):
+        if tuple(out[key].shape) != (b, h, w, ch) or not torch.isfinite(out[key]).all():
+            raise RuntimeError(f"{name}: {key} has shape {tuple(out[key].shape)} or is not finite")
+    if tuple(out["intrinsics"].shape) != (b, 3, 3) or not torch.isfinite(out["intrinsics"]).all():
+        raise RuntimeError(f"{name}: intrinsics malformed")
+    if not ((out["depth"] > 0).all() and (out["confidence"] >= 0).all() and (out["confidence"] <= 1).all()):
+        raise RuntimeError(f"{name}: depth not positive or confidence outside [0, 1]")
+
+
+def v2old_phase(kernels, none, smi, dev):
+    """UniDepthV2old ViT-L/14 ``infer()`` at B = 8 on 480 x 640 in bf16, then
+    in blanket int8, each against the fp32 plain path. Returns the launches
+    of both paths and the figures."""
+    from unidepth_tpu_torch.models.unidepthv2.old import UniDepthV2old
+
+    t_phase = time.perf_counter()
+    config = json.loads(CONFIG_V2OLD.read_text())
+    model = UniDepthV2old.from_config(config).init_params(seed=SEED).eval()  # no device named: the card
+    placed = {(p.device.type, p.dtype) for p in model.parameters()}
+    if placed != {("cuda", torch.bfloat16)}:
+        raise RuntimeError(f"V2old from_config with no device placed the model on {placed}")
+    net = model._shapes(V2OLD_IMAGE)[0]
+    if net != V2OLD_NET:
+        raise RuntimeError(f"V2old network shape {net} for {V2OLD_IMAGE}, expected {V2OLD_NET}")
+    log(f"model: V2old ViT-L/14 {sum(p.numel() for p in model.parameters()) / 1e6:.1f} M params, bf16 on the card; "
+        f"{V2OLD_IMAGE[0]}x{V2OLD_IMAGE[1]} images run at {net[0]}x{net[1]} ({V2OLD_TOKENS} tokens)")
+    rgb = np.random.default_rng(SEED).integers(0, 256, (BATCH, *V2OLD_IMAGE, 3), dtype=np.uint8)
+    figures, launches = {}, {}
+    per_path = {"bf16": {"flash_attention_qkv": 24, "ln_dense": 30},  # 24 blocks; 24 + 6 CvnxtBlocks
+                "int8": {"flash_attention_packed": 24, "ln_dense": 6}}  # the 6 CvnxtBlocks only
+    ref = None
+    for precision, expected in per_path.items():
+        model.set_serving_precision("default" if precision == "bf16" else "int8")
+        out, launches[precision] = run_path(f"V2old {precision} infer()", kernels, lambda: model.infer(rgb))
+        check_launches(f"V2old {precision} infer()", launches[precision],
+                       {**none, **expected, **{f"{k}/wgmma": v for k, v in expected.items()}})
+        check_v2old_outputs(f"V2old {precision} infer()", out)
+        if ref is None:
+            ref = depth_against_plain("V2old ViT-L/14", UniDepthV2old, config, rgb, out["depth"], kernels, dev,
+                                      gate=V2OLD_DEPTH_GATE)
+        rel = ((out["depth"] - ref["depth"]).abs() / ref["depth"].abs()).flatten()
+        k_rel = ((out["intrinsics"] - ref["intrinsics"]).abs() / (ref["intrinsics"].abs() + 1e-6)).max().item()
+        drift = {"depth_median": rel.median().item(), "depth_mean": rel.mean().item(),
+                 "depth_p99": torch.quantile(rel, 0.99).item(),
+                 "depth_max": rel.max().item(), "intrinsics_max": k_rel}
+        log(f"V2old {precision} vs fp32 plain path: {json.dumps(drift)}")
+        if precision == "int8":
+            gates = V2OLD_INT8_GATES
+            if not (drift["depth_mean"] < gates["mean"] and drift["depth_p99"] < gates["p99"]
+                    and k_rel < gates["intrinsics"]):
+                raise RuntimeError(f"V2old int8 drift {drift} out of the gates {gates}")
+        del out
+        figures[precision] = {"drift": drift, "images_per_s": images_per_s(
+            f"V2old {precision}", lambda: model.infer(rgb), smi,
+            what=f"B={BATCH} {V2OLD_IMAGE[0]}x{V2OLD_IMAGE[1]} (network {net[0]}x{net[1]}; depth, confidence, "
+                 "points, intrinsics)")}
+    figures["seconds"] = time.perf_counter() - t_phase
+    log(f"V2old phase: {figures['seconds']:.1f} s")
+    del model, ref
+    torch.cuda.empty_cache()
+    return launches, figures
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this test has no CPU path")
@@ -1063,6 +1171,33 @@ def main():
             f"K3 {key} {(bh, n, d)}", flash_attention, flash_attention_plain, k3_v1, 4 * bh * n * n * d,
             lambda q, k, v, scale: sdpa(q[None], k[None], v[None], scale), smi)}
 
+    # --- K1, K4 and K2 at the V2old path's shapes (588 x 784, B = 8) ----------
+    def k1_v2old():
+        gen.manual_seed(31)
+        return randn(BATCH, V2OLD_TOKENS, 3 * 1024, dtype=torch.bfloat16), 16, 64**-0.5
+
+    def k4_v2old():
+        gen.manual_seed(32)
+        return (*randn(BATCH, V2OLD_TOKENS, 3 * 1024, dtype=torch.bfloat16).split(1024, dim=-1), 16, 64**-0.5)
+
+    attn_flops = 4 * BATCH * V2OLD_TOKENS**2 * 1024
+    m["flash_attention_qkv"]["v2old"] = {"shape": [BATCH, V2OLD_TOKENS, 16, 64], **shape_phase(
+        f"K1 V2old ViT-L/14 (8, {V2OLD_TOKENS}, 16 x 64)", flash_attention_qkv, flash_attention_qkv_plain, k1_v2old,
+        attn_flops, sdpa_qkv, smi)}
+    m["flash_attention_packed"]["v2old"] = {"shape": [BATCH, V2OLD_TOKENS, 16, 64], **shape_phase(
+        f"K4 V2old ViT-L/14 int8 (8, {V2OLD_TOKENS}, 16 x 64) views", flash_attention_packed,
+        flash_attention_packed_plain, k4_v2old, attn_flops, sdpa_packed, smi)}
+    m["ln_dense"]["v2old_shapes"] = {}
+    for key, (rows, c, f, eps) in V2OLD_K2_SHAPES.items():
+        def k2_v2old(rows=rows, c=c, f=f, eps=eps):
+            gen.manual_seed(rows + c + 1)
+            return (randn(rows, c, dtype=torch.bfloat16, std=2.0, mean=0.5),
+                    randn(f, c, dtype=torch.bfloat16, std=c**-0.5), randn(f, dtype=torch.bfloat16, std=0.1),
+                    randn(c, dtype=torch.bfloat16, std=0.1, mean=1.0), randn(c, dtype=torch.bfloat16, std=0.1), eps, "gelu")
+        m["ln_dense"]["v2old_shapes"][key] = {"shape": [rows, c, f], "eps": eps, **shape_phase(
+            f"K2 {key} (M {rows}, C {c}, F {f}, eps {eps})", ln_dense, ln_dense_plain, k2_v2old, 2 * rows * c * f,
+            ln_dense_library, smi)}
+
     # --- K5: conv3x3_lowchannel, its entry point the op itself ---------------
     def floats(args):
         return [a.float() if torch.is_tensor(a) else a for a in args]
@@ -1275,6 +1410,9 @@ def main():
                      what=f"B={BATCH} {V1_SHAPE[0]}x{V1_SHAPE[1]} (depth, points, intrinsics)")
         del model_v1
 
+    # --- UniDepthV2old ViT-L/14 at 480 x 640: bf16, then int8 -----------------
+    v2old_launches, v2old_figures = v2old_phase(kernels, none, smi, dev)
+
     # --- K1-K4 gradients at the training shapes, then V2 ViT-L/14 training ---
     def train_grad_inputs(seed, *shapes, std=1.0, mean=0.0):
         gen.manual_seed(seed)
@@ -1337,6 +1475,9 @@ def main():
     }
     # K3 at the narrower head dims joins K3's record (the path's record is D = 64)
     m["flash_attention"].update(k3_narrow)
+    # the V2old paths' counts (bf16, int8) beside them
+    for name in ("flash_attention_qkv", "ln_dense", "flash_attention", "flash_attention_packed"):
+        m[name]["v2old_launches"] = {p: counts[name] for p, counts in v2old_launches.items()}
     # the V1 paths' counts beside the V2 main path's
     for name in ("flash_attention_qkv", "ln_dense", "flash_attention"):
         m[name]["v1_launches"] = {label: counts[name] for label, counts in v1_launches.items()}
@@ -1351,6 +1492,7 @@ def main():
     ]
     log(json.dumps({"train": train_figures}))
     log(json.dumps({"eval": eval_figures}))
+    log(json.dumps({"v2old": v2old_figures}))
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s, the build included")
     log(json.dumps({"kernels": record}))
     log(json.dumps({"ok": True, "device": {

@@ -9,8 +9,8 @@ The counterpart of scripts/eval.py: every depth metric of
 distance and F1-AUC, a table a dataset, then one JSON line ``{"eval":
 {dataset: {metric: value}}}``. It runs on the card unless ``--device``
 names another (without a card and without ``--device cpu`` it raises). The
-model class comes from the config's ``model.name``: UniDepthV2 or
-UniDepthV1 (UniDepthV2old is not ported: ROADMAP A5). ``--checkpoint`` loads
+model class comes from the config's ``model.name``: UniDepthV2,
+UniDepthV1 or UniDepthV2old. ``--checkpoint`` loads
 a local directory (``from_pretrained``); without it the weights are random
 (``init_params(seed=0)``) and the metrics say nothing of the model. Data:
 the Dummy dataset (``--dummy-data``, or the name Dummy) at the config's
@@ -45,10 +45,12 @@ def build_model(config: dict, checkpoint, device):
     name = config.get("model", {}).get("name", "UniDepthV2")
     if name == "UniDepthV1":
         from unidepth_tpu_torch.models.unidepthv1.model import UniDepthV1 as model_cls
+    elif name == "UniDepthV2old":
+        from unidepth_tpu_torch.models.unidepthv2.old import UniDepthV2old as model_cls
     elif name == "UniDepthV2":
         from unidepth_tpu_torch.models.unidepthv2.model import UniDepthV2 as model_cls
     else:
-        raise SystemExit(f"scripts_torch/eval.py: {name} is not ported (ROADMAP A5)")
+        raise SystemExit(f"scripts_torch/eval.py: unknown model {name}")
     if checkpoint:
         return model_cls.from_pretrained(checkpoint, device=device).eval()
     print("!! random weights (no --checkpoint): metrics are meaningless", flush=True)

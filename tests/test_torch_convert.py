@@ -79,7 +79,8 @@ def test_init_params_is_seeded():
 def test_import_leaves_jax_out():
     code = (
         "import sys, unidepth_tpu_torch.models.unidepthv2.model, unidepth_tpu_torch.io.convert, "
-        "unidepth_tpu_torch.io.hub, unidepth_tpu_torch.ops._cuda; "
+        "unidepth_tpu_torch.io.hub, unidepth_tpu_torch.ops._cuda, unidepth_tpu_torch.models.unidepthv2.old, "
+        "unidepth_tpu_torch.hubconf; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'unidepth_tpu')]; "
         "print(bad); sys.exit(1 if bad else 0)"
     )

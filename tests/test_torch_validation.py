@@ -242,11 +242,11 @@ def test_eval_cli_refuses_what_is_not_ported(tiny_configs, tmp_path, monkeypatch
     cfg = json.loads(tiny_configs["v2"].read_text())
     with pytest.raises(SystemExit, match="A8"):
         _script("eval").main(["--config-file", str(tiny_configs["v2"]), "--datasets", "KITTI", "--device", "cpu"])
-    cfg["model"]["name"] = "UniDepthV2old"
-    old = tmp_path / "old.json"
-    old.write_text(json.dumps(cfg))
-    with pytest.raises(SystemExit, match="A5"):
-        _script("eval").main(["--config-file", str(old), "--dummy-data", "--device", "cpu"])
+    cfg["model"]["name"] = "UniDepthV3"  # no such family (UniDepthV2old is ported: tests/test_torch_v2old.py)
+    unknown = tmp_path / "unknown.json"
+    unknown.write_text(json.dumps(cfg))
+    with pytest.raises(SystemExit, match="unknown model UniDepthV3"):
+        _script("eval").main(["--config-file", str(unknown), "--dummy-data", "--device", "cpu"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for name, argv in (("eval", ["--config-file", str(tiny_configs["v2"]), "--dummy-data"]), ("demo", [])):
         with pytest.raises(SystemExit, match="--device cpu"):

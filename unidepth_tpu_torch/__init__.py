@@ -1,8 +1,9 @@
 """PyTorch + CUDA port of unidepth_tpu for NVIDIA Hopper.
 
 The JAX package ``unidepth_tpu`` is the reference; this package mirrors its
-module paths and runs UniDepthV2 (DINOv2 ViT-S/B/L) and UniDepthV1 (DINOv2
-ViT-L, ConvNeXt-L) with any camera model of ``geometry/cameras.py``,
+module paths and runs UniDepthV2 (DINOv2 ViT-S/B/L), UniDepthV1 (DINOv2
+ViT-L, ConvNeXt-L) and UniDepthV2old (DINOv2 ViT-S/L; ``hubconf.UniDepth``
+builds any of the seven) with any camera model of ``geometry/cameras.py``,
 trains UniDepthV2 on one device (``training/``) and evaluates both
 (``utils/validation.py``).
 It imports torch, numpy and the standard library only.

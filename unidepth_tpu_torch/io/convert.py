@@ -1,10 +1,21 @@
 """Carry weights from the JAX package to the port (inverse of
-unidepth_tpu/io/convert.py ``convert_v2_state_dict`` and
+unidepth_tpu/io/convert.py ``convert_v2_state_dict``,
 ``convert_v1_state_dict`` with ``convert_v1_decoder`` and
-``convert_convnext``).
+``convert_convnext``, and ``convert_v2old_state_dict``), and bring the
+reference checkpoint layouts to the port's keys.
 
-``from_jax_params`` turns the JAX ``UniDepthV2`` or ``UniDepthV1``
-parameter tree (DINOv2 or ConvNeXt encoder), as numpy arrays, into a
+``normalize_state_dict`` is the reference loader's remapping, done before
+a model selects its keys (``io.hub.load_checkpoint``): the ``{"model":
+...}`` wrapper and every ``module.`` go, DINOv2's FSDP chunked layout
+``blocks.{chunk}.{i}.*`` becomes ``blocks.{i}.*``
+(``flatten_chunked_blocks``; the JAX ``_flatten_chunked_blocks``) and the
+FB and CLIP ConvNeXt layouts become the timm one the port's ``ConvNeXt``
+holds (``normalize_convnext_state_dict``; the JAX function of that name,
+which folds timm's ``mlp.grn`` the other way, into its converter's names).
+
+``from_jax_params`` turns the JAX ``UniDepthV2``, ``UniDepthV1`` or
+``UniDepthV2old`` parameter tree (DINOv2 or ConvNeXt encoder), as numpy
+arrays, into a
 state_dict with the reference checkpoint keys that the port's model holds:
 it un-stacks the scanned ``stage_{si}`` encoder blocks, transposes Dense
 kernels back to (out, in), turns ``patch_kernel`` (p*p*3, C) back into the
@@ -23,13 +34,63 @@ and its count, and the step.
 
 from __future__ import annotations
 
+import re
 from typing import Mapping
 
 import numpy as np
 import torch
 
-__all__ = ["conv_upsample_state_dict", "convnext_state_dict", "decoder_state_dict", "encoder_state_dict", "from_jax_camera",
-           "from_jax_params", "from_jax_train_state", "v1_decoder_state_dict"]
+__all__ = ["conv_upsample_shuffle_state_dict", "conv_upsample_state_dict", "convnext_state_dict", "decoder_state_dict",
+           "encoder_state_dict", "flatten_chunked_blocks", "from_jax_camera", "from_jax_params", "from_jax_train_state",
+           "normalize_convnext_state_dict", "normalize_state_dict", "v1_decoder_state_dict", "v2old_decoder_state_dict"]
+
+
+def flatten_chunked_blocks(sd: Mapping) -> dict:
+    """DINOv2 keys ``blocks.{chunk}.{i}.*`` (FB's FSDP training layout, whose
+    inner index is the global block index) -> ``blocks.{i}.*``; a flat
+    layout passes as it is."""
+    return {re.sub(r"^blocks\.\d+\.(\d+)\.", r"blocks.\1.", k): v for k, v in sd.items()}
+
+
+def normalize_convnext_state_dict(sd: Mapping) -> dict:
+    """A ConvNeXt checkpoint in any of the three layouts in the wild -> the
+    timm keys of the port's ``ConvNeXt``: timm (``stem.0``,
+    ``stages.{s}.blocks.{j}.conv_dw``, GRN as ``mlp.grn``) passes; CLIP
+    (open_clip) loses its ``visual.trunk.`` prefix and the keys outside it;
+    FB (``downsample_layers.{s}``, ``stages.{s}.{j}.dwconv``, ``pwconv1/2``,
+    ``grn.gamma/beta`` of shape (1, 1, 1, C)) is renamed and the GRN
+    parameters flattened."""
+    if any(k.startswith("visual.trunk.") for k in sd):
+        sd = {k[len("visual.trunk."):]: v for k, v in sd.items() if k.startswith("visual.trunk.")}
+    if "stem.0.weight" in sd or "norm_pre.weight" in sd:
+        return {re.sub(r"(blocks\.\d+)\.grn\.", r"\1.mlp.grn.", k): v for k, v in sd.items()}
+    out = {}
+    for k, v in sd.items():
+        k = k.replace("downsample_layers.0.", "stem.")
+        k = re.sub(r"stages\.(\d+)\.(\d+)\.", r"stages.\1.blocks.\2.", k)
+        k = re.sub(r"downsample_layers\.(\d+)\.(\d+)\.", r"stages.\1.downsample.\2.", k)
+        k = k.replace(".dwconv.", ".conv_dw.").replace(".pwconv1.", ".mlp.fc1.").replace(".pwconv2.", ".mlp.fc2.")
+        if ".grn." in k:
+            k = k.replace(".grn.gamma", ".mlp.grn.weight").replace(".grn.beta", ".mlp.grn.bias")
+            v = v.reshape(-1)
+        out[k] = v
+    return out
+
+
+def normalize_state_dict(state_dict: Mapping, config: dict) -> dict:
+    """A reference checkpoint's state_dict -> the port's keys: unwrap
+    ``{"model": ...}``, drop ``module.`` anywhere in a key (the reference
+    uses str.replace), then flatten DINOv2's chunked blocks or, for an
+    encoder named ``convnext*`` in ``config``, normalise the ConvNeXt
+    layout, both under ``pixel_encoder.``."""
+    if "model" in state_dict and isinstance(state_dict["model"], Mapping):
+        state_dict = state_dict["model"]
+    sd = {k.replace("module.", ""): v for k, v in state_dict.items()}
+    pre = "pixel_encoder."
+    enc = {k[len(pre):]: v for k, v in sd.items() if k.startswith(pre)}
+    convnext = "convnext" in config["model"]["pixel_encoder"]["name"]
+    enc = normalize_convnext_state_dict(enc) if convnext else flatten_chunked_blocks(enc)
+    return {**{k: v for k, v in sd.items() if not k.startswith(pre)}, **{pre + k: v for k, v in enc.items()}}
 
 
 def _t(a) -> torch.Tensor:
@@ -249,13 +310,73 @@ def conv_upsample_state_dict(p: Mapping, pre: str = "") -> dict[str, torch.Tenso
     return out
 
 
+def conv_upsample_shuffle_state_dict(p: Mapping, pre: str = "") -> dict[str, torch.Tensor]:
+    """JAX ``ConvUpsampleShuffleResidual`` parameters -> the port's
+    state_dict (keys prefixed with ``pre``)."""
+    out: dict[str, torch.Tensor] = {}
+    for name in (k for k in p if k.startswith("convs_")):
+        blk, bp = p[name], f"{pre}convs.{int(name.removeprefix('convs_'))}"
+        _conv(out, f"{bp}.dwconv", blk["dwconv"])
+        _ln(out, f"{bp}.norm", blk["norm"])
+        _dense(out, f"{bp}.pwconv1", blk["pwconv1"])
+        _dense(out, f"{bp}.pwconv2", blk["pwconv2"])
+        out[f"{bp}.gamma"] = _t(blk["gamma"])
+    _conv(out, f"{pre}up.1", p["up_dw"])
+    _conv(out, f"{pre}up.3", p["up_pw"])
+    _conv(out, f"{pre}residual.0", p["residual_proj"])
+    return out
+
+
+def v2old_decoder_state_dict(p: Mapping, pre: str = "") -> dict[str, torch.Tensor]:
+    """JAX ``DecoderV2Old`` parameters -> the port's ``DecoderV2Old``
+    state_dict (keys prefixed with ``pre``; the inverse of
+    ``convert_v2old_decoder``)."""
+    out: dict[str, torch.Tensor] = {}
+    for group in ("input_adapter", "camera_token_adapter", "global_token_adapter"):
+        for i in range(len([k for k in p if k.startswith(f"{group}_")])):
+            _adapter(out, f"{pre}{group}.input_adapters.{i}", p[f"{group}_{i}"])
+    out[f"{pre}level_embeds"] = _t(p["level_embeds"])
+    _dense(out, f"{pre}level_embed_layer.0", p["le_fc1"])
+    _dense(out, f"{pre}level_embed_layer.2", p["le_fc2"])
+    _ln(out, f"{pre}level_embed_layer.3", p["le_norm"])
+
+    cam, cp = p["camera_layer"], f"{pre}camera_layer"
+    out[f"{cp}.latents_pos"] = _t(cam["latents_pos"])
+    for name in ("project_cls", "in_features", "out"):
+        _mlp(out, f"{cp}.{name}", cam[name])
+    glob, gp = p["global_layer"], f"{pre}global_layer"
+    _mlp(out, f"{gp}.project_cls", glob["project_cls"])
+    _mlp(out, f"{gp}.out", glob["out"])
+    _dense(out, f"{gp}.project_rays", glob["project_rays"])
+    _dense(out, f"{gp}.in_features", glob["in_features"])
+    for head, hp in ((cam, cp), (glob, gp)):
+        for name in ("aggregate1", "aggregate2"):
+            _attention_block(out, f"{hp}.{name}", head[name])
+
+    d, dp = p["depth_layer"], f"{pre}depth_layer"
+    _mlp(out, f"{dp}.to_latents", d["to_latents"])
+    _dense(out, f"{dp}.features_channel_cat", d["features_channel_cat"])
+    _attention_block(out, f"{dp}.aggregate_16", d["aggregate_16"])
+    _attention_block(out, f"{dp}.prompt_camera", d["prompt_camera"])
+    for i in range(len([k for k in d if k.startswith("rays_layers_")])):
+        _dense(out, f"{dp}.rays_layers.{i}", d[f"rays_layers_{i}"])
+        for name in (k for k in d if k.startswith(f"process_layers_{i}_")):
+            _attention_block(out, f"{dp}.process_layers.{i}.{int(name.rsplit('_', 1)[1])}", d[name])
+        out.update(conv_upsample_shuffle_state_dict(d[f"ups_{i}"], f"{dp}.ups.{i}."))
+        _mlp(out, f"{dp}.depth_mlp.{i}", d[f"depth_mlp_{i}"])
+        _mlp(out, f"{dp}.confidence_mlp.{i}", d[f"confidence_mlp_{i}"])
+    _conv(out, f"{dp}.to_depth", d["to_depth"])
+    _conv(out, f"{dp}.to_confidence", d["to_confidence"])
+    return out
+
+
 def from_jax_params(params: Mapping, config: dict) -> dict[str, torch.Tensor]:
     """JAX ``{'encoder', 'decoder'}`` parameter tree (arrays of any kind
     numpy can read) -> float32 state_dict with reference checkpoint keys.
     ``config``: the reference-schema config dict the JAX model was built
-    from: ``model.name`` picks the V1 or V2 decoder, an encoder name holding
-    ``convnext`` the ConvNeXt encoder, and V2's decoder depths give its
-    number of levels."""
+    from: ``model.name`` picks the V1, V2old or V2 decoder, an encoder name
+    holding ``convnext`` the ConvNeXt encoder, and V2's decoder depths give
+    its number of levels."""
     model = config["model"]
     if "convnext" in model["pixel_encoder"]["name"]:
         encoder = convnext_state_dict(params["encoder"], "pixel_encoder.")
@@ -263,6 +384,8 @@ def from_jax_params(params: Mapping, config: dict) -> dict[str, torch.Tensor]:
         encoder = encoder_state_dict(params["encoder"], "pixel_encoder.")
     if model.get("name") == "UniDepthV1":
         return {**encoder, **v1_decoder_state_dict(params["decoder"], "pixel_decoder.")}
+    if model.get("name") == "UniDepthV2old":
+        return {**encoder, **v2old_decoder_state_dict(params["decoder"], "pixel_decoder.")}
     num_levels = len(model["pixel_decoder"].get("depths", (2, 2, 2)))
     return {**encoder, **decoder_state_dict(params["decoder"], num_levels, "pixel_decoder.")}
 

@@ -27,6 +27,8 @@ the build is seen at the next build (``set_serving_precision`` to
 The JAX logit audit (``audit_attention_logits``, ``serving_safe_softmax``)
 is not ported: the port's attention kernels keep the row max.
 
+UniDepthV2old takes this mixin as V2 does: blanket int8 is accepted
+(the JAX ``INT8_REQUIRES_CALIBRATION`` is False for it).
 UniDepthV1 takes only the pre-cast (``from_config(dtype=...)``): its int8
 mode needs ``calibrate_int8_stages`` first (the JAX
 ``INT8_REQUIRES_CALIBRATION``) and the ConvNeXt encoder has none, so its

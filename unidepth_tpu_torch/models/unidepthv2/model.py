@@ -189,14 +189,17 @@ class UniDepthV2(ServingPrecisionMixin, nn.Module):
         return model.to(device=device, dtype=dtype or compute_dtype(device))
 
     @classmethod
-    def from_pretrained(cls, local_dir, device=None, dtype: torch.dtype | None = None) -> "UniDepthV2":
-        """Load ``config.json`` + ``pytorch_model.bin`` / ``model.safetensors``
-        from a local directory (reference checkpoint keys), placed as
+    def from_pretrained(cls, name_or_path, device=None, dtype: torch.dtype | None = None,
+                        config: dict | None = None) -> "UniDepthV2":
+        """Load a local checkpoint (``io.hub.load_checkpoint``: a directory
+        or a weights file, the config from ``config``, a ``config.json`` or
+        the shipped V2 config of the backbone the path names; reference
+        checkpoint keys in any layout the loader normalises), placed as
         ``from_config`` places it (default ``cuda``)."""
         from unidepth_tpu_torch.io.hub import load_checkpoint
 
         device = resolve_device(device)  # before the checkpoint is read
-        config, state_dict = load_checkpoint(local_dir)
+        config, state_dict = load_checkpoint(name_or_path, version="2", config=config)
         model = cls.from_config(config, device=device, dtype=dtype)
         model.load_state_dict(model.select_checkpoint_keys(state_dict))
         return model

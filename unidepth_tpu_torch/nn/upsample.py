@@ -5,7 +5,8 @@ V2's residual conv units and bilinear upsampler take NCHW maps. V1's
 ``CvnxtBlock`` takes channel-last (B, H, W, C) maps, so its LN -> pwconv1
 -> GELU reads rows in place (kernel K2 on the card where its shape gate
 holds, ``nn.layers.ln_linear_gelu``); its 7x7 depthwise conv reads them as
-a channels-last NCHW view. ``ConvUpsample`` returns flat tokens."""
+a channels-last NCHW view. ``ConvUpsample`` and V2old's
+``ConvUpsampleShuffleResidual`` return flat tokens."""
 
 from __future__ import annotations
 
@@ -105,3 +106,33 @@ class ConvUpsample(nn.Module):
             x = conv(x)
         x = self.up(x.permute(0, 3, 1, 2))
         return x.flatten(2).transpose(1, 2)
+
+
+class ConvUpsampleShuffleResidual(nn.Module):
+    """V2old upsampler: two CvnxtBlocks, then a pixel shuffle (r = 2, torch's
+    channel order c r r + i r + j, as the JAX reshape), a 7x7 depthwise
+    conv, ReLU and a 3x3 conv to half the channels, plus a 1x1 residual
+    projection upsampled bilinearly with align_corners=True (the reference's
+    ``nn.UpsamplingBilinear2d``, run through ``resize`` in fp32 as JAX
+    does). Zeros padding throughout. (B, h, w, C) -> (B, 4hw, C/2) tokens."""
+
+    def __init__(self, hidden_dim: int, expansion: int = 4):
+        super().__init__()
+        self.convs = nn.ModuleList([CvnxtBlock(hidden_dim, expansion) for _ in range(2)])
+        quarter, half = hidden_dim // 4, hidden_dim // 2
+        self.up = nn.Sequential(
+            nn.PixelShuffle(2),
+            nn.Conv2d(quarter, quarter, 7, padding=3, groups=quarter),
+            nn.ReLU(),
+            Conv2d(quarter, half, kernel_size=3),
+        )
+        self.residual = nn.Sequential(Conv2d(hidden_dim, half, kernel_size=1, padding=0), nn.UpsamplingBilinear2d(scale_factor=2))
+
+    def forward(self, x):
+        for conv in self.convs:
+            x = conv(x)
+        x = x.permute(0, 3, 1, 2)
+        res = self.residual[0](x)
+        h, w = res.shape[-2:]
+        res = resize(res, (2 * h, 2 * w), mode="bilinear", align_corners=True, channel_last=False)
+        return (self.up(x) + res).flatten(2).transpose(1, 2)

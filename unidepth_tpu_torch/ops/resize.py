@@ -6,7 +6,11 @@ feeds the TPU's matrix unit; its weights reproduce
 itself. Like the JAX version, the interpolation runs in float32 and the
 result is cast back to the input's dtype.
 
-The one exception is the bicubic resize with explicit scale factors
+The nearest modes are a gather at source indices computed in float64, as
+the JAX package computes them (F.interpolate's float32 scale picks another
+neighbour at some ties), in the input's dtype.
+
+The other exception is the bicubic resize with explicit scale factors
 (DINOv2's offset pos-embed resize in V1). There ``F.interpolate`` rounds
 the source coordinates to float32, ~1e-5 off on a 37-wide grid of unit
 values, and its float64 kernel runs one thread per output pixel over all
@@ -22,6 +26,18 @@ import torch
 import torch.nn.functional as F
 
 __all__ = ["resize", "flat_interpolate"]
+
+NEAREST_MODES = ("nearest", "nearest-exact")
+
+
+def _nearest_index(in_size: int, out_size: int, exact: bool) -> np.ndarray:
+    """Source index of each output pixel, computed in float64 as the JAX
+    package computes it: floor((o + 0.5) * in / out) for 'nearest-exact',
+    floor(o * in / out) for 'nearest', clamped to the input. (F.interpolate
+    rounds the scale to float32 and so picks the neighbour at some exact
+    ties, e.g. 30 -> 29 rows.)"""
+    src = np.floor((np.arange(out_size) + (0.5 if exact else 0.0)) * (in_size / out_size)).astype(np.int64)
+    return np.clip(src, 0, in_size - 1)
 
 
 def _bicubic_matrix(in_size: int, out_size: int, scale_factor: float) -> np.ndarray:
@@ -53,7 +69,8 @@ def resize(
 ) -> torch.Tensor:
     """Resize ``(..., H, W, C)`` (``channel_last``) or ``(..., H, W)`` maps
     to ``size`` with ``F.interpolate`` semantics. Modes: 'bilinear' (with or
-    without ``align_corners`` / ``antialias``) and 'bicubic'.
+    without ``align_corners`` / ``antialias``), 'bicubic', and 'nearest' /
+    'nearest-exact', which take neither flag.
     ``scale_factors`` (sh, sw), bicubic only: torch's explicit
     ``scale_factor`` semantics, the source grid at 1/scale; the output must
     come out at ``size``."""
@@ -73,6 +90,13 @@ def resize(
         return y.movedim(-3, -1) if channel_last else y
     if (in_h, in_w) == (out_h, out_w):
         return x
+    if mode in NEAREST_MODES:
+        if align_corners or antialias:
+            raise ValueError(f"resize: mode {mode!r} takes neither align_corners nor antialias")
+        exact = mode == "nearest-exact"
+        ih, iw = (torch.as_tensor(_nearest_index(n, m, exact), device=x.device) for n, m in ((in_h, out_h), (in_w, out_w)))
+        y = y.index_select(-2, ih).index_select(-1, iw)
+        return y.movedim(-3, -1) if channel_last else y
     lead = y.shape[:-2]
     # every leading axis is independent: fold them into channels
     y = F.interpolate(
