@@ -197,6 +197,51 @@ fails (non-zero exit, no result line) without CUDA or outside a checkout.
    ``{"eval": ...}`` line carries the figures; K1-K3's records gain
    ``eval_launches``.
 
+12. Training of the other families, each through the train phase of item
+   10 with its own config, recipe and gates (``TRAIN_FAMILIES``), run right
+   after V2's: before them the kernels' gradients at the V1 training shapes
+   (K1 at (8, 1453, 16 x 64), K2 at ConvNeXt-L's C = 1536 and C = 192, K3
+   at (64, 1452, 64)), joining the records as ``grad_v1`` and
+   ``grad_cnvnxtl_stage{3,0}``. UniDepthV1 ViT-L/14 and ConvNeXt-L from
+   configs/config_v1_{vitl14,cnvnxtl}.json at 462 x 616 with V1's loss
+   slots (depth, camera, invariance), and UniDepthV2old ViT-L/14 from
+   configs/config_v2old_vitl14.json at 476 x 630 with V2's five, 8 x 2
+   images a step: (a) the micro-batch of 2 against the fp32 plain path at
+   the family's gates (PERF.md section 2, from
+   tests/train_families_bf16_drift.py: the loss slots' drift, the smallest
+   and the median gradient cosine), no gradient where the fp32 path has
+   none (V1: every parameter has one; V2old: the camera head has none) and
+   V2old's shift-invariant biases, whose gradient is rounding noise on both
+   paths, held to neither cosine; launches a micro-batch: V1 ViT-L K1 48, K2
+   54 (24 + 24 recompute + 6 CvnxtBlocks), K3 3; V1 ConvNeXt-L K2 78 (36 +
+   36 + 6), K3 3; V2old K1 48, K2 54; all on the Hopper bodies; (b) one
+   optimizer step at twice those, which moves the weights against its
+   gradient (g . (p1 - p0) < 0, checked for V2 too; a weight that did not
+   move must have had an update under half its float32 spacing); (c) 4
+   more steps: finite totals (V1's and V2old's rise over their first steps
+   at random weights, V1's in the JAX package's own trainer too,
+   tests/train_trajectory.py), the EMA unmoved; (d) ms a step, images/s and
+   peak memory. A ``{"train": ...}``
+   line carries every family's figures; K1-K3's records gain
+   ``family_train_launches``.
+
+13. UniDepthV1 ViT-L/14 int8 (configs/config_v1_vitl14.json, random
+   weights): ``set_serving_precision('int8')`` refused before calibration;
+   ``calibrate_int8_stages`` on 2 seeded 462 x 616 images at the default
+   budget 0.05 (its per-stage errors and mask printed, ``rel_err`` <= 0.05);
+   ``infer()`` of 8 other seeded images under the mask: K4 once a block of
+   the selected stages, K1 once and K2 once a block of the others, K2 also
+   6 (CvnxtBlocks), K3 3, all on the Hopper bodies; depth and intrinsics
+   against the fp32 plain path at V1_INT8_GATES (from the JAX package's own
+   V1 int8 drift under its calibrated mask); images/s in int8 and in bf16
+   from the same call. A ConvNeXt-L V1 refuses int8. K1-K4's records gain
+   ``v1_int8_launches``.
+14. ``scripts_torch/train.py --config-file configs/config_v1_cnvnxtl.json
+   --dummy-data --steps 2`` as a subprocess on the card: exit 0, a finite
+   JSON line a step, its MetricLogger JSONL stream and one artifact PNG
+   (read back). A ``{"v1_int8": ..., "train_cli": ...}`` line carries the
+   figures. The whole run's seconds are printed.
+
 Each path's launch counts (and the Hopper-body counts of K1-K7) are set
 to 0 just before it runs and read just after. A K2 call
 counts once, though it launches its row statistics and its GEMM. The K6
@@ -296,9 +341,63 @@ TRAIN_DESCENT_STEPS = 5
 # kernel path against the fp32 plain path
 TRAIN_LOSS_GATE = 7e-3  # twice JAX's worst, 3.22e-3 (ViT-S/14), rounded up
 TRAIN_COSINE_GATE = 0.85  # 1 - twice (1 - JAX's worst, 0.9299 (the small test model)), rounded down
+# the other families' train gates (PERF.md section 2, from
+# tests/train_families_bf16_drift.py on the CPU): twice the JAX package's
+# own worst drift, the loss rounded up and the cosines down in the first
+# digit. V1 ViT (tiny, ViT-S/14 under the shipped decoder): loss 1.84e-2,
+# cosine 0.9803, median 0.99971; V1 ConvNeXt (tiny, ConvNeXt-L under the
+# shipped decoder): 6.52e-3, 0.6071 (the last stage's layer scale, whose
+# gradient sums a whole map), 0.99944; V2old (tiny, the ViT-S/14 config):
+# 1.08e-2, 0.5214, 0.96616
+V1_TRAIN_GATES = {"loss": 4e-2, "cosine": 0.96, "median": 0.999}
+V1_CONVNEXT_TRAIN_GATES = {"loss": 2e-2, "cosine": 0.2, "median": 0.998}
+V2OLD_TRAIN_GATES = {"loss": 3e-2, "cosine": 0.04, "median": 0.93}
 # parameters the V2 loss gives no gradient, in JAX as here: the given rays
 # replace the camera head's prediction
 NO_GRADIENT = ("pixel_decoder.camera_layer.", "pixel_decoder.camera_token_adapter.")
+# V2old's biases whose shift its whole-map log-depth norm or a softmax
+# removes: zero gradient in exact arithmetic, rounding noise on both paths
+# (tests/train_families_bf16_drift.py), so held to neither gate
+V2OLD_SHIFT_INVARIANT = (r"pixel_decoder\.depth_layer\.depth_mlp\.\d+\.proj2\.bias|pixel_decoder\.depth_layer\.to_depth\.bias"
+                         r"|pixel_decoder\.level_embed_layer\.3\.bias")
+# each family's train path: the config (trained at its training section's
+# 8 x 2 images, the image shape floored to 14: V1 462 x 616, the others
+# 476 x 630), the launches of one micro-batch (forward + the checkpointed
+# blocks' recompute; the decoders' CvnxtBlocks and attention once), the
+# gates (PERF.md section 2: twice the JAX package's own worst bf16 drift of
+# the family, tests/train_bf16_drift.py for V2 and
+# tests/train_families_bf16_drift.py for the others), the parameters
+# without a gradient, whether the loss falls over the 5 steps (V2's does;
+# V1's and V2old's rise over their first steps at random weights, V1's in
+# the JAX package's own trainer too, tests/train_trajectory.py: they are
+# held to first-order descent, which every family is), and for V2 the
+# validation and int8-master checks
+TRAIN_FAMILIES = {
+    "V2 ViT-L/14": dict(config=CONFIG, per_micro={"flash_attention_qkv": 48, "ln_dense": 48, "flash_attention": 4},
+                        gates={"loss": TRAIN_LOSS_GATE, "cosine": TRAIN_COSINE_GATE}, no_gradient=NO_GRADIENT,
+                        shift_invariant=None, descends=True, int8_masters=True,
+                        validation={"flash_attention_qkv": 24, "ln_dense": 24, "flash_attention": 4}),
+    "V1 ViT-L/14": dict(config=CONFIG_V1["V1 ViT-L/14"],
+                        per_micro={"flash_attention_qkv": 48, "ln_dense": 54, "flash_attention": 3},
+                        gates=V1_TRAIN_GATES, no_gradient=(), shift_invariant=None, descends=False),
+    "V1 ConvNeXt-L": dict(config=CONFIG_V1["V1 ConvNeXt-L"], per_micro={"ln_dense": 78, "flash_attention": 3},
+                          gates=V1_CONVNEXT_TRAIN_GATES, no_gradient=(), shift_invariant=None, descends=False),
+    "V2old ViT-L/14": dict(config=CONFIG_V2OLD, per_micro={"flash_attention_qkv": 48, "ln_dense": 54},
+                           gates=V2OLD_TRAIN_GATES, no_gradient=NO_GRADIENT, shift_invariant=V2OLD_SHIFT_INVARIANT,
+                           descends=False),
+}
+# K2's gradients at ConvNeXt-L's widest and narrowest stages (V1 at 462 x
+# 616, B = 8): name -> (M, C, F, eps)
+V1_K2_GRAD_SHAPES = {"cnvnxtl_stage3": V1_K2_SHAPES["cnvnxtl_stage3"], "cnvnxtl_stage0": V1_K2_SHAPES["cnvnxtl_stage0"]}
+# V1 int8: calibrate_int8_stages on 2 seeded images at the default budget,
+# then BATCH others against the fp32 plain path at the V1 int8 gates
+V1_INT8_CALIB = 2
+# twice the JAX package's own V1 int8 drift against fp32 under its
+# calibrated mask (tests/train_families_bf16_drift.py --int8 on the CPU:
+# tiny and ViT-S/14 V1; worst mean 4.36e-2, p99 0.215, intrinsics 4.92e-2),
+# rounded up in the first digit
+V1_INT8_GATES = {"mean": 0.09, "p99": 0.5, "intrinsics": 0.1}
+TRAIN_CLI_STEPS = 2
 # evaluation: validate() on Dummy at the training shape (476 x 630), 4
 # batches of 8; the cameras and the camera-prompted infer() at 518 x 518
 EVAL_BATCH, EVAL_BATCHES = 8, 4
@@ -532,19 +631,21 @@ def grad_phase(name, fn, plain, inputs, args, seed, wrapper):
     return {"max_abs_err": max(errs), "rel_rms": max(rms), "backward_ms": bwd_ms, "inputs": len(inputs)}
 
 
-def train_phase(config, kernels, none, smi, dev):
-    """UniDepthV2 ViT-L/14 training on the card (``build_trainer`` with no
-    device named). Returns (the launches of one optimizer step, the phase's
-    figures)."""
+def train_phase(label, spec, kernels, none, smi, dev):
+    """``label``'s training on the card (``build_trainer`` with no device
+    named, the family's recipe, ``spec`` a TRAIN_FAMILIES entry). Returns
+    (the launches of one optimizer step, the phase's figures)."""
     from unidepth_tpu_torch.datasets.dummy import Dummy
     from unidepth_tpu_torch.datasets.loader import eval_batches, make_batch
-    from unidepth_tpu_torch.models.unidepthv2.model import UniDepthV2
     from unidepth_tpu_torch.training.losses import build_losses
-    from unidepth_tpu_torch.training.step import forward_backward, to_device
+    from unidepth_tpu_torch.training.step import compute_losses_v1, compute_losses_v2, forward_backward, to_device
     from unidepth_tpu_torch.training.trainer import build_trainer, train_image_shape
 
+    t_phase = time.perf_counter()
+    config = json.loads(spec["config"].read_text())
     tr = config["training"]
     shape = train_image_shape(config)
+    config["data"]["image_shape"] = list(shape)  # what build_trainer builds V1 at
     batch_size, accum = tr["batch_size"], tr["nsteps_accumulation_gradient"]
     t0 = time.perf_counter()
     trainer = build_trainer(config, seed=SEED)  # no device named: the card
@@ -552,35 +653,37 @@ def train_phase(config, kernels, none, smi, dev):
     placed = {(p.device.type, p.dtype) for p in model.parameters()}
     masters = {(t.device.type, t.dtype) for t in state.params.values()}
     if placed != {("cuda", torch.bfloat16)} or masters != {("cuda", torch.float32)}:
-        raise RuntimeError(f"build_trainer placed the model on {placed} and the masters on {masters}")
-    log(f"trainer: ViT-L/14 {sum(t.numel() for t in state.params.values()) / 1e6:.1f} M trained params, bf16 model, "
+        raise RuntimeError(f"{label}: build_trainer placed the model on {placed} and the masters on {masters}")
+    log(f"trainer: {label} {sum(t.numel() for t in state.params.values()) / 1e6:.1f} M trained params, bf16 model, "
         f"fp32 masters, moments and EMA, built in {time.perf_counter() - t0:.1f} s")
     batch = make_batch(Dummy(image_shape=shape, length=1024, seed=SEED), batch_size, accum,
                        np.random.default_rng(SEED))
     if batch["image"].shape != (accum, batch_size, *shape, 3):
-        raise RuntimeError(f"train batch {batch['image'].shape}")
+        raise RuntimeError(f"{label} train batch {batch['image'].shape}")
     losses = build_losses(config)
+    recipe = compute_losses_v1 if config["model"]["name"] == "UniDepthV1" else compute_losses_v2
     names = list(state.params)
-    camera = [n for n in names if n.startswith(NO_GRADIENT)]
+    camera = [n for n in names if n.startswith(spec["no_gradient"])]
+    noise = [n for n in names if spec["shift_invariant"] and re.fullmatch(spec["shift_invariant"], n)]
 
-    # 3. one micro-batch of 2 images, no update: the kernel path (bf16)
+    # (a) one micro-batch of 2 images, no update: the kernel path (bf16)
     # against the same weights on the fp32 plain path
     micro = to_device({k: v[0, :TRAIN_CHECK_BATCH] for k, v in batch.items()}, dev)
     weights = dict(model.named_parameters())
-    slots, micro_launches = run_path("train micro-batch (B=2), kernel path", kernels,
-                                     lambda: forward_backward(model, losses, micro))
-    per_micro = {"flash_attention_qkv": 24 * 2, "ln_dense": 24 * 2, "flash_attention": 4}  # forward + recompute
-    check_launches("train micro-batch", micro_launches,
+    per_micro = spec["per_micro"]  # forward + the checkpointed blocks' recompute
+    slots, micro_launches = run_path(f"{label} train micro-batch (B=2), kernel path", kernels,
+                                     lambda: forward_backward(model, losses, micro, recipe))
+    check_launches(f"{label} train micro-batch", micro_launches,
                    {**none, **per_micro, **{f"{k}/wgmma": v for k, v in per_micro.items()}})
     grads = {n: (torch.zeros_like(state.params[n]) if weights[n].grad is None else weights[n].grad.float())
              for n in names}
     model.zero_grad(set_to_none=True)
-    ref_model = UniDepthV2.from_config(config, device=dev, dtype=torch.float32).init_params(seed=SEED)
+    ref_model = type(model).from_config(config, device=dev, dtype=torch.float32).init_params(seed=SEED)
     ref_model.set_kernels(False)
-    ref_slots, ref_launches = run_path("train micro-batch (B=2), fp32 plain path", kernels,
-                                       lambda: forward_backward(ref_model, losses, micro))
+    ref_slots, ref_launches = run_path(f"{label} train micro-batch (B=2), fp32 plain path", kernels,
+                                       lambda: forward_backward(ref_model, losses, micro, recipe))
     if any(ref_launches.values()):
-        raise RuntimeError("the fp32 plain train path launched a kernel")
+        raise RuntimeError(f"{label}: the fp32 plain train path launched a kernel")
     ref_weights = dict(ref_model.named_parameters())
     drift = {k: abs(slots[k].item() - ref_slots[k].item()) / abs(ref_slots[k].item()) for k in slots}
     cosines, zero = {}, []
@@ -588,48 +691,80 @@ def train_phase(config, kernels, none, smi, dev):
         ref = ref_weights[n].grad
         got = grads[n]
         if not torch.isfinite(got).all():
-            raise RuntimeError(f"train micro-batch: the gradient of {n} is not finite")
+            raise RuntimeError(f"{label} train micro-batch: the gradient of {n} is not finite")
         if ref is None or not ref.any():
             zero.append(n)
             if got.any():
-                raise RuntimeError(f"train micro-batch: {n} has a gradient where the fp32 plain path has none")
+                raise RuntimeError(f"{label} train micro-batch: {n} has a gradient where the fp32 plain path has none")
+            continue
+        if n in noise:  # zero in exact arithmetic: rounding noise on both paths
             continue
         cosines[n] = (torch.dot(got.flatten().double(), ref.flatten().double())
                       / (got.double().norm() * ref.double().norm()).clamp_min(1e-300)).item()
     del ref_model, ref_weights, grads
     model.zero_grad(set_to_none=True)
     worst = min(cosines, key=cosines.get)
-    log(f"train micro-batch kernel vs fp32 plain: loss slots {', '.join(f'{k} {v:.3e}' for k, v in drift.items())} "
-        f"relative drift (gate {TRAIN_LOSS_GATE}); smallest gradient cosine {cosines[worst]:.6f} ({worst}; gate "
-        f"{TRAIN_COSINE_GATE}), median {statistics.median(cosines.values()):.6f} over {len(cosines)} parameters")
+    median = statistics.median(cosines.values())
+    gates = spec["gates"]
+    log(f"{label} train micro-batch kernel vs fp32 plain: loss slots "
+        f"{', '.join(f'{k} {v:.3e}' for k, v in drift.items())} relative drift (gate {gates['loss']}); smallest "
+        f"gradient cosine {cosines[worst]:.6f} ({worst}; gate {gates['cosine']}), median {median:.6f} (gate "
+        f"{gates.get('median')}) over {len(cosines)} parameters; {len(noise)} shift-invariant left out")
     if sorted(zero) != sorted(camera):
-        raise RuntimeError(f"parameters without a gradient: {sorted(set(zero) ^ set(camera))} differ from the camera head's")
-    if max(drift.values()) > TRAIN_LOSS_GATE:
-        raise RuntimeError(f"train loss slots drift {drift} past the gate {TRAIN_LOSS_GATE}")
-    if cosines[worst] < TRAIN_COSINE_GATE:
-        raise RuntimeError(f"gradient cosine {cosines[worst]} of {worst} below the gate {TRAIN_COSINE_GATE}")
+        raise RuntimeError(f"{label}: parameters without a gradient {sorted(set(zero) ^ set(camera))} differ from "
+                           f"the expected {len(camera)}")
+    if max(drift.values()) > gates["loss"]:
+        raise RuntimeError(f"{label} train loss slots drift {drift} past the gate {gates['loss']}")
+    if cosines[worst] < gates["cosine"] or median < gates.get("median", -1.0):
+        raise RuntimeError(f"{label} gradient cosine {cosines[worst]} of {worst} (median {median}) below the gates "
+                           f"{gates}")
 
-    # 1. the launches of one optimizer step; 2. finiteness and coverage
+    # (b) the launches of one optimizer step; finiteness and coverage
     start = {n: t.clone() for n, t in state.params.items()}
     torch.cuda.reset_peak_memory_stats(dev)
-    metrics, launches = run_path("train step (2 x 8 images)", kernels, lambda: trainer.step(batch, (SEED, 0)))
+    metrics, launches = run_path(f"{label} train step ({accum} x {batch_size} images)", kernels,
+                                 lambda: trainer.step(batch, (SEED, 0)))
     state = trainer.state
     expected = {k: v * accum for k, v in per_micro.items()}
-    check_launches("train step", launches, {**none, **expected, **{f"{k}/wgmma": v for k, v in expected.items()}})
+    check_launches(f"{label} train step", launches,
+                   {**none, **expected, **{f"{k}/wgmma": v for k, v in expected.items()}})
     values = {k: v.item() for k, v in metrics.items()}
     if not all(np.isfinite(list(values.values()))):
-        raise RuntimeError(f"train step metrics not finite: {values}")
+        raise RuntimeError(f"{label} train step metrics not finite: {values}")
+    opt = trainer.optimizer
+    hp = opt.hyperparams(0)
+    below = []  # updates under half the float32 spacing of every weight: they round away, in JAX as here
     for n in names:  # mu = (1 - b1) x the clipped gradient after one step
         mu = state.opt_state.mu[n]
-        if not torch.isfinite(mu).all() or bool(mu.any()) == (n in camera):
-            raise RuntimeError(f"train step: {n} gradient finite {bool(torch.isfinite(mu).all())}, "
-                               f"non-zero {bool(mu.any())}, expected non-zero {n not in camera}")
+        if not torch.isfinite(mu).all():
+            raise RuntimeError(f"{label} train step: {n} gradient not finite")
+        if n in noise:
+            continue
+        if bool(mu.any()) == (n in camera):
+            raise RuntimeError(f"{label} train step: {n} gradient non-zero {bool(mu.any())}, expected non-zero "
+                               f"{n not in camera}")
         if n not in camera and torch.equal(state.params[n], start[n]):
-            raise RuntimeError(f"train step: {n} did not move")
-    log(f"train step 1: {values}; every parameter but the camera head's {len(camera)} has a finite, non-zero "
-        "gradient, and moved")
+            p0 = start[n].double()
+            u = (mu.double() / (1 - hp["b1"])) / ((state.opt_state.nu[n].double() / (1 - opt.b2)).sqrt() + opt.eps)
+            update = hp["lr"] * opt.scales[n] * (u + (hp["wd"] * p0 if opt.wd_mask[n] else 0.0))
+            spacing = (torch.nextafter(start[n].abs(), torch.tensor(float("inf"), device=dev)) - start[n].abs()).double()
+            if not (update.abs() < spacing / 2).all():
+                raise RuntimeError(f"{label} train step: {n} did not move, though its update reaches "
+                                   f"{(update.abs() / spacing).max().item():.3g} of its weights' float32 spacing")
+            below.append(n)
+    # first-order descent: the step moved the weights against the step's
+    # (clipped) gradient, mu / (1 - b1): g . (p1 - p0) < 0
+    b1 = trainer.optimizer.hyperparams(0)["b1"]
+    slope = sum(torch.dot(state.opt_state.mu[n].flatten().double(), (state.params[n] - start[n]).flatten().double())
+                for n in names).item() / (1 - b1)
+    if not slope < 0:
+        raise RuntimeError(f"{label} train step: the update's inner product with the gradient is {slope}, not < 0")
+    log(f"{label} train step 1: {values}; every parameter with an fp32 gradient but the {len(noise)} shift-invariant "
+        f"ones has a finite, non-zero gradient and moved (but {len(below)} whose update is under half their float32 "
+        f"spacing: {below[:4]}); the {len(camera)} without one stayed; first-order loss change g . (p1 - p0) = "
+        f"{slope:.4e}")
 
-    # 4. descent over 5 steps on the same batch; 5. ms a step (steps 3-5)
+    # (c) descent over 5 steps on the same batch; (d) ms a step (steps 3-5)
     totals, step_ms = [values["total"]], []
     for i in range(1, TRAIN_DESCENT_STEPS):
         torch.cuda.synchronize()
@@ -639,49 +774,55 @@ def train_phase(config, kernels, none, smi, dev):
         step_ms.append((time.perf_counter() - t0) * 1e3)
     peak = torch.cuda.max_memory_allocated(dev)
     state = trainer.state
-    if not all(np.isfinite(totals)) or not totals[-1] < totals[0]:
-        raise RuntimeError(f"train loss did not descend over {TRAIN_DESCENT_STEPS} steps: {totals}")
+    if not all(np.isfinite(totals)) or (spec["descends"] and not totals[-1] < totals[0]):
+        raise RuntimeError(f"{label} train loss did not descend over {TRAIN_DESCENT_STEPS} steps: {totals}")
     n_updates = state.ema.num_updates
     stale = [n for n in names if not torch.equal(state.ema.shadow[n], start[n])]
     if n_updates != TRAIN_DESCENT_STEPS or stale:  # the shadow moves every 10th update only
-        raise RuntimeError(f"EMA after {TRAIN_DESCENT_STEPS} steps: {n_updates} updates, moved {stale[:3]}")
-    # (e) one validation under the EMA shadow: afterwards the live weights
-    # and the masters are bitwise what they were
-    live = {n: p.detach().clone() for n, p in model.named_parameters()}
-    masters = {n: t.clone() for n, t in state.params.items()}
-    val_data = Dummy(image_shape=shape, length=batch_size, seed=SEED + 1)
-    val, val_launches = run_path("validation under the EMA shadow", kernels,
-                                 lambda: trainer.validate({"Dummy": eval_batches(val_data, batch_size)}))
-    per_forward = {"flash_attention_qkv": 24, "ln_dense": 24, "flash_attention": 4}  # no recompute
-    check_launches("validation under the EMA shadow", val_launches,
-                   {**none, **per_forward, **{f"{k}/wgmma": v for k, v in per_forward.items()}})
-    if not all(np.isfinite(list(val["Dummy"].values()))):
-        raise RuntimeError(f"validation under the EMA shadow: {val}")
-    moved = [n for n, p in model.named_parameters() if not torch.equal(p, live[n])]
-    moved += [n for n, t in state.params.items() if not torch.equal(t, masters[n])]
-    if moved:
-        raise RuntimeError(f"validation under the EMA shadow changed {moved[:3]}")
-    log(f"validation under the EMA shadow ({batch_size} images): d1 {val['Dummy']['d1']:.4f}, arel "
-        f"{val['Dummy']['arel']:.4f}; the live bf16 weights and the fp32 masters bitwise unchanged")
-    del live, masters
-
-    # the trainer hands the trained fp32 weights to the model: int8 serving
-    # then quantizes them, not the init-time masters
-    trainer.sync_model()
-    for lin, (w, b) in model._int8_weights().items():
-        trained = state.params[f"pixel_encoder.{lin}.weight"], state.params[f"pixel_encoder.{lin}.bias"]
-        if not (torch.equal(w.to(dev), trained[0]) and torch.equal(b.to(dev), trained[1])):
-            raise RuntimeError(f"int8 serving's master of {lin} is not the trained weight")
+        raise RuntimeError(f"{label} EMA after {TRAIN_DESCENT_STEPS} steps: {n_updates} updates, moved {stale[:3]}")
+    figures = {}
+    if spec.get("validation"):
+        # one validation under the EMA shadow: afterwards the live weights
+        # and the masters are bitwise what they were
+        live = {n: p.detach().clone() for n, p in model.named_parameters()}
+        masters = {n: t.clone() for n, t in state.params.items()}
+        val_data = Dummy(image_shape=shape, length=batch_size, seed=SEED + 1)
+        val, val_launches = run_path(f"{label} validation under the EMA shadow", kernels,
+                                     lambda: trainer.validate({"Dummy": eval_batches(val_data, batch_size)}))
+        per_forward = spec["validation"]  # no recompute
+        check_launches(f"{label} validation under the EMA shadow", val_launches,
+                       {**none, **per_forward, **{f"{k}/wgmma": v for k, v in per_forward.items()}})
+        if not all(np.isfinite(list(val["Dummy"].values()))):
+            raise RuntimeError(f"{label} validation under the EMA shadow: {val}")
+        moved = [n for n, p in model.named_parameters() if not torch.equal(p, live[n])]
+        moved += [n for n, t in state.params.items() if not torch.equal(t, masters[n])]
+        if moved:
+            raise RuntimeError(f"{label} validation under the EMA shadow changed {moved[:3]}")
+        log(f"{label} validation under the EMA shadow ({batch_size} images): d1 {val['Dummy']['d1']:.4f}, arel "
+            f"{val['Dummy']['arel']:.4f}; the live bf16 weights and the fp32 masters bitwise unchanged")
+        figures["ema_validation"] = val["Dummy"]
+        del live, masters
+    if spec.get("int8_masters"):
+        # the trainer hands the trained fp32 weights to the model: int8
+        # serving then quantizes them, not the init-time masters
+        trainer.sync_model()
+        for lin, (w, b) in model._int8_weights().items():
+            trained = state.params[f"pixel_encoder.{lin}.weight"], state.params[f"pixel_encoder.{lin}.bias"]
+            if not (torch.equal(w.to(dev), trained[0]) and torch.equal(b.to(dev), trained[1])):
+                raise RuntimeError(f"{label}: int8 serving's master of {lin} is not the trained weight")
+        log(f"{label}: after sync_model the int8 path's fp32 masters are the trained weights")
     ms = statistics.median(step_ms[-3:])
     rate = batch_size * accum / (ms / 1e3)
-    log(f"train descent: total {', '.join(f'{t:.4f}' for t in totals)}; EMA {n_updates} updates, shadow unmoved "
-        f"(every 10th); int8 masters follow the trained weights")
-    log(f"train step (ViT-L/14, {accum} x {batch_size} images at {shape[0]}x{shape[1]}, bf16 + fp32 masters): "
+    log(f"{label} train totals: {', '.join(f'{t:.4f}' for t in totals)}"
+        f"{' (descending)' if spec['descends'] else ' (finite: not held to fall at random weights)'}; EMA "
+        f"{n_updates} updates, shadow unmoved (every 10th)")
+    log(f"train step ({label}, {accum} x {batch_size} images at {shape[0]}x{shape[1]}, bf16 + fp32 masters): "
         f"{ms:.1f} ms/step median of steps {', '.join(f'{t:.1f}' for t in step_ms[-3:])}, {rate:.2f} images/s, "
         f"peak {peak / 2**30:.2f} GiB allocated ({smi})")
-    figures = {"ms_per_step": ms, "images_per_s": rate, "peak_gib": peak / 2**30, "totals": totals,
-               "loss_drift": drift, "min_grad_cosine": cosines[worst], "min_grad_cosine_param": worst,
-               "ema_validation": val["Dummy"]}
+    figures.update({"shape": list(shape), "ms_per_step": ms, "images_per_s": rate, "peak_gib": peak / 2**30,
+                    "totals": totals, "loss_drift": drift, "min_grad_cosine": cosines[worst],
+                    "min_grad_cosine_param": worst, "median_grad_cosine": median,
+                    "seconds": time.perf_counter() - t_phase})
     del trainer, model, state, start, batch, micro
     torch.cuda.empty_cache()
     return launches, figures
@@ -885,6 +1026,114 @@ def eval_phase(config, kernels, none, smi, dev):
                 + (f", {arel[0]} (random weights)" if name == "demo" else ""))
     per_batch = {k: v // EVAL_BATCHES for k, v in val_launches.items()}
     return per_batch, infer_launches, figures
+
+
+def v1_int8_phase(kernels, none, smi, dev):
+    """UniDepthV1 ViT-L/14 int8 serving: refused before calibration,
+    ``calibrate_int8_stages`` on V1_INT8_CALIB seeded images, then int8
+    ``infer()`` of BATCH other images under the calibrated mask against the
+    fp32 plain path, images/s beside bf16's; a ConvNeXt-L V1 refuses int8.
+    Returns the int8 path's launches and the figures."""
+    from unidepth_tpu_torch.models.unidepthv1.model import UniDepthV1
+
+    t_phase = time.perf_counter()
+    config = json.loads(CONFIG_V1["V1 ViT-L/14"].read_text())
+    model = UniDepthV1.from_config(config).init_params(seed=SEED).eval()  # no device named: the card
+    rng = np.random.default_rng(SEED + 7)
+    calib = rng.integers(0, 256, (V1_INT8_CALIB, *V1_SHAPE, 3), dtype=np.uint8)
+    rgb = rng.integers(0, 256, (BATCH, *V1_SHAPE, 3), dtype=np.uint8)
+    try:
+        model.set_serving_precision("int8")
+        raise RuntimeError("V1 accepted int8 before calibrate_int8_stages")
+    except ValueError as err:
+        log(f"V1 int8 before calibration refused: {err}")
+    t0 = time.perf_counter()
+    report = model.calibrate_int8_stages(calib)
+    log(f"V1 ViT-L/14 calibrate_int8_stages ({V1_INT8_CALIB} images at {V1_SHAPE[0]}x{V1_SHAPE[1]}, max_rel_err "
+        f"{report['max_rel_err']}): per_stage {report['per_stage']}, selected {report['selected']}, rel_err "
+        f"{report['rel_err']:.4e}, {time.perf_counter() - t0:.1f} s")
+    if not (any(report["selected"]) and report["rel_err"] <= report["max_rel_err"] == 0.05):
+        raise RuntimeError(f"V1 int8 calibration: {report}")
+    model.set_serving_precision("int8")
+    blocks = np.diff([0, *model.pixel_encoder.cfg.output_idx])  # blocks a stage: 5, 7, 6, 6
+    int8_blocks = int(sum(n for n, on in zip(blocks, report["selected"]) if on))
+    bf16_blocks = int(sum(blocks)) - int8_blocks
+    expected = {"flash_attention_packed": int8_blocks, "flash_attention_qkv": bf16_blocks,
+                "ln_dense": bf16_blocks + 6, "flash_attention": 3}  # + the decoder's 6 CvnxtBlocks, 3 layers_16
+    expected = {k: v for k, v in expected.items() if v}
+    out, launches = run_path("V1 int8 infer() under the calibrated mask", kernels, lambda: model.infer(rgb))
+    check_launches("V1 int8 infer()", launches, {**none, **expected, **{f"{k}/wgmma": v for k, v in expected.items()}})
+    for key, ch in (("depth", 1), ("points", 3)):
+        if tuple(out[key].shape) != (BATCH, *V1_SHAPE, ch) or not torch.isfinite(out[key]).all():
+            raise RuntimeError(f"V1 int8: {key} has shape {tuple(out[key].shape)} or is not finite")
+    if not (out["depth"] > 0).all() or not torch.isfinite(out["intrinsics"]).all():
+        raise RuntimeError("V1 int8: depth not positive or intrinsics not finite")
+    ref_model = UniDepthV1.from_config(config, device=dev, dtype=torch.float32).init_params(seed=SEED)
+    ref_model.set_kernels(False).eval()
+    ref, ref_launches = run_path("V1 fp32 plain infer()", kernels, lambda: ref_model.infer(rgb))
+    if any(ref_launches.values()):
+        raise RuntimeError("V1 int8: the plain reference run launched a kernel")
+    del ref_model
+    rel = ((out["depth"] - ref["depth"]).abs() / (ref["depth"].abs() + 1e-6)).flatten()
+    k_rel = ((out["intrinsics"] - ref["intrinsics"]).abs() / (ref["intrinsics"].abs() + 1e-6)).max().item()
+    drift = {"depth_median": rel.median().item(), "depth_mean": rel.mean().item(),
+             "depth_p99": torch.quantile(rel, 0.99).item(), "depth_max": rel.max().item(), "intrinsics_max": k_rel}
+    log(f"V1 int8 vs fp32 plain path: {json.dumps(drift)} (gates {V1_INT8_GATES})")
+    if not (drift["depth_mean"] < V1_INT8_GATES["mean"] and drift["depth_p99"] < V1_INT8_GATES["p99"]
+            and k_rel < V1_INT8_GATES["intrinsics"]):
+        raise RuntimeError(f"V1 int8 drift {drift} out of the gates {V1_INT8_GATES}")
+    del out, ref
+    what = f"B={BATCH} {V1_SHAPE[0]}x{V1_SHAPE[1]} (depth, points, intrinsics)"
+    rates = {"int8": images_per_s("V1 ViT-L/14 int8 (calibrated mask)", lambda: model.infer(rgb), smi, what=what)}
+    model.set_serving_precision("default")
+    rates["bf16"] = images_per_s("V1 ViT-L/14 bf16 (same call)", lambda: model.infer(rgb), smi, what=what)
+    del model
+    torch.cuda.empty_cache()
+    convnext = UniDepthV1.from_config(json.loads(CONFIG_V1["V1 ConvNeXt-L"].read_text()), device="cpu")
+    try:
+        convnext.set_serving_precision("int8")
+        raise RuntimeError("V1 ConvNeXt-L accepted int8")
+    except ValueError as err:
+        if "requires a ViT encoder" not in str(err):
+            raise
+        log(f"V1 ConvNeXt-L int8 refused: {err}")
+    del convnext
+    figures = {"calibration": {"per_stage": report["per_stage"], "selected": report["selected"],
+                               "rel_err": report["rel_err"]}, "drift": drift, "images_per_s": rates,
+               "seconds": time.perf_counter() - t_phase}
+    log(f"V1 int8 phase: {figures['seconds']:.1f} s")
+    return launches, figures
+
+
+def train_cli_phase():
+    """scripts_torch/train.py on V1 ConvNeXt-L for TRAIN_CLI_STEPS steps on
+    Dummy data, its own process on the card: exit 0, one JSON line a step,
+    its MetricLogger stream and one artifact PNG."""
+    from unidepth_tpu_torch.utils.png import read_png
+
+    config = CONFIG_V1["V1 ConvNeXt-L"]
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = ["--config-file", str(config), "--dummy-data", "--steps", str(TRAIN_CLI_STEPS), "--checkpoint-dir", tmp]
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, str(ROOT / "scripts_torch" / "train.py"), *argv], cwd=ROOT,
+                              capture_output=True, text=True, timeout=600)
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise RuntimeError(f"scripts_torch/train.py exited {proc.returncode}:\n{proc.stdout[-3000:]}\n"
+                               f"{proc.stderr[-3000:]}")
+        steps = [json.loads(line) for line in proc.stdout.splitlines() if line.startswith('{"step"')]
+        if [s["step"] for s in steps] != list(range(1, TRAIN_CLI_STEPS + 1)) or not all(
+                np.isfinite(v) for s in steps for v in s.values()):
+            raise RuntimeError(f"scripts_torch/train.py printed {steps}")
+        records = [json.loads(line) for line in (Path(tmp) / f"{config.stem}.jsonl").read_text().splitlines()]
+        images = [r[k] for r in records for k in r if k.startswith("image/")]
+        if [r["step"] for r in records if "train/total" in r] != list(range(1, TRAIN_CLI_STEPS + 1)) or len(images) != 1:
+            raise RuntimeError(f"scripts_torch/train.py's MetricLogger stream: {records}")
+        grid = read_png(images[0])
+        peak = [line for line in proc.stdout.splitlines() if line.startswith("peak device memory")]
+    log(f"scripts_torch/train.py {' '.join(argv[:-2])}: exit 0 in {seconds:.1f} s; {len(records)} JSONL records, "
+        f"artifact {grid.shape} PNG; {peak[0] if peak else ''}; step seconds {[round(s['seconds'], 2) for s in steps]}")
+    return {"seconds": seconds, "steps": steps, "artifact_shape": list(grid.shape)}
 
 
 def check_v2old_outputs(name, out):
@@ -1443,8 +1692,30 @@ def main():
     m["flash_attention_packed"]["grad"] = grad_phase(
         f"K4 ({BATCH}, 1370, 16 x 64) views", k4_views, k4_views_plain, k4_base, (), 24, flash_attention_packed)
     del qkv_t, k2_t, k3_t, k4_base
-    train_launches, train_figures = train_phase(config, kernels, none, smi, dev)
+    # K1, K2 and K3 gradients at the V1 training shapes (462 x 616)
+    qkv_v1 = train_grad_inputs(25, (BATCH, V1_K1_TOKENS, 3 * 1024))
+    m["flash_attention_qkv"]["grad_v1"] = grad_phase(
+        f"K1 V1 ({BATCH}, {V1_K1_TOKENS}, 16 x 64)", flash_attention_qkv, flash_attention_qkv_plain, qkv_v1,
+        (16, 64**-0.5), 25, flash_attention_qkv)
+    for key, (rows, c, f, eps) in V1_K2_GRAD_SHAPES.items():
+        gen.manual_seed(rows + c + 2)
+        k2_v1 = [randn(rows, c, dtype=torch.bfloat16, std=2.0, mean=0.5),
+                 randn(f, c, dtype=torch.bfloat16, std=c**-0.5), randn(f, dtype=torch.bfloat16, std=0.1),
+                 randn(c, dtype=torch.bfloat16, std=0.1, mean=1.0), randn(c, dtype=torch.bfloat16, std=0.1)]
+        m["ln_dense"][f"grad_{key}"] = {"shape": [rows, c, f], **grad_phase(
+            f"K2 {key} (M {rows}, C {c}, F {f})", ln_dense, ln_dense_plain, [t.requires_grad_() for t in k2_v1],
+            (eps, "gelu"), rows + c + 2, ln_dense)}
+    bh, n, d = V1_K3_SHAPES["v1_vitl14"]
+    k3_v1 = train_grad_inputs(26, *[(bh, n, d)] * 3)
+    m["flash_attention"]["grad_v1"] = grad_phase(f"K3 V1 {(bh, n, d)}", flash_attention, flash_attention_plain, k3_v1,
+                                                 (d**-0.5,), 26, flash_attention)
+    del qkv_v1, k2_v1, k3_v1
+    train_launches, train_figures = {}, {}
+    for label, spec in TRAIN_FAMILIES.items():
+        train_launches[label], train_figures[label] = train_phase(label, spec, kernels, none, smi, dev)
     eval_launches, camera_infer_launches, eval_figures = eval_phase(config, kernels, none, smi, dev)
+    v1_int8_launches, v1_int8_figures = v1_int8_phase(kernels, none, smi, dev)
+    train_cli = train_cli_phase()
 
     # each kernel's count from the path it serves: K1-K3 the bf16 ViT-L path,
     # K4 the int8 one, K5 its own call, K6 and K7 the harness
@@ -1481,8 +1752,12 @@ def main():
     # the V1 paths' counts beside the V2 main path's
     for name in ("flash_attention_qkv", "ln_dense", "flash_attention"):
         m[name]["v1_launches"] = {label: counts[name] for label, counts in v1_launches.items()}
-        m[name]["train_launches"] = train_launches[name]  # one optimizer step, 2 micro-batches
+        m[name]["train_launches"] = train_launches["V2 ViT-L/14"][name]  # one optimizer step, 2 micro-batches
+        # one optimizer step of each family (V2, V1 ViT-L, V1 ConvNeXt-L, V2old)
+        m[name]["family_train_launches"] = {label: counts[name] for label, counts in train_launches.items()}
         m[name]["eval_launches"] = {"validate_batch": eval_launches[name], "camera_infer": camera_infer_launches[name]}
+    for name in ("flash_attention_qkv", "ln_dense", "flash_attention", "flash_attention_packed"):
+        m[name]["v1_int8_launches"] = v1_int8_launches[name]
     record = [
         {"name": name, "route": "cuda", "source": f"unidepth_tpu_torch/csrc/{src}", "replaces": rep, "body": body,
          "launches": path_launches[name],
@@ -1491,6 +1766,7 @@ def main():
         for name, (src, rep, body, library) in sources.items()
     ]
     log(json.dumps({"train": train_figures}))
+    log(json.dumps({"v1_int8": v1_int8_figures, "train_cli": train_cli}))
     log(json.dumps({"eval": eval_figures}))
     log(json.dumps({"v2old": v2old_figures}))
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s, the build included")

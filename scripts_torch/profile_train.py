@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
-"""Where the time goes in one UniDepthV2 ViT-L/14 optimizer step of the
-PyTorch port, on one CUDA card.
+"""Where the time goes in one optimizer step of the PyTorch port's trainer,
+on one CUDA card.
 
-    python3 scripts_torch/profile_train.py [--steps 2]
+    python3 scripts_torch/profile_train.py [--config-file configs/config_v2_vitl14.json] [--steps 2]
 
 Run from the root of a checkout on a machine with a CUDA card and nvcc.
-Builds the trainer ``chip_smoke.py`` trains (configs/config_v2_vitl14.json,
+Builds the trainer ``chip_smoke.py`` trains for the config (default
+UniDepthV2 ViT-L/14; also UniDepthV1 ViT-L/14 or ConvNeXt-L, UniDepthV2old;
 random weights from ``init_params(seed=0)``, bf16 on the card with fp32
-masters) and one seeded Dummy batch of 2 x 8 images at 476 x 630, takes two
-warm-up steps, times ``--steps`` steps with the host clock around
+masters) and one seeded Dummy batch of its training section's 8 x 2 images
+at its floored training shape (476 x 630; V1 462 x 616), takes two warm-up
+steps, times ``--steps`` steps with the host clock around
 ``torch.cuda.synchronize()``, then runs ``torch.profiler`` over one step and
 prints:
 
@@ -17,9 +19,9 @@ prints:
 * for each labelled part (a ``record_function`` range opened around a call
   on the host) the device time of the kernels its ops launched: the plain
   VJP backward of K1/K3/K4 and of K2 (the N x N attention recomputed in
-  fp32), the encoder blocks' forward (run twice: the forward and the
-  backward's recompute), the decoder's forward, the losses' forward, the
-  optimizer and the EMA;
+  fp32), the encoder blocks' forward (ViT or ConvNeXt blocks, run twice:
+  the forward and the backward's recompute), the decoder's forward, the
+  losses' forward, the optimizer and the EMA;
 * the kernels' forwards by name (K1 and K3 ``attn_fwd_wgmma``, K2
   ``ln_row_stats`` + ``ln_dense_wgmma``), then the largest device-time
   entries.
@@ -82,6 +84,7 @@ def label_parts():
         (fa, "_flash_attention_packed_bwd", "part: K4 backward (plain VJP)"),
         (fb, "_ln_dense_bwd", "part: K2 backward (plain VJP)"),
         (step, "compute_losses_v2", "part: losses (forward)"),
+        (step, "compute_losses_v1", "part: losses (forward)"),
         (step, "ema_update", "part: EMA"),
     ):
         setattr(mod, attr, labelled(getattr(mod, attr), name))
@@ -89,10 +92,12 @@ def label_parts():
 
 
 def label_modules(model):
+    from unidepth_tpu_torch.models.backbones.convnext import ConvNeXtBlock
     from unidepth_tpu_torch.models.backbones.dinov2 import ViTBlock
 
     parts = [(model.pixel_decoder, "part: decoder (forward)")]
-    parts += [(m, "part: encoder blocks (forward and recompute)") for m in model.modules() if isinstance(m, ViTBlock)]
+    parts += [(m, "part: encoder blocks (forward and recompute)") for m in model.modules()
+              if isinstance(m, (ViTBlock, ConvNeXtBlock))]
     for module, name in parts:
         def pre(_m, _args, name=name):
             _m._profile_range = torch.profiler.record_function(name)
@@ -107,6 +112,7 @@ def label_modules(model):
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--config-file", default=str(ROOT / "configs" / "config_v2_vitl14.json"))
     parser.add_argument("--steps", type=int, default=2)
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -124,7 +130,7 @@ def main():
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip())
     print(f"torch {torch.__version__} cuda {torch.version.cuda}")
     torch.backends.cuda.matmul.allow_tf32 = False
-    config = json.loads((ROOT / "configs" / "config_v2_vitl14.json").read_text())
+    config = json.loads(Path(args.config_file).read_text())
     tr = config["training"]
     shape = train_image_shape(config)
     trainer = build_trainer(config, seed=SEED)
@@ -142,7 +148,8 @@ def main():
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     ms = statistics.median(times)
-    print(f"== train step ViT-L/14, {tr['nsteps_accumulation_gradient']} x {tr['batch_size']} images at "
+    family = f"{type(trainer.model).__name__} ({config['model']['pixel_encoder']['name']})"
+    print(f"== train step {family}, {tr['nsteps_accumulation_gradient']} x {tr['batch_size']} images at "
           f"{shape[0]}x{shape[1]}: {ms:.1f} ms/step (median of {', '.join(f'{t:.1f}' for t in times)}), "
           f"{images / ms * 1e3:.2f} images/s, peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:

@@ -1,6 +1,8 @@
 """``scripts_torch/train.py`` on the CPU (``--device cpu``) with a small
 config: two steps on Dummy data print finite loss lines and write a
-checkpoint, which ``--resume`` continues from."""
+checkpoint, which ``--resume`` continues from. UniDepthV1 (ConvNeXt) and
+UniDepthV2old train two steps with their loss slots and write their
+``MetricLogger`` stream and a training-artifact PNG."""
 
 import importlib.util
 import json
@@ -11,6 +13,16 @@ import pytest
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """These tiny models run fastest on one intra-op thread, and the suite
+    runs several test processes on the same cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _script():
@@ -67,3 +79,43 @@ def test_no_device_and_no_card_raises(tiny_config, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="--device cpu"):
         _script().main(["--config-file", str(tiny_config), "--dummy-data"])
+
+
+FAMILY_CONFIGS = {  # shipped config, encoder overrides, image shape
+    "v1-convnext": ("config_v1_cnvnxtl.json", {"depths": [1, 1, 2, 1], "dims": [32, 64, 128, 256]}, ("64", "96")),
+    "v2old": ("config_v2old_vitl14.json", {"name": "dinov2_vits14", "embed_dim": 32, "depth": 4, "num_heads": 2,
+                                           "pos_embed_size": 4, "output_idx": [1, 2, 3, 4]}, ("28", "56")),
+}
+
+
+@pytest.mark.parametrize("family", list(FAMILY_CONFIGS))
+def test_two_steps_each_family(family, tmp_path, capsys):
+    from unidepth_tpu_torch.utils.png import read_png
+
+    shipped, encoder, shape = FAMILY_CONFIGS[family]
+    cfg = json.loads((ROOT / "configs" / shipped).read_text())
+    cfg["model"]["num_heads"] = 2
+    cfg["model"]["pixel_decoder"].update(hidden_dim=32, depths=[1, 1, 1])
+    cfg["model"]["pixel_encoder"].update(encoder)
+    cfg["training"].update(batch_size=2, nsteps_accumulation_gradient=2, warmup_iters=2, n_iters=10)
+    config = tmp_path / f"tiny_{family}.json"
+    config.write_text(json.dumps(cfg))
+    ckpt = tmp_path / "ckpt"
+    saved = _script().main(["--config-file", str(config), "--dummy-data", "--device", "cpu", "--image-shape", *shape,
+                            "--checkpoint-dir", str(ckpt), "--steps", "2"])
+    out = capsys.readouterr().out
+    assert f"training {cfg['model']['name']} " in out and "no sharding" in out
+    slots = {"depth", "camera", "invariance", "total"} | ({"ssi", "confidence"} if family == "v2old" else set())
+    lines = _lines(out)
+    assert [line["step"] for line in lines] == [1, 2]
+    for line in lines:
+        assert set(line) == slots | {"step", "grad_norm", "lr", "seconds"}
+        assert all(np.isfinite(v) for v in line.values())
+    assert saved == ckpt / "step_00000002.pt" and saved.is_file()
+    records = [json.loads(line) for line in (ckpt / f"tiny_{family}.jsonl").read_text().splitlines()]
+    assert [r["step"] for r in records if "train/total" in r] == [1, 2]
+    image = next(r["image/Dummy_training"] for r in records if "image/Dummy_training" in r)
+    grid = read_png(image)
+    h, w = (int(s) // 14 * 14 for s in shape)  # the training shape, floored to the patch size
+    assert grid.dtype == np.uint8 and grid.shape == (3 * h, 2 * w, 3)  # rgb, GT, prediction; two samples
+    assert any("sys/host_rss_kb" in r for r in records)

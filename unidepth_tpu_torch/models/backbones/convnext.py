@@ -15,16 +15,26 @@ block's output is kept), and the spatial-mean tokens of the last
 ``len(depths)`` blocks overall, in natural order. For ConvNeXt-L those are
 stage 2's last block (C = 768) and stage 3's three (C = 1536): the tokens
 are not all of one width.
+
+Under autograd (training) each block runs under ``torch.utils.checkpoint``
+(non-reentrant), the counterpart of the JAX ``nn.remat`` blocks: K2 launches
+twice a block per micro-batch. ``forward(image, generator)`` with
+``drop_path_rate > 0`` applies stochastic depth to each block's residual
+branch at the JAX ramp ``linspace(0, rate, sum(depths))``: one per-sample
+keep mask a block, drawn from ``generator`` before the block runs, so the
+recompute sees the same draw.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
-from unidepth_tpu_torch.nn.layers import layer_norm, ln_linear_gelu
+from unidepth_tpu_torch.nn.layers import drop_path, layer_norm, ln_linear_gelu
 
 LAYER_SCALE_INIT = 1e-6
 
@@ -34,6 +44,7 @@ class ConvNeXtConfig:
     depths: tuple[int, ...] = (3, 3, 27, 3)
     dims: tuple[int, ...] = (192, 384, 768, 1536)
     use_grn: bool = False  # ConvNeXt-V2
+    drop_path_rate: float = 0.0  # stochastic depth at train time, a linear per-block ramp
 
     @property
     def token_dims(self) -> tuple[int, ...]:
@@ -84,7 +95,9 @@ class ConvNeXtBlock(nn.Module):
         self.mlp = _Mlp(dim, 4 * dim, use_grn)
         self.gamma = None if use_grn else nn.Parameter(torch.full((dim,), LAYER_SCALE_INIT))
 
-    def forward(self, x):
+    def forward(self, x, keep_mask=None, keep: float = 1.0):
+        """``keep_mask``: None, or (B,) bools, the stochastic-depth draw of
+        the residual branch at keep probability ``keep``."""
         y = self.conv_dw(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
         y = ln_linear_gelu(self.norm, self.mlp.fc1, y, self.use_kernels)
         if self.mlp.grn is not None:
@@ -92,6 +105,8 @@ class ConvNeXtBlock(nn.Module):
         y = self.mlp.fc2(y)
         if self.gamma is not None:
             y = y * self.gamma
+        if keep_mask is not None:
+            y = drop_path(y, keep_mask, keep)
         return x + y
 
 
@@ -119,8 +134,11 @@ class ConvNeXt(nn.Module):
             ]
         )
 
-    def forward(self, image: torch.Tensor):
-        """image: (B, H, W, 3)."""
+    def forward(self, image: torch.Tensor, generator: torch.Generator | None = None):
+        """image: (B, H, W, 3). ``generator`` turns stochastic depth on
+        (training) when the config's ``drop_path_rate`` is positive."""
+        rates = iter(np.linspace(0.0, self.cfg.drop_path_rate, sum(self.cfg.depths)))
+        use_dp = generator is not None and self.cfg.drop_path_rate > 0.0
         x = self.stem[0](image.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
         x = layer_norm(self.stem[1], x)
         feats, tokens = [], []
@@ -131,7 +149,16 @@ class ConvNeXt(nn.Module):
                 x = conv(layer_norm(norm, x).permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
             stage_max = None
             for block in stage.blocks:
-                x = block(x)
+                rate = float(next(rates))
+                keep, mask = 1.0 - rate, None
+                if use_dp and rate > 0.0:
+                    u = torch.rand((x.shape[0],), generator=generator, device=generator.device)
+                    mask = (u < keep).to(x.device)
+                if torch.is_grad_enabled():
+                    # the mask is an input, so no RNG state needs restoring
+                    x = checkpoint(block, x, mask, keep, use_reentrant=False, preserve_rng_state=False)
+                else:
+                    x = block(x, mask, keep)
                 stage_max = x if stage_max is None else torch.maximum(stage_max, x)
                 remaining -= 1
                 if remaining < len(self.cfg.depths):

@@ -28,11 +28,12 @@ The JAX logit audit (``audit_attention_logits``, ``serving_safe_softmax``)
 is not ported: the port's attention kernels keep the row max.
 
 UniDepthV2old takes this mixin as V2 does: blanket int8 is accepted
-(the JAX ``INT8_REQUIRES_CALIBRATION`` is False for it).
-UniDepthV1 takes only the pre-cast (``from_config(dtype=...)``): its int8
-mode needs ``calibrate_int8_stages`` first (the JAX
-``INT8_REQUIRES_CALIBRATION``) and the ConvNeXt encoder has none, so its
-``set_serving_precision('int8')`` raises (ROADMAP A5).
+(the JAX ``INT8_REQUIRES_CALIBRATION`` is False for it). UniDepthV1 takes
+it with ``INT8_REQUIRES_CALIBRATION``: ``set_serving_precision('int8')``
+raises until ``calibrate_int8_stages`` has stored a stage mask, and the
+int8 copy of its ``max_cls`` encoder keeps the running max and the tail cls
+tokens. An encoder with no ``quantize`` (ConvNeXt) refuses int8 with the
+JAX message and keeps no masters.
 """
 
 from __future__ import annotations
@@ -88,6 +89,11 @@ class ServingPrecisionMixin:
 
     def _reset_serving_caches(self):
         self._encoder_q = None
+
+    def _quantizable_linears(self) -> dict:
+        """The encoder linears int8 serving would quantize: none for an
+        encoder without an int8 path."""
+        return quantizable_linears(self.pixel_encoder) if hasattr(self.pixel_encoder, "quantize") else {}
 
     def _int8_stage_mask(self):
         """Current per-stage int8 mask as a tuple, or None for blanket int8."""
@@ -173,7 +179,7 @@ class ServingPrecisionMixin:
         equals the parameter."""
         masters = self._fp32_masters or {}
         out, lost = {}, []
-        for name, m in quantizable_linears(self.pixel_encoder).items():
+        for name, m in self._quantizable_linears().items():
             live = (m.weight, m.bias)
             if m.weight.dtype == torch.float32:
                 out[name] = live
@@ -198,7 +204,7 @@ class ServingPrecisionMixin:
         """Merge fp32 masters (qualified encoder name -> (weight, bias)) over
         the current ones, keep those of the linears held below fp32, and drop
         the int8 encoder built from earlier weights."""
-        lin = quantizable_linears(self.pixel_encoder)
+        lin = self._quantizable_linears()
         masters = {**(self._fp32_masters or {}), **weights}
         self._fp32_masters = {n: wb for n, wb in masters.items() if lin[n].weight.dtype != torch.float32} or None
         self._reset_serving_caches()
@@ -212,7 +218,7 @@ class ServingPrecisionMixin:
         of ``state_dict`` that land in parameters below fp32."""
         pre = f"{prefix}pixel_encoder."
         found = {}
-        for name, m in quantizable_linears(self.pixel_encoder).items():
+        for name, m in self._quantizable_linears().items():
             w = state_dict.get(f"{pre}{name}.weight")
             if w is not None and m.weight.dtype != torch.float32:
                 found[name] = self._fp32_copy(w, state_dict.get(f"{pre}{name}.bias"))
@@ -224,7 +230,7 @@ class ServingPrecisionMixin:
         with torch.no_grad():
             lowered = {
                 name: self._fp32_copy(m.weight, m.bias)
-                for name, m in quantizable_linears(self.pixel_encoder).items()
+                for name, m in self._quantizable_linears().items()
                 if m.weight.dtype == torch.float32 and fn(m.weight[:0]).dtype != torch.float32
             }
         out = super()._apply(fn, recurse)

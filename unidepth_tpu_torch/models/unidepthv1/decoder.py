@@ -114,6 +114,7 @@ class DepthHeadV1(nn.Module):
     def forward(self, features, rays_hr, pos_embed, level_embed, shapes, original_shapes):
         b = features[0].shape[0]
         h16, w16 = shapes
+        rays_hr = rays_hr.detach()  # the rays condition the depth; no gradient reaches the camera head
         emb16 = self._rays_embed(rays_hr, (h16, w16), original_shapes, self.project_rays16)
         emb8 = self._rays_embed(rays_hr, (2 * h16, 2 * w16), original_shapes, self.project_rays8)
         emb4 = self._rays_embed(rays_hr, (4 * h16, 4 * w16), original_shapes, self.project_rays4)

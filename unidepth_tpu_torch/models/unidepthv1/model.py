@@ -10,8 +10,15 @@ channel-last float32: ``depth`` (B, H, W, 1), ``points`` (B, H, W, 3) and
 ``intrinsics`` (B, 3, 3).
 
 Compute dtype is the parameters' dtype: bf16 on the card, float32 on the
-CPU (``from_config``). Int8 serving is not ported for V1 (ROADMAP A5): it
-needs the per-stage calibration, and the ConvNeXt encoder has no int8 path.
+CPU (``from_config``). Int8 serving (``ServingPrecisionMixin``) needs the
+per-stage calibration first (``INT8_REQUIRES_CALIBRATION``): V1's depth head
+exponentiates its logits, so ``set_serving_precision('int8')`` raises until
+``calibrate_int8_stages`` has stored a stage mask. The ConvNeXt encoder has
+no int8 path and refuses it, as in JAX.
+
+``encode_decode(image, rays_gt, K_gt, skip_camera, generator)`` is the
+train and eval forward; ``generator`` turns on either encoder's stochastic
+depth where the config's ``drop_path`` is positive.
 """
 
 from __future__ import annotations
@@ -27,6 +34,7 @@ import torch.nn.functional as F
 from unidepth_tpu_torch.geometry.rays import generate_rays, spherical_zbuffer_to_euclidean
 from unidepth_tpu_torch.models.backbones.convnext import CONVNEXT_PRESETS, LAYER_SCALE_INIT, ConvNeXt, ConvNeXtBlock
 from unidepth_tpu_torch.models.backbones.dinov2 import VIT_PRESETS, DinoViT, ViTConfig
+from unidepth_tpu_torch.models.serving import ServingPrecisionMixin
 from unidepth_tpu_torch.models.unidepthv1.decoder import DecoderV1
 from unidepth_tpu_torch.models.unidepthv2.model import compute_dtype, lecun_normal, resolve_device, trunc_normal
 from unidepth_tpu_torch.nn.layers import LayerScale
@@ -63,9 +71,13 @@ def _encoder_widths(encoder: nn.Module) -> tuple[tuple[int, ...], tuple[int, ...
     return (encoder.cfg.embed_dim,) * n, (encoder.cfg.embed_dim,) * n
 
 
-class UniDepthV1(nn.Module):
+class UniDepthV1(ServingPrecisionMixin, nn.Module):
     """Encoder + V1 decoder with the reference checkpoint's state_dict keys
     (``pixel_encoder.*``, ``pixel_decoder.*``)."""
+
+    # the exp depth head turns blanket int8 GEMM noise into a large depth
+    # drift: int8 serves only the stages calibrate_int8_stages selects
+    INT8_REQUIRES_CALIBRATION = True
 
     def __init__(
         self,
@@ -83,7 +95,7 @@ class UniDepthV1(nn.Module):
             input_dims, token_dims, hidden_dim, num_heads=num_heads, expansion=expansion, depths=tuple(decoder_depths)
         )
         self.image_shape = tuple(image_shape)
-        self.serving_precision = "default"
+        self._init_serving()
 
     @classmethod
     def from_config(cls, config: dict, device=None, dtype: torch.dtype | None = None) -> "UniDepthV1":
@@ -98,9 +110,12 @@ class UniDepthV1(nn.Module):
         device = resolve_device(device)
         pe = config["model"]["pixel_encoder"]
         name = pe["name"]
+        # the reference merges the training section into the encoder's
+        # config, so drop_path comes from either
+        drop_path = pe.get("drop_path", config.get("training", {}).get("drop_path", 0.0))
         if "convnext" in name:
             over = {k: tuple(pe[k]) for k in ("depths", "dims") if k in pe}
-            encoder = ConvNeXt(dataclasses.replace(CONVNEXT_PRESETS[name], **over))
+            encoder = ConvNeXt(dataclasses.replace(CONVNEXT_PRESETS[name], drop_path_rate=drop_path, **over))
         else:
             preset = name.replace("dinov2_", "")
             vit = VIT_PRESETS[preset]
@@ -113,6 +128,7 @@ class UniDepthV1(nn.Module):
                     output_idx=tuple(pe.get("output_idx", V1_OUTPUT_IDX[preset])),
                     use_norm=False,
                     interpolate_offset=0.1,  # the reference builds the V1 encoder so
+                    drop_path_rate=drop_path,
                 ),
                 stacking="max_cls",
             )
@@ -151,16 +167,6 @@ class UniDepthV1(nn.Module):
         unused = tuple(f"pixel_encoder.{k}" for k in ("mask_token", "register_tokens", "norm.", "norm_pre.", "head."))
         return {k: v for k, v in state_dict.items() if not k.startswith(unused)}
 
-    def set_serving_precision(self, mode: str):
-        """'default' only: int8 serving of V1 is not ported (ROADMAP A5)."""
-        if mode == "int8":
-            raise NotImplementedError(
-                "int8 serving of UniDepthV1 is not ported (ROADMAP A5, V1 int8): V1's exp depth head needs "
-                "calibrate_int8_stages (INT8_REQUIRES_CALIBRATION), and the ConvNeXt encoder has no int8 path"
-            )
-        if mode != "default":
-            raise ValueError(f"unknown serving precision {mode!r}")
-
     @torch.no_grad()
     def init_params(self, seed: int = 0) -> "UniDepthV1":
         """Random weights drawn on the CPU from ``torch.Generator(seed)`` with
@@ -168,17 +174,23 @@ class UniDepthV1(nn.Module):
         and conv kernels, truncated normal 0.02 for the patch and position
         embeddings, normal 1.0 for the camera latents and level embeddings,
         layer scales at their init values (ConvNeXt's 1e-6), zero biases,
-        cls token and GRN, unit LayerNorm scales."""
+        cls token and GRN, unit LayerNorm scales. Where the model holds the
+        ViT's linears below fp32, their fp32 draws are kept as the int8
+        path's masters."""
         g = torch.Generator().manual_seed(seed)
         enc = self.pixel_encoder
         patch = enc.patch_embed.proj if isinstance(enc, DinoViT) else None
+        drawn = {}  # linear -> its fp32 (weight, bias) draws
         for m in self.modules():
             if m is patch:
                 m.weight.copy_(trunc_normal(m.weight.shape, 0.02, g))
                 m.bias.zero_()
             elif isinstance(m, (nn.Linear, nn.Conv2d)):
-                m.weight.copy_(lecun_normal(m.weight.shape, m.weight[0].numel(), g))
+                w = lecun_normal(m.weight.shape, m.weight[0].numel(), g)
+                m.weight.copy_(w)
                 m.bias.zero_()
+                if isinstance(m, nn.Linear):
+                    drawn[id(m)] = (w, torch.zeros(m.bias.shape))
             elif isinstance(m, nn.LayerNorm):
                 m.weight.fill_(1.0)
                 m.bias.zero_()
@@ -198,6 +210,7 @@ class UniDepthV1(nn.Module):
         dec = self.pixel_decoder
         for p in (dec.camera_layer.latents_pos, dec.level_embeds):
             p.copy_(torch.randn(p.shape, generator=g))
+        self._set_fp32_masters({name: drawn[id(m)] for name, m in self._quantizable_linears().items()})
         return self
 
     def set_kernels(self, enabled: bool) -> "UniDepthV1":
@@ -209,9 +222,12 @@ class UniDepthV1(nn.Module):
                 m.use_kernels = enabled
         return self
 
-    def encode_decode(self, image, rays_gt=None, K_gt=None, skip_camera: bool = False) -> dict:
-        """The eval forward on a normalised batch (B, H, W, 3), moved to the
-        model's device and dtype: the mean of the three depth scales, each
+    def encode_decode(self, image, rays_gt=None, K_gt=None, skip_camera: bool = False,
+                      generator: torch.Generator | None = None) -> dict:
+        """The train and eval forward on a normalised batch (B, H, W, 3),
+        moved to the model's device and dtype; ``generator`` turns on
+        stochastic depth where the config has ``drop_path`` > 0 (training).
+        Returns the mean of the three depth scales, each
         resized bilinearly (antialiased) to (H, W), and its points through
         the spherical z-buffer along the rays of the predicted K (or of
         ``K_gt`` with ``skip_camera``). Returns fp32 ``depth``, ``points``,
@@ -219,7 +235,7 @@ class UniDepthV1(nn.Module):
         ``depth_features``."""
         p = next(self.parameters())
         _, h, w, _ = image.shape
-        feats, cls_tokens = self.pixel_encoder(image.to(p.device, p.dtype))
+        feats, cls_tokens = self.pixel_encoder(image.to(p.device, p.dtype), generator=generator)
         if rays_gt is not None:
             rays_gt = rays_gt.to(p.device)
         if K_gt is not None:
@@ -282,7 +298,7 @@ class UniDepthV1(nn.Module):
             K_net = K * scale + torch.tensor([[0.0, 0.0, pl], [0.0, 0.0, pt], [0.0, 0.0, 0.0]], device=device)
             rays_gt = generate_rays(K_net, (nh, nw))[0]
 
-        feats, cls_tokens = self.pixel_encoder(x.to(dtype))
+        feats, cls_tokens = self._serving_encoder()(x.to(dtype))
         K_pred, preds, _ = self.pixel_decoder(
             feats, cls_tokens, (nh, nw), rays_gt=rays_gt, skip_camera=skip_camera and K is not None, K_gt=K_net
         )

@@ -357,24 +357,26 @@ class UniDepthV2old(ServingPrecisionMixin, nn.Module):
         tw = math.ceil(th * ratio - 0.5)
         return (th * self.PATCH, tw * self.PATCH), th / h * self.PATCH
 
-    def _forward(self, encoder, image, rays_gt=None) -> dict:
+    def _forward(self, encoder, image, rays_gt=None, generator=None) -> dict:
         """Encoder and decoder on a normalised batch at the network shape."""
         _, h, w, _ = image.shape
-        feats, cls_tokens = encoder(image)
+        feats, cls_tokens = encoder(image, generator=generator)
         cam = [cls_tokens[-3], cls_tokens[-2], cls_tokens[-1], cls_tokens[-2]]
         glob = [cls_tokens[-2], cls_tokens[-1]]
         return self.pixel_decoder(feats, cam, glob, (h, w), rays_gt=rays_gt)
 
-    def encode_decode(self, image, rays_gt=None) -> dict:
-        """The eval forward on a normalised batch (B, H, W, 3), H and W
-        multiples of 14, moved to the model's device and dtype: the
+    def encode_decode(self, image, rays_gt=None, generator: torch.Generator | None = None) -> dict:
+        """The train and eval forward on a normalised batch (B, H, W, 3), H
+        and W multiples of 14, moved to the model's device and dtype: the
         decoder's outputs (``K``, ``depth``, ``confidence``,
-        ``depth_features``, ``rays``) plus ``points`` along the rays of K."""
+        ``depth_features``, ``rays``) plus ``points`` along the rays of K.
+        ``generator`` turns on the encoder's stochastic depth where its rate
+        is positive; as in JAX, ``from_config`` leaves V2old's at 0."""
         p = next(self.parameters())
         _, h, w, _ = image.shape
         if rays_gt is not None:
             rays_gt = rays_gt.to(p.device)
-        out = self._forward(self.pixel_encoder, image.to(p.device, p.dtype), rays_gt)
+        out = self._forward(self.pixel_encoder, image.to(p.device, p.dtype), rays_gt, generator)
         angles = generate_rays(out["K"], (h, w))[1].reshape(-1, h, w, 2)
         out["points"] = spherical_zbuffer_to_euclidean(torch.cat([angles, out["depth"]], dim=-1))
         return out

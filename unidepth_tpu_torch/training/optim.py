@@ -26,14 +26,22 @@ __all__ = ["AdamW", "AdamWState", "build_optimizer", "global_norm", "lr_scale_tr
 
 ENCODER = "pixel_encoder."
 _BLOCK = re.compile(r"^pixel_encoder\.blocks\.(\d+)\.")
+_STAGE_BLOCK = re.compile(r"^pixel_encoder\.stages\.(\d+)\.blocks\.(\d+)\.")  # ConvNeXt
 NO_DECAY = ("cls_token", "pos_embed", "register_tokens", "latents_pos", "level_embeds", "gamma")
 
 
 def lr_scale_tree(params: dict, encoder_lr_scale: float, ld: float, num_layers: int) -> dict[str, float]:
     """Per-parameter lr multipliers: decoder 1.0; encoder
     ``encoder_lr_scale * ld ** (num_layers - layer_id)``, where block i is
-    layer i + 1, the final norm the last layer (ld ** 0) and the
-    embeddings layer 0."""
+    layer i + 1 (a ConvNeXt's blocks numbered across its stages, as the JAX
+    scanned ``stage_{s}`` blocks are), the final norm the last layer
+    (ld ** 0) and the embeddings, a ConvNeXt's stem and downsample layers
+    layer 0."""
+    stage_len: dict[int, int] = {}
+    for name in params:
+        if (m := _STAGE_BLOCK.match(name)) is not None:
+            s, j = int(m.group(1)), int(m.group(2))
+            stage_len[s] = max(stage_len.get(s, 0), j + 1)
     out = {}
     for name in params:
         if not name.startswith(ENCODER):
@@ -42,6 +50,10 @@ def lr_scale_tree(params: dict, encoder_lr_scale: float, ld: float, num_layers: 
             out[name] = encoder_lr_scale
         elif (m := _BLOCK.match(name)) is not None:
             out[name] = encoder_lr_scale * ld ** (num_layers - int(m.group(1)) - 1)
+        elif (m := _STAGE_BLOCK.match(name)) is not None:
+            s, j = int(m.group(1)), int(m.group(2))
+            layer = sum(stage_len.get(i, 0) for i in range(s)) + j + 1
+            out[name] = encoder_lr_scale * ld ** (num_layers - layer)
         elif name.startswith(ENCODER + "norm."):
             out[name] = encoder_lr_scale
         else:
