@@ -240,7 +240,33 @@ fails (non-zero exit, no result line) without CUDA or outside a checkout.
    --dummy-data --steps 2`` as a subprocess on the card: exit 0, a finite
    JSON line a step, its MetricLogger JSONL stream and one artifact PNG
    (read back). A ``{"v1_int8": ..., "train_cli": ...}`` line carries the
-   figures. The whole run's seconds are printed.
+   figures.
+15. The data layer (``data_phase``). (a) Synthetic shards of KITTI (375 x
+   1242, its pre-crop and per-date intrinsics, 16-bit depth), NYUv2Depth
+   (480 x 640, 24-bit packed depth) and ARKit (480 x 640, a sequence row),
+   DATA_SAMPLES each from ``datasets/synthetic.py``, every RGB PNG's rows
+   through the five filter types, in a temporary data root: HDF5 files, or,
+   where h5py is absent, each shard's nodes in an .npz archive (files, so
+   that the CLIs' processes read them too) served by ``npz_shard`` in place
+   of ``HDF5Dataset._h5`` (the storage is printed).
+   (b) The native C helpers against their numpy versions on this host, bit
+   for bit, each call counted as the C library's. (c) UniDepthV2 ViT-L/14
+   (configs/config_v2_vitl14.json, random weights, ``build_trainer`` on the
+   card) trained from ``WeightedConcat`` -> ``ShapeSampler`` (the model's
+   constraints, shape seed SEED) -> ``Loader`` (DATA_THREADS threads, 8 x 2
+   images) -> ``device_prefetch`` (pinned memory, a side stream) for
+   DATA_STEPS steps at the shapes 308 x 686, 602 x 952, 378 x 728, 602 x
+   952: finite losses, each batch on the card at its sampled shape (a
+   multiple of 14), K1 96, K2 96, K3 8 a step on the Hopper bodies
+   (``data_train_launches`` in the records), the native decode helpers
+   called. (d) Beside the card's name and power limit: the loader alone in
+   batches a second; each step's host wait and ms and the same step on a
+   premade batch on the card; one batch's upload, pageable against pinned;
+   the peak memory at 602 x 952. (e) ``scripts_torch/train.py --data-root``
+   (2 steps of 4 images) and ``scripts_torch/eval.py --data-root --datasets
+   KITTI NYUv2Depth`` as subprocesses on the card at once: exit 0, finite
+   losses and metrics. A ``{"data": ...}`` line carries the figures. The
+   whole run's seconds are printed.
 
 Each path's launch counts (and the Hopper-body counts of K1-K7) are set
 to 0 just before it runs and read just after. A K2 call
@@ -415,6 +441,23 @@ COUNTING_METRICS = ("d1", "d2", "d3", "tau", "d_auc", "d1_si", "tau_si")  # with
 # apart), so tens of pixels near the 3% and 25% thresholds may flip: 1e-4 is
 # 30 pixels (the first card call saw 3)
 SSI_CPU_TOL = 1e-4
+
+
+# the data phase: synthetic shards of three SPECS rows (an image row with its
+# pre-crop and per-date intrinsics, a plain image row, a sequence row), V2
+# ViT-L/14 trained from the loader. With shape seed SEED the sampler gives
+# batches 0-3 the shapes 308 x 686, 602 x 952, 378 x 728, 602 x 952: three
+# shapes, the largest (2925 tokens) twice
+DATA_NAMES = ("KITTI", "NYUv2Depth", "ARKit")
+DATA_SAMPLES = 48
+DATA_STEPS = 4
+DATA_LARGEST = (602, 952)
+DATA_THREADS = 4
+DATA_LOADER_BATCHES = 5  # the loader alone: the first batch is its start, the next four are timed
+DATA_CLI_STEPS = 2
+# what a shard's node paths are served from when h5py is absent: the nodes of
+# <shard path>.npz, read through NpzShard
+H5PY_ABSENT = importlib.util.find_spec("h5py") is None
 
 
 def log(*args):
@@ -1136,6 +1179,297 @@ def train_cli_phase():
     return {"seconds": seconds, "steps": steps, "artifact_shape": list(grid.shape)}
 
 
+class NpzShard:
+    """An HDF5 shard's nodes, read from the .npz archive beside its path:
+    ``with``, and ``shard[node]`` by the node's HDF5 path."""
+
+    def __init__(self, path):
+        self.npz = np.load(path)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.npz.close()
+
+    def __getitem__(self, node):
+        return self.npz[node.lstrip("/")]
+
+
+def npz_shard(self, chunk_idx: int = 0):
+    """``HDF5Dataset._h5`` over NpzShard archives (h5py absent)."""
+    return NpzShard(Path(self.data_root) / f"{self.spec.hdf5_paths[chunk_idx]}.npz")
+
+
+def serve_npz_shards():
+    """Read every shard of the port's readers through ``npz_shard``: what a
+    CLI run in its own process does when h5py is absent."""
+    from unidepth_tpu_torch.datasets.base import HDF5Dataset
+
+    HDF5Dataset._h5 = npz_shard
+
+
+def write_shards(root, shards) -> str:
+    """The synthetic shards under ``root``: HDF5 files, or NpzShard archives
+    without h5py. Returns the storage used."""
+    from unidepth_tpu_torch.datasets.synthetic import write_hdf5
+
+    if not H5PY_ABSENT:
+        write_hdf5(root, shards)
+        return "hdf5"
+    for path, nodes in shards.items():
+        np.savez(Path(root) / f"{path}.npz", **nodes)
+    return "npz archives, h5py absent"
+
+
+def native_phase(shards):
+    """The native helpers against their numpy versions on this host, bit for
+    bit, on the shards' own blobs; each call's count shows the C code ran."""
+    import zlib
+
+    from unidepth_tpu_torch import native
+    from unidepth_tpu_torch.utils.png import png_asarray, png_samples
+
+    nodes = shards["nyuv2.hdf5"]
+    packed = png_asarray(nodes["nyu/depth/0000000000.png"].tobytes())
+    depth16 = png_asarray(shards["kitti.hdf5"][next(k for k in shards["kitti.hdf5"] if "/depth/" in k)].tobytes())
+    rgb = png_samples(nodes["nyu/rgb/0000000000.png"].tobytes())[0]
+    blob = nodes["nyu/rgb/0000000000.png"].tobytes()
+    raw = zlib.decompress(blob[blob.index(b"IDAT") + 4 : blob.rindex(b"IEND") - 8])
+    rows, stride = 40, rgb.shape[1] * 3  # the Python unfilter takes ~1 s a 100 rows
+    kinds = sorted({raw[r * (stride + 1)] for r in range(rows)})
+    if kinds != [0, 1, 2, 3, 4]:
+        raise RuntimeError(f"native: the RGB rows carry filter types {kinds}, not all five")
+    calls = {fn.__name__: fn.calls for fn in (native.unpack24_scale, native.scale_u16, native.normalize_u8,
+                                              native.png_unfilter)}
+    pairs = {
+        "unpack24_scale": (native.unpack24_scale(packed, 1000.0), native.unpack24_scale_plain(packed, 1000.0)),
+        "scale_u16": (native.scale_u16(depth16, 256.0), native.scale_u16_plain(depth16, 256.0)),
+        "normalize_u8": (native.normalize_u8(rgb, (0.485, 0.456, 0.406), (0.229, 0.224, 0.225)),
+                         native.normalize_u8_plain(rgb, (0.485, 0.456, 0.406), (0.229, 0.224, 0.225))),
+        "png_unfilter": (native.png_unfilter(raw, rows, stride, 3), native.png_unfilter_plain(raw, rows, stride, 3)),
+    }
+    for name, (got, ref) in pairs.items():
+        if got.dtype != ref.dtype or not np.array_equal(got, ref):
+            raise RuntimeError(f"native {name}: the C helper and its numpy version differ")
+        if getattr(native, name).calls != calls[name] + 1:
+            raise RuntimeError(f"native {name}: the call did not run the C library")
+    log(f"native helpers (C, {native.build().parent.name}) against their numpy versions, bit for bit: "
+        f"{', '.join(pairs)}; the unfilter over rows of filter types {kinds}")
+
+
+def data_cli_phase(root, config_path, smi):
+    """scripts_torch/train.py and eval.py over the shards, each in its own
+    process on the card, both at once (through serve_npz_shards when h5py is
+    absent): exit 0, finite losses a step, finite metrics a dataset."""
+    launch = ("import runpy, sys; sys.path.insert(0, sys.argv[1]); import chip_smoke; "
+              + ("chip_smoke.serve_npz_shards(); " if H5PY_ABSENT else "")
+              + "sys.argv = sys.argv[2:]; runpy.run_path(sys.argv[0], run_name='__main__')")
+    runs = {
+        "train": ["--config-file", str(config_path), "--data-root", str(root), "--steps", str(DATA_CLI_STEPS),
+                  "--checkpoint-dir", str(Path(root) / "checkpoints")],
+        "eval": ["--config-file", str(config_path), "--data-root", str(root), "--datasets", "KITTI", "NYUv2Depth",
+                 "--max-iters", "2", "--batch", "4"],
+    }
+    figures, procs, stdout = {}, {}, {}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as logs:
+        try:
+            for name, argv in runs.items():  # both at once, on the one card
+                with open(Path(logs) / name, "w") as out:
+                    procs[name] = subprocess.Popen([sys.executable, "-c", launch, str(ROOT),
+                                                    str(ROOT / "scripts_torch" / f"{name}.py"), *argv], cwd=ROOT,
+                                                   stdout=out, stderr=subprocess.STDOUT)
+            for proc in procs.values():
+                proc.wait(timeout=600)
+        finally:
+            for proc in procs.values():
+                proc.kill()
+                proc.wait()
+        seconds = time.perf_counter() - t0
+        stdout = {name: (Path(logs) / name).read_text() for name in runs}
+    for name, argv in runs.items():
+        if procs[name].returncode != 0:
+            raise RuntimeError(f"scripts_torch/{name}.py exited {procs[name].returncode}:\n{stdout[name][-5000:]}")
+        lines = [json.loads(line) for line in stdout[name].splitlines() if line.startswith("{")]
+        if name == "train":
+            steps = [line for line in lines if "step" in line and "val" not in line]
+            if [s["step"] for s in steps] != list(range(1, DATA_CLI_STEPS + 1)) or not all(
+                    np.isfinite(v) for s in steps for v in s.values()):
+                raise RuntimeError(f"scripts_torch/train.py printed {steps}")
+            figures[name] = {"totals": [s["total"] for s in steps], "seconds": seconds}
+        else:
+            results = lines[-1]["eval"]
+            if sorted(results) != ["KITTI", "NYUv2Depth"] or not all(
+                    np.isfinite(v) for r in results.values() for v in r.values()):
+                raise RuntimeError(f"scripts_torch/eval.py printed {results}")
+            figures[name] = {"d1": {k: r["d1"] for k, r in results.items()}, "seconds": seconds}
+        log(f"scripts_torch/{name}.py {' '.join(argv)}: exit 0 in {seconds:.1f} s; {figures[name]} ({smi})")
+    return figures
+
+
+def data_phase(kernels, none, smi, dev):
+    """The data layer on the card: synthetic shards of DATA_NAMES, the native
+    helpers against their numpy versions, V2 ViT-L/14 trained from
+    WeightedConcat -> ShapeSampler -> Loader (DATA_THREADS threads) ->
+    device_prefetch for DATA_STEPS steps of 8 x 2 images, the loader alone,
+    the upload pinned and pageable, then the CLIs. Returns the loader-fed
+    run's launches and the figures."""
+    from unidepth_tpu_torch import native
+    from unidepth_tpu_torch.datasets.base import HDF5Dataset
+    from unidepth_tpu_torch.datasets.loader import Loader, ShapeSampler, WeightedConcat, device_prefetch
+    from unidepth_tpu_torch.datasets.sequence import SequenceHDF5Dataset
+    from unidepth_tpu_torch.datasets.specs import SPECS
+    from unidepth_tpu_torch.datasets.synthetic import SHAPES, make_shards
+    from unidepth_tpu_torch.training.trainer import build_trainer
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory()
+    root = Path(tmp.name)
+    t0 = time.perf_counter()
+    shards = make_shards(DATA_NAMES, DATA_SAMPLES, SEED)
+    storage = write_shards(root, shards)
+    log(f"data: {DATA_SAMPLES} synthetic samples of each of {DATA_NAMES} at {[SHAPES[n] for n in DATA_NAMES]} "
+        f"({sum(a.nbytes for v in shards.values() for a in v.values()) / 2**20:.1f} MiB of PNG), storage "
+        f"{storage}, made in {time.perf_counter() - t0:.1f} s")
+    native_phase(shards)
+    del shards
+
+    config = json.loads(CONFIG.read_text())
+    config["data"]["train_datasets"] = list(DATA_NAMES)
+    tr = config["training"]
+    batch_size, accum = tr["batch_size"], tr["nsteps_accumulation_gradient"]
+    trainer = build_trainer(config, seed=SEED)  # no device named: the card
+    sc = trainer.model.shape_constraints
+    sampler = ShapeSampler({k: sc[k] for k in ("ratio_bounds", "pixels_min", "pixels_max", "shape_mult")})
+    aug = config["data"]["augmentations"]
+
+    def reader(name):
+        base = SequenceHDF5Dataset if SPECS[name].kind == "sequence" else HDF5Dataset
+        cls = type(f"Npz{base.__name__}", (base,), {"_h5": npz_shard}) if H5PY_ABSENT else base
+        return cls(SPECS[name], data_root=str(root), image_shape=(476, 630), augmentations=aug)
+
+    datasets = [reader(n) for n in DATA_NAMES]
+
+    def loader(seed):
+        return Loader(WeightedConcat(datasets), batch_size=batch_size, shape_sampler=sampler, accum=accum,
+                      num_threads=DATA_THREADS, seed=seed, shape_seed=seed)
+
+    # the loader alone: batches a second once it runs
+    alone = loader(SEED + 1)
+    it = iter(alone)
+    next(it)
+    t0 = time.perf_counter()
+    for _ in range(DATA_LOADER_BATCHES - 1):
+        next(it)
+    loader_rate = (DATA_LOADER_BATCHES - 1) / (time.perf_counter() - t0)
+    host_batch = next(it)
+    alone.close()
+    if any(t.is_alive() for t in alone._threads):
+        raise RuntimeError("data: Loader.close() left a worker thread alive")
+    log(f"data: the loader alone ({DATA_THREADS} threads, {accum} x {batch_size} images a batch): "
+        f"{loader_rate:.3f} batches/s ({smi})")
+
+    # one batch's upload: pageable, and pinned as device_prefetch sends it
+    def pageable():
+        return {k: torch.as_tensor(v).to(dev) for k, v in host_batch.items()}
+
+    def pinned():
+        return {k: torch.from_numpy(v).pin_memory().to(dev, non_blocking=True) for k, v in host_batch.items()}
+
+    upload = {}
+    for name, fn in (("pageable", pageable), ("pinned", pinned), ("pinned_2", pinned), ("pageable_2", pageable)):
+        times = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        upload[name] = statistics.median(times)
+    nbytes_batch = sum(v.nbytes for v in host_batch.values())
+    log(f"data: one batch's upload ({nbytes_batch / 2**20:.1f} MiB at {host_batch['image'].shape[2:4]}), median of 5: "
+        f"pageable {upload['pageable']:.2f} / {upload['pageable_2']:.2f} ms, pinned (page-locked copy + "
+        f"non-blocking copy) {upload['pinned']:.2f} / {upload['pinned_2']:.2f} ms ({smi})")
+
+    # V2 ViT-L/14 trained from the loader; every count set to 0 just before
+    native_before = {fn.__name__: fn.calls for fn in (native.unpack24_scale, native.scale_u16, native.png_unfilter)}
+    feed = loader(SEED)
+    expected_shapes = [feed.shape_for_batch(n) for n in range(DATA_STEPS)]
+    if len(set(expected_shapes)) < 3 or DATA_LARGEST not in expected_shapes:
+        raise RuntimeError(f"data: the sampler's first {DATA_STEPS} shapes {expected_shapes}")
+    steps = []
+    last = None
+
+    def run():
+        nonlocal last
+        batches = device_prefetch(feed, dev, size=2)
+        for i in range(DATA_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            batch = next(batches)
+            t1 = time.perf_counter()
+            torch.cuda.reset_peak_memory_stats(dev)
+            metrics = trainer.step(batch, (SEED, i))
+            values = {k: v.item() for k, v in metrics.items()}
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            shape = tuple(batch["image"].shape[2:4])
+            steps.append({"shape": list(shape), "wait_ms": (t1 - t0) * 1e3, "ms": (t2 - t0) * 1e3,
+                          "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30, "total": values["total"]})
+            if not all(np.isfinite(list(values.values()))):
+                raise RuntimeError(f"data: step {i + 1} at {shape} has non-finite metrics {values}")
+            if shape != expected_shapes[i] or shape[0] % 14 or shape[1] % 14 or batch["image"].device.type != dev.type:
+                raise RuntimeError(f"data: batch {i} of shape {shape} on {batch['image'].device}, expected "
+                                   f"{expected_shapes[i]}")
+            log(f"data step {i + 1}: {accum} x {batch_size} images at {shape[0]}x{shape[1]} "
+                f"({(shape[0] // 14) * (shape[1] // 14) + 1} tokens): host wait {steps[-1]['wait_ms']:.1f} ms, "
+                f"step {steps[-1]['ms']:.1f} ms, peak {steps[-1]['peak_gib']:.2f} GiB, total {values['total']:.4f} "
+                f"({smi})")
+            last = batch
+        batches.close()
+
+    _, launches = run_path(f"V2 ViT-L/14 data-fed training ({DATA_STEPS} steps)", kernels, run)
+    feed.close()
+    per_step = {"flash_attention_qkv": 96, "ln_dense": 96, "flash_attention": 8}
+    expected = {k: v * DATA_STEPS for k, v in per_step.items()}
+    check_launches("V2 ViT-L/14 data-fed training", launches,
+                   {**none, **expected, **{f"{k}/wgmma": v for k, v in expected.items()}})
+    decoded = {name: getattr(native, name).calls - n for name, n in native_before.items()}
+    if not all(decoded.values()):
+        raise RuntimeError(f"data: the native helpers' calls during the run {decoded}: one never ran")
+    # the same step on a premade batch (the last, already on the card)
+    premade = []
+    for i in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.step(last, (SEED, DATA_STEPS + i))["total"].item()
+        torch.cuda.synchronize()
+        premade.append((time.perf_counter() - t0) * 1e3)
+    largest = [s for s in steps if tuple(s["shape"]) == DATA_LARGEST]
+    log(f"data: at {DATA_LARGEST[0]}x{DATA_LARGEST[1]} a loader-fed step {largest[-1]['ms']:.1f} ms (host wait "
+        f"{largest[-1]['wait_ms']:.1f}) against {statistics.median(premade):.1f} ms on a premade batch on the card "
+        f"({', '.join(f'{t:.1f}' for t in premade)}); peak {max(s['peak_gib'] for s in largest):.2f} GiB; native calls "
+        f"{decoded} ({smi})")
+    del trainer, last, datasets
+    torch.cuda.empty_cache()
+
+    # the CLIs, each in its own process: V2 ViT-L/14 over the shards, 4 images a step
+    cli_config = dict(config)
+    cli_config["training"] = {**tr, "batch_size": 4, "nsteps_accumulation_gradient": 1}
+    cli_config["data"] = {**config["data"], "val_datasets": ["NYUv2Depth"]}
+    (root / "config.json").write_text(json.dumps(cli_config))
+    cli = data_cli_phase(root, root / "config.json", smi)
+    tmp.cleanup()
+    figures = {"storage": storage, "samples": DATA_SAMPLES, "datasets": list(DATA_NAMES), "threads": DATA_THREADS,
+               "loader_batches_per_s": loader_rate, "upload_ms": upload, "upload_mib": nbytes_batch / 2**20,
+               "steps": steps, "premade_ms": premade, "largest": list(DATA_LARGEST),
+               "peak_gib_largest": max(s["peak_gib"] for s in largest), "native_calls": decoded, "cli": cli,
+               "device": smi, "seconds": time.perf_counter() - t_phase}
+    log(f"data phase: {figures['seconds']:.1f} s")
+    return launches, figures
+
+
 def check_v2old_outputs(name, out):
     b, (h, w) = BATCH, V2OLD_IMAGE
     for key, ch in (("depth", 1), ("confidence", 1), ("points", 3)):
@@ -1716,6 +2050,7 @@ def main():
     eval_launches, camera_infer_launches, eval_figures = eval_phase(config, kernels, none, smi, dev)
     v1_int8_launches, v1_int8_figures = v1_int8_phase(kernels, none, smi, dev)
     train_cli = train_cli_phase()
+    data_launches, data_figures = data_phase(kernels, none, smi, dev)
 
     # each kernel's count from the path it serves: K1-K3 the bf16 ViT-L path,
     # K4 the int8 one, K5 its own call, K6 and K7 the harness
@@ -1758,6 +2093,8 @@ def main():
         m[name]["eval_launches"] = {"validate_batch": eval_launches[name], "camera_infer": camera_infer_launches[name]}
     for name in ("flash_attention_qkv", "ln_dense", "flash_attention", "flash_attention_packed"):
         m[name]["v1_int8_launches"] = v1_int8_launches[name]
+    for name in ("flash_attention_qkv", "ln_dense", "flash_attention"):
+        m[name]["data_train_launches"] = data_launches[name]  # DATA_STEPS loader-fed steps
     record = [
         {"name": name, "route": "cuda", "source": f"unidepth_tpu_torch/csrc/{src}", "replaces": rep, "body": body,
          "launches": path_launches[name],
@@ -1769,6 +2106,7 @@ def main():
     log(json.dumps({"v1_int8": v1_int8_figures, "train_cli": train_cli}))
     log(json.dumps({"eval": eval_figures}))
     log(json.dumps({"v2old": v2old_figures}))
+    log(json.dumps({"data": data_figures}))
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s, the build included")
     log(json.dumps({"kernels": record}))
     log(json.dumps({"ok": True, "device": {

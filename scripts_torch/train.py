@@ -2,7 +2,7 @@
 """Train UniDepthV1 (ViT or ConvNeXt), UniDepthV2 or UniDepthV2old with the
 PyTorch port on one device.
 
-    python3 scripts_torch/train.py --config-file configs/config_v1_cnvnxtl.json --dummy-data --steps N \\
+    python3 scripts_torch/train.py --config-file CONFIG (--data-root DIR | --dummy-data) --steps N \\
         [--seed 13] [--image-shape H W] [--checkpoint-dir checkpoints] [--resume PATH] [--device cpu] \\
         [--val-interval N] [--val-iters 25]
 
@@ -13,12 +13,22 @@ and its recipe (V1's loss slots for UniDepthV1, V2's for V2 and V2old).
 Random weights (``init_params(seed)``), the config's training section
 (losses, AdamW with its schedules, clipping, EMA, ``batch_size`` x
 ``nsteps_accumulation_gradient``), the image shape floored to multiples of
-14 (UniDepthV1 is built at it). Data: ``--dummy-data`` only; the real
-datasets wait for ROADMAP A8. It does not shard (A8). Every
-``--val-interval`` steps (default: ``training.validation_interval``, 0 or
-absent: never) it validates under the EMA shadow on a Dummy set of two
-batches, at most ``--val-iters`` batches, and prints a ``{"val": ...}`` line
-of the depth metrics.
+14 (UniDepthV1 is built at it). It does not shard (ROADMAP A8).
+
+Data: the config's ``data.train_datasets``, HDF5 shards under
+``--data-root`` (default: ``$DATAROOT``; h5py is needed, and PIL for JPEG
+images), mixed by ``WeightedConcat`` (``data.sampling`` multipliers),
+decoded and augmented by a ``Loader`` of 4 threads, a new image shape each
+batch from a ``ShapeSampler`` over the shape constraints for UniDepthV2 and
+V2old (``shape_constraints.sample``; UniDepthV1 is fixed-shape), batches
+moved to the card through pinned memory two ahead (``device_prefetch``).
+``--dummy-data`` trains on the synthetic Dummy set instead, step n's batch
+a function of (seed, n). Every ``--val-interval`` steps (default:
+``training.validation_interval``, 0 or absent: never) it validates under
+the EMA shadow, at most ``--val-iters`` batches of each of
+``data.val_datasets`` (test mode, padded to whole batches; Dummy without
+them or with ``--dummy-data``), and prints a ``{"val": ...}`` line of the
+depth metrics.
 
 Prints one JSON line a step (step, the loss slots, grad_norm, lr, seconds)
 and, on the card, the peak device memory. Through ``utils.logging.
@@ -33,6 +43,7 @@ the end; ``--resume`` continues from such a file, bit for bit on the CPU.
 
 import argparse
 import json
+import os
 import sys
 import time
 from pathlib import Path
@@ -45,7 +56,9 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 def parse_args(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--config-file", required=True)
-    ap.add_argument("--dummy-data", action="store_true", help="train on the synthetic Dummy dataset (the only source)")
+    ap.add_argument("--dummy-data", action="store_true", help="train on the synthetic Dummy dataset")
+    ap.add_argument("--data-root", default=os.environ.get("DATAROOT"),
+                    help="the directory of the HDF5 shards (default: $DATAROOT)")
     ap.add_argument("--steps", type=int, default=None, help="optimizer steps in all (default: training.n_iters)")
     ap.add_argument("--seed", type=int, default=13)
     ap.add_argument("--image-shape", type=int, nargs=2, default=None, help="override data.image_shape")
@@ -58,17 +71,56 @@ def parse_args(argv=None):
     return ap.parse_args(argv)
 
 
-def log_artifacts(trainer, logger, dataset, batch_size: int, step: int) -> str | None:
-    """The EMA model's prediction on the first (at most 4) images of a Dummy
-    validation batch, gridded with their rgb and GT, through the logger."""
+def data_root(args) -> str:
+    """``--data-root`` (or ``$DATAROOT``), which must be a directory."""
+    if not args.data_root:
+        raise SystemExit("scripts_torch/train.py: no data root: pass --data-root DIR (or set DATAROOT) for the "
+                         "config's data.train_datasets, or --dummy-data")
+    if not Path(args.data_root).is_dir():
+        raise SystemExit(f"scripts_torch/train.py: data root {args.data_root} is not a directory")
+    return args.data_root
+
+
+def shape_sampler(config: dict, model):
+    """UniDepthV2's and V2old's per-batch shapes (the model's shape
+    constraints, V2old's from the config), when the config samples them;
+    None for the fixed-shape UniDepthV1."""
+    from unidepth_tpu_torch.datasets.loader import ShapeSampler
+    from unidepth_tpu_torch.models.unidepthv2.model import DEFAULT_SHAPE_CONSTRAINTS
+
+    given = config["data"].get("augmentations", {}).get("shape_constraints", {})
+    if config["model"].get("name", "UniDepthV2") == "UniDepthV1" or not given.get("sample", False):
+        return None
+    sc = getattr(model, "shape_constraints", None) or {**DEFAULT_SHAPE_CONSTRAINTS, **given}
+    return ShapeSampler({"ratio_bounds": tuple(sc["ratio_bounds"]), "pixels_min": sc["pixels_min"],
+                         "pixels_max": sc["pixels_max"], "shape_mult": sc.get("shape_mult", 14)})
+
+
+def padded_batches(dataset, batch_size: int):
+    """``dataset`` in index order in whole batches: the last one filled by
+    repeating its final sample, ``pad_mask`` False there (its metrics are
+    dropped)."""
+    from unidepth_tpu_torch.datasets.loader import collate
+
+    n = len(dataset)
+    idxs = list(range(n))
+    idxs += [n - 1] * (-n % batch_size)
+    for b in range(0, len(idxs), batch_size):
+        batch = collate([dataset[i] for i in idxs[b : b + batch_size]])
+        batch["pad_mask"] = np.arange(b, b + batch_size) < n
+        yield batch
+
+
+def log_artifacts(trainer, logger, name: str, batch: dict, step: int) -> str | None:
+    """The EMA model's prediction on the first (at most 4) images of a
+    validation batch of ``name``, gridded with their rgb and GT, through the
+    logger."""
     import torch
 
-    from unidepth_tpu_torch.datasets.loader import eval_batches
     from unidepth_tpu_torch.training.ema import ema_weights
     from unidepth_tpu_torch.utils.misc import normalize_rgb
     from unidepth_tpu_torch.utils.visualization import log_train_artifacts
 
-    batch = next(iter(eval_batches(dataset, batch_size)))
     n = min(4, batch["image"].shape[0])
     device = next(trainer.model.parameters()).device
     image, rays = (torch.as_tensor(batch[k][:n]).to(device) for k in ("image", "rays"))
@@ -76,23 +128,26 @@ def log_artifacts(trainer, logger, dataset, batch_size: int, step: int) -> str |
         depth = trainer.model.encode_decode(normalize_rgb(image.float()), rays_gt=rays)["depth"]
     grid = log_train_artifacts([batch["image"][i] for i in range(n)], [batch["depth"][i] for i in range(n)],
                                [depth[i] for i in range(n)])
-    return logger.log_image("Dummy_training", grid, step)
+    return logger.log_image(f"{name}_training", grid, step)
 
 
 def main(argv=None):
     args = parse_args(argv)
     import torch
 
+    from unidepth_tpu_torch.datasets.base import make_dataset
     from unidepth_tpu_torch.datasets.dummy import Dummy
-    from unidepth_tpu_torch.datasets.loader import eval_batches, make_batch
+    from unidepth_tpu_torch.datasets.loader import Loader, WeightedConcat, device_prefetch, make_batch
     from unidepth_tpu_torch.io.checkpoint import load_train_state, save_train_state
     from unidepth_tpu_torch.training.trainer import build_trainer, train_image_shape
     from unidepth_tpu_torch.utils.logging import MetricLogger
 
-    if not args.dummy_data:
-        raise SystemExit("scripts_torch/train.py: only --dummy-data is ported; real datasets wait for ROADMAP A8")
     config = json.loads(Path(args.config_file).read_text())
     tr = config["training"]
+    root = None if args.dummy_data else data_root(args)
+    names = [] if args.dummy_data else config["data"].get("train_datasets")
+    if root and not names:
+        raise SystemExit(f"scripts_torch/train.py: {args.config_file} names no data.train_datasets")
     if args.device is None and not torch.cuda.is_available():
         raise SystemExit("scripts_torch/train.py: no CUDA device; pass --device cpu to train on the CPU")
     image_shape = train_image_shape(config, args.image_shape)
@@ -102,44 +157,64 @@ def main(argv=None):
         trainer.state = load_train_state(args.resume, trainer.state)
         print(f"resumed from {args.resume} at step {trainer.state.step}", flush=True)
     batch_size, accum = tr.get("batch_size", 8), tr.get("nsteps_accumulation_gradient", 1)
+    num_copies = config["data"].get("num_copies", 1)
+    sampler = None if args.dummy_data else shape_sampler(config, trainer.model)
     family = f"{type(trainer.model).__name__} ({config['model']['pixel_encoder']['name']})"
+    shapes = f"shapes {sampler.shapes}" if sampler else f"{image_shape[0]}x{image_shape[1]}"
     print(f"training {family} on {device} ({next(trainer.model.parameters()).dtype} compute, fp32 masters), "
-          f"{batch_size} x {accum} images a step at {image_shape[0]}x{image_shape[1]}; "
-          "no sharding (ROADMAP A8)", flush=True)
+          f"{batch_size} x {accum} images a step at {shapes} from {names or 'Dummy'}; no sharding (ROADMAP A8)",
+          flush=True)
     logger = MetricLogger(run_name=Path(args.config_file).stem, out_dir=args.checkpoint_dir)
-    dataset = Dummy(image_shape=image_shape, length=1024)
-    val_dataset = Dummy(image_shape=image_shape, length=2 * batch_size)
+    val_names = [] if args.dummy_data else config["data"].get("val_datasets", [])
+    val_sets = ({n: make_dataset(n, data_root=root, test_mode=True, image_shape=image_shape) for n in val_names}
+                or {"Dummy": Dummy(image_shape=image_shape, length=2 * batch_size)})
     val_every = tr.get("validation_interval", 0) if args.val_interval is None else args.val_interval
     n_iters = args.steps or tr.get("n_iters", 300000)
     every = tr.get("checkpoint_interval", 10000)
+    loader = None
+    if args.dummy_data:
+        dataset = Dummy(image_shape=image_shape, length=1024)
+    else:
+        datasets = [make_dataset(n, data_root=root, image_shape=image_shape,
+                                 augmentations=config["data"].get("augmentations", {})) for n in names]
+        loader = Loader(WeightedConcat(datasets, sampling=config["data"].get("sampling")), batch_size=batch_size,
+                        shape_sampler=sampler, accum=accum, num_threads=4, seed=args.seed, num_copies=num_copies,
+                        shape_seed=args.seed)
+        batches = device_prefetch(loader, device, size=2)
     saved = None
-    while trainer.state.step < n_iters:
-        step = trainer.state.step
-        # the batch and the draws of step n depend on (seed, n) alone, so a resumed run repeats them
-        batch = make_batch(dataset, batch_size, accum, np.random.default_rng([args.seed, step]),
-                           config["data"].get("num_copies", 1))
-        lr = trainer.optimizer.hyperparams(trainer.state.opt_state.count)["lr"]
-        t0 = time.perf_counter()
-        metrics = trainer.step(batch, (args.seed, step))
-        values = {k: float(v) for k, v in metrics.items()}
-        line = {"step": step + 1, **values, "lr": lr, "seconds": time.perf_counter() - t0}
-        print(json.dumps(line), flush=True)
-        logger.log({**values, "lr": lr}, step + 1)
-        if not all(np.isfinite(list(values.values()))):
-            raise SystemExit(f"scripts_torch/train.py: non-finite metrics at step {step + 1}")
-        validating = bool(val_every) and trainer.state.step % val_every == 0
-        if validating or trainer.state.step == n_iters:
-            log_artifacts(trainer, logger, val_dataset, batch_size, trainer.state.step)
-        if validating:
-            results = trainer.validate({"Dummy": eval_batches(val_dataset, batch_size)}, max_iters=args.val_iters)
-            for name, val in results.items():
-                logger.log({f"{name}/{k}": v for k, v in val.items()}, trainer.state.step, prefix="val")
-            print(json.dumps({"step": trainer.state.step, "val": results}), flush=True)
-        if trainer.state.step % every == 0 or trainer.state.step == n_iters:
-            trainer.sync_model()
-            saved = save_train_state(args.checkpoint_dir, trainer.state)
-            logger.log(logger.memory_stats(), trainer.state.step, prefix="sys")
-            print(f"saved {saved}", flush=True)
+    try:
+        while trainer.state.step < n_iters:
+            step = trainer.state.step
+            # Dummy: the batch and the draws of step n depend on (seed, n) alone, so a resumed run repeats them
+            batch = (make_batch(dataset, batch_size, accum, np.random.default_rng([args.seed, step]), num_copies)
+                     if loader is None else next(batches))
+            lr = trainer.optimizer.hyperparams(trainer.state.opt_state.count)["lr"]
+            t0 = time.perf_counter()
+            metrics = trainer.step(batch, (args.seed, step))
+            values = {k: float(v) for k, v in metrics.items()}
+            line = {"step": step + 1, **values, "lr": lr, "seconds": time.perf_counter() - t0}
+            print(json.dumps(line), flush=True)
+            logger.log({**values, "lr": lr}, step + 1)
+            if not all(np.isfinite(list(values.values()))):
+                raise SystemExit(f"scripts_torch/train.py: non-finite metrics at step {step + 1}")
+            validating = bool(val_every) and trainer.state.step % val_every == 0
+            if validating or trainer.state.step == n_iters:
+                name, val_set = next(iter(val_sets.items()))
+                log_artifacts(trainer, logger, name, next(padded_batches(val_set, batch_size)), trainer.state.step)
+            if validating:
+                results = trainer.validate({n: padded_batches(ds, batch_size) for n, ds in val_sets.items()},
+                                           max_iters=args.val_iters)
+                for name, val in results.items():
+                    logger.log({f"{name}/{k}": v for k, v in val.items()}, trainer.state.step, prefix="val")
+                print(json.dumps({"step": trainer.state.step, "val": results}), flush=True)
+            if trainer.state.step % every == 0 or trainer.state.step == n_iters:
+                trainer.sync_model()
+                saved = save_train_state(args.checkpoint_dir, trainer.state)
+                logger.log(logger.memory_stats(), trainer.state.step, prefix="sys")
+                print(f"saved {saved}", flush=True)
+    finally:
+        if loader is not None:
+            loader.close()
     if device.type == "cuda":
         print(f"peak device memory {torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB", flush=True)
     logger.close()

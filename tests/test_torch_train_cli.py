@@ -70,9 +70,44 @@ def test_two_steps_then_resume(tiny_config, tmp_path, capsys):
     assert (ckpt / "step_00000003.pt").is_file()
 
 
-def test_only_dummy_data_is_ported(tiny_config):
-    with pytest.raises(SystemExit, match="A8"):
+def test_only_dummy_data_is_ported(tiny_config, tmp_path, monkeypatch):
+    """Without a data root only ``--dummy-data`` trains: real datasets
+    refuse with a message naming ``--data-root``, and a root that is not a
+    directory is named."""
+    monkeypatch.delenv("DATAROOT", raising=False)
+    with pytest.raises(SystemExit, match="no data root: pass --data-root"):
         _script().main(["--config-file", str(tiny_config), "--device", "cpu"])
+    with pytest.raises(SystemExit, match="is not a directory"):
+        _script().main(["--config-file", str(tiny_config), "--device", "cpu", "--data-root", str(tmp_path / "none")])
+
+
+def test_two_steps_on_hdf5_shards(tiny_config, tmp_path, capsys):
+    """Two CPU steps over synthetic shards of KITTI, NYUv2Depth and ARKit
+    (``--data-root``; the data root as ``DATAROOT`` too): the threaded
+    Loader, a sampled shape a batch, validation on NYUv2Depth in test mode."""
+    from unidepth_tpu_torch.datasets.synthetic import make_shards, write_hdf5
+
+    write_hdf5(tmp_path, make_shards(["KITTI", "NYUv2Depth", "ARKit"], 4, 0,
+                                     shapes={"KITTI": (356, 1222), "NYUv2Depth": (48, 64), "ARKit": (48, 64)}))
+    cfg = json.loads(tiny_config.read_text())
+    cfg["data"].update(train_datasets=["KITTI", "NYUv2Depth", "ARKit"], val_datasets=["NYUv2Depth"])
+    cfg["data"]["augmentations"]["shape_constraints"].update(pixels_min=1200, pixels_max=4000)
+    config = tmp_path / "tiny_data.json"
+    config.write_text(json.dumps(cfg))
+    ckpt = tmp_path / "ckpt"
+    saved = _script().main(["--config-file", str(config), "--data-root", str(tmp_path), "--device", "cpu",
+                            "--steps", "2", "--val-interval", "2", "--val-iters", "1", "--checkpoint-dir", str(ckpt)])
+    out = capsys.readouterr().out
+    assert "from ['KITTI', 'NYUv2Depth', 'ARKit']" in out and "shapes [(" in out
+    lines = _lines(out)
+    steps = [line for line in lines if "val" not in line]
+    assert [line["step"] for line in steps] == [1, 2]
+    assert all(np.isfinite(v) for line in steps for v in line.values())
+    val = next(line["val"]["NYUv2Depth"] for line in lines if "val" in line)
+    assert all(np.isfinite(v) for v in val.values())
+    assert saved == ckpt / "step_00000002.pt" and saved.is_file()
+    records = [json.loads(line) for line in (ckpt / "tiny_data.jsonl").read_text().splitlines()]
+    assert any("image/NYUv2Depth_training" in r for r in records)
 
 
 def test_no_device_and_no_card_raises(tiny_config, monkeypatch):

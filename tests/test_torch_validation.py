@@ -240,7 +240,8 @@ def test_eval_cli_on_the_cpu(tiny_configs, family, capsys):
 
 def test_eval_cli_refuses_what_is_not_ported(tiny_configs, tmp_path, monkeypatch):
     cfg = json.loads(tiny_configs["v2"].read_text())
-    with pytest.raises(SystemExit, match="A8"):
+    monkeypatch.delenv("DATAROOT", raising=False)
+    with pytest.raises(SystemExit, match=r"no data root for \['KITTI'\]: pass --data-root"):
         _script("eval").main(["--config-file", str(tiny_configs["v2"]), "--datasets", "KITTI", "--device", "cpu"])
     cfg["model"]["name"] = "UniDepthV3"  # no such family (UniDepthV2old is ported: tests/test_torch_v2old.py)
     unknown = tmp_path / "unknown.json"
@@ -251,6 +252,22 @@ def test_eval_cli_refuses_what_is_not_ported(tiny_configs, tmp_path, monkeypatch
     for name, argv in (("eval", ["--config-file", str(tiny_configs["v2"]), "--dummy-data"]), ("demo", [])):
         with pytest.raises(SystemExit, match="--device cpu"):
             _script(name).main(argv)
+
+
+def test_eval_cli_on_hdf5_shards(tiny_configs, tmp_path, capsys):
+    """``--datasets KITTI NYUv2Depth`` over synthetic shards under
+    ``--data-root``, each in test mode (KITTI's pre-crop and garg crop,
+    NYUv2Depth's eigen crop): every depth metric, finite."""
+    from unidepth_tpu_torch.datasets.synthetic import make_shards, write_hdf5
+
+    write_hdf5(tmp_path, make_shards(["KITTI", "NYUv2Depth"], 3, 0,
+                                     shapes={"KITTI": (356, 1222), "NYUv2Depth": (48, 64)}))
+    results = _script("eval").main(["--config-file", str(tiny_configs["v2"]), "--data-root", str(tmp_path),
+                                    "--datasets", "KITTI", "NYUv2Depth", "--batch", "2", "--device", "cpu"])
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line == {"eval": results} and sorted(results) == ["KITTI", "NYUv2Depth"]
+    for metrics in results.values():
+        assert set(metrics) == set(DEPTH_METRICS) and all(np.isfinite(v) for v in metrics.values())
 
 
 @pytest.mark.parametrize("version", [2, 1])

@@ -1,8 +1,8 @@
 """Declarative dataset registry (a copy of unidepth_tpu/datasets/specs.py,
 which the port may not import): one ``DatasetSpec`` row a dataset, its depth
-range and scale, HDF5 shards, split files, eval crop and annotation flags.
-The port reads ``min_depth`` and ``max_depth`` (the evaluation's depth
-ranges); the HDF5 reader that takes the rest waits for ROADMAP A8.
+range and scale, HDF5 shards, split files, eval crop and annotation flags,
+read by the HDF5 readers (``base.py``, ``sequence.py``) and the
+evaluation's depth ranges.
 """
 
 from __future__ import annotations

@@ -406,7 +406,9 @@ class EdgeGuidedLocalSSI:
         gh, gw = max(1, h // 14), max(1, w // 14)
         flat = resize(edges, (gh, gw), mode="bilinear", align_corners=False).reshape(b, -1)
         want = max(10, math.ceil(0.1 * gh * gw)) if self.num_patches is None else self.num_patches
-        idx = torch.topk(flat, min(want, flat.shape[-1]), dim=-1).indices
+        # the k largest, the lower index first among equals (lax.top_k's
+        # order): cells of equal strength, e.g. edgeless ones, are common
+        idx = torch.sort(flat, dim=-1, descending=True, stable=True).indices[:, : min(want, flat.shape[-1])]
         offset = 7 if self.center_patches else 0
         coords = torch.stack([idx // gw, idx % gw], dim=-1) * 14 + offset
         ksize = int(0.06 * min(h, w))

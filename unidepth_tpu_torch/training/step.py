@@ -126,7 +126,14 @@ def micro_seeds(seed, accum: int) -> list[tuple[int, int]]:
 
 
 def to_device(batch: dict, device) -> dict:
-    return {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
+    """The batch's leaves on ``device``: a tensor already there is used as it
+    is (``device_prefetch``'s), a numpy array is copied."""
+    device = torch.device(device)
+
+    def there(v) -> bool:
+        return torch.is_tensor(v) and v.device.type == device.type and device.index in (None, v.device.index)
+
+    return {k: v if there(v) else torch.as_tensor(v).to(device) for k, v in batch.items()}
 
 
 def forward_backward(model, losses: dict, batch: dict, recipe=compute_losses_v2, norm_mode="imagenet",
