@@ -265,8 +265,35 @@ fails (non-zero exit, no result line) without CUDA or outside a checkout.
    the peak memory at 602 x 952. (e) ``scripts_torch/train.py --data-root``
    (2 steps of 4 images) and ``scripts_torch/eval.py --data-root --datasets
    KITTI NYUv2Depth`` as subprocesses on the card at once: exit 0, finite
-   losses and metrics. A ``{"data": ...}`` line carries the figures. The
-   whole run's seconds are printed.
+   losses and metrics. A ``{"data": ...}`` line carries the figures.
+16. The rest of serving (``serve_phase``). (a) ``scripts_torch/infer.py``'s
+   ``main`` in this process on a folder of the demo image and two
+   NuScenes-style frames of six seeded 900 x 1600 PNGs (13 images, 3
+   batches of at most 8 in 2 size buckets, configs/config_v2_vitl14.json,
+   random weights): K1 24, K2 24, K3 4 a batch on the Hopper bodies; the 13
+   depth PNGs under the JAX CLI's names, each within SERVE_DEPTH_MM of
+   ``clip(depth * 1000)`` of a direct ``infer()`` of the same batch;
+   images/s. The command line on the demo image alone with ``--save-ply
+   --save-panel`` as a subprocess: exit 0, a PLY of H * W vertices, an RGB
+   | depth panel. (b) ``export_forward`` of the same V2 ViT-L/14 (bf16) at
+   462 x 616, B = 1, without and with rays: no launch while tracing, the
+   kernel flags back on; a process that imports torch only loads both
+   archives and runs them on the card; their points within relative RMS
+   EXPORT_REL_RMS of the plain ``encode_decode`` and their depth within the
+   V2 gate of the kernel path's; seconds, MiB and ms a call beside the
+   kernel path's; a call of the program loaded here launches nothing. (c)
+   V2 ViT-L/14 with 4 register tokens and softmax stacking, ``infer()`` at
+   B = 8, 518 x 518 (K1 at 1,374 tokens; K1 24, K2 24, K3 4), and ViT-S/14
+   under ``max``, ``mean`` and ``first`` at B = 2, each against the fp32
+   plain path: ViT-L at the V2 gate, ViT-S at STACKING_DEPTH_GATE (set
+   from the JAX package's own bf16 drift of each stacking,
+   tests/stacking_bf16_drift.py). (d) DINOv2 ViT-g/14 with registers
+   (VITG_REG: SwiGLU, 40 blocks, 24 heads of 64) alone at B = 8, 518 x 518,
+   weights drawn on the card: K4 40 on the Hopper body, K1 and K2 0; the
+   features and cls tokens of the bf16 kernel path within VITG_FEATURE_GATE
+   relative RMS of the fp32 plain path (the plain bf16 path's drift
+   printed beside it). A ``{"serve": ...}`` line carries the figures; K1-K4's
+   records gain ``serve_launches``. The whole run's seconds are printed.
 
 Each path's launch counts (and the Hopper-body counts of K1-K7) are set
 to 0 just before it runs and read just after. A K2 call
@@ -276,9 +303,12 @@ JSON record (each kernel with its ``body``) and ``{"ok": true, "device":
 {...}}``. Any failing phase raises.
 """
 
+import copy
 import importlib.util
+import io
 import json
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -458,6 +488,37 @@ DATA_CLI_STEPS = 2
 # what a shard's node paths are served from when h5py is absent: the nodes of
 # <shard path>.npz, read through NpzShard
 H5PY_ABSENT = importlib.util.find_spec("h5py") is None
+
+# the serving phase. (a) scripts_torch/infer.py on the demo image and two
+# NuScenes-style frames of six 900 x 1600 views: 13 images, 3 batches of at
+# most SERVE_BATCH in 2 size buckets, each batch K1 24, K2 24, K3 4
+SERVE_CAMS = ("CAM_BACK", "CAM_BACK_LEFT", "CAM_BACK_RIGHT", "CAM_FRONT", "CAM_FRONT_LEFT", "CAM_FRONT_RIGHT")
+SERVE_FRAME = (900, 1600)
+SERVE_BATCH = 8
+SERVE_BATCHES = 3
+SERVE_DEPTH_MM = 1  # the CLI's depth PNGs against a direct infer() of the same batch
+DEMO_RGB = ROOT / "assets" / "demo" / "rgb.png"
+# (b) the exporter: V2 ViT-L/14 at 462 x 616 (33 x 44 patches + cls), B = 1,
+# bf16; the loaded program's points against the same model's plain
+# encode_decode (relative RMS) and against its kernel path (the V2 depth gate)
+EXPORT_SHAPE = (462, 616)
+EXPORT_REL_RMS = 1e-3
+# (c) V2 ViT-L/14 with 4 register tokens and softmax stacking (1 + 4 + 1369 =
+# 1374 tokens); the other stackings at ViT-S widths
+REGISTER_TOKENS = 4
+OTHER_STACKINGS = ("max", "mean", "first")
+# the ViT-S stackings' depth gate (PERF.md section 2, tests/stacking_bf16_drift.py
+# on the CPU): twice the JAX package's own worst bf16 drift of the shipped
+# ViT-S/14 config over the stacking modes (mean: median 9.07e-3), rounded up
+STACKING_DEPTH_GATE = 2e-2
+# (d) DINOv2 ViT-g/14 with registers (dinov2_vitg14_reg): SwiGLU of hidden
+# 4096 (6144 * 2 / 3), 40 blocks, 24 heads of 64, outputs at 10, 20, 30, 40
+VITG_REG = dict(embed_dim=1536, depth=40, num_heads=24, mlp_ratio=4.0, num_register_tokens=4, ffn_layer="swiglu",
+                output_idx=(10, 20, 30, 40), use_norm=True)
+# the features' and cls tokens' relative RMS, bf16 kernel path against fp32
+# plain: twice what bf16 rounding alone gives, the plain bf16 path's 4.36e-2
+# (H100 80GB HBM3, 700 W; the kernel path measured 4.32e-2), rounded up
+VITG_FEATURE_GATE = 9e-2
 
 
 def log(*args):
@@ -1535,6 +1596,293 @@ def v2old_phase(kernels, none, smi, dev):
     return launches, figures
 
 
+def serve_cli_phase(kernels, none, smi, model_cls, config):
+    """(a) scripts_torch/infer.py's ``main`` in this process on the demo image
+    and two 6-view frames (launches counted), every depth PNG held to a
+    direct ``infer()`` of the same batch. Returns the CLI's launches, its
+    figures and the direct path's model (the exporter's), then starts the
+    command line on the demo image alone as a subprocess with --save-ply
+    --save-panel, returned with its output folder for ``serve_cli_check``."""
+    from unidepth_tpu_torch.datasets.base import decode_rgb
+    from unidepth_tpu_torch.utils.png import read_png, write_png
+
+    spec = importlib.util.spec_from_file_location("infer_cli", ROOT / "scripts_torch" / "infer.py")
+    cli = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cli)
+    tmp = Path(tempfile.mkdtemp(prefix="serve_"))
+    src = tmp / "in"
+    (src / "assets" / "demo").mkdir(parents=True)
+    (src / "assets" / "demo" / "rgb.png").write_bytes(DEMO_RGB.read_bytes())
+    rng = np.random.default_rng(SEED)
+    for frame in ("frame0", "frame1"):
+        (src / frame).mkdir()
+        for cam in SERVE_CAMS:
+            write_png(src / frame / f"{cam}.png", rng.integers(0, 256, (*SERVE_FRAME, 3), dtype=np.uint8))
+    t0 = time.perf_counter()
+    rate, launches = run_path("scripts_torch/infer.py main()", kernels, lambda: cli.main(
+        ["--input", str(src), "--output", str(tmp / "out"), "--batch", str(SERVE_BATCH)]))
+    seconds = time.perf_counter() - t0
+    per_batch = {"flash_attention_qkv": 24, "ln_dense": 24, "flash_attention": 4}
+    check_launches("scripts_torch/infer.py", launches,
+                   {**none, **{k: SERVE_BATCHES * n for k, n in per_batch.items()},
+                    **{f"{k}/wgmma": SERVE_BATCHES * n for k, n in per_batch.items()}})
+    paths = sorted(p for p in src.rglob("*.png"))
+    stems = ["assets_demo_rgb"] + [f"{f}_{c}" for f in ("frame0", "frame1") for c in SERVE_CAMS]
+    if sorted(p.name for p in (tmp / "out").iterdir()) != sorted(f"{s}_depth.png" for s in stems):
+        raise RuntimeError(f"scripts_torch/infer.py wrote {sorted(p.name for p in (tmp / 'out').iterdir())}")
+    # the CLI's batches: sorted paths by size bucket (the demo image, then the
+    # frames), SERVE_BATCH at a time
+    model = model_cls.from_config(config).init_params(seed=SEED).eval()
+    batches = [paths[:1], paths[1 : 1 + SERVE_BATCH], paths[1 + SERVE_BATCH :]]
+    worst = 0
+    for batch in batches:
+        imgs = np.stack([decode_rgb(p.read_bytes()) for p in batch])
+        depth = model.infer(imgs)["depth"][..., 0].float().cpu().numpy()
+        for j, p in enumerate(batch):
+            stem = "_".join(p.relative_to(src).with_suffix("").parts)
+            want = np.clip(depth[j] * 1000.0, 0, 65535).astype(np.uint16)
+            worst = max(worst, int(np.abs(read_png(tmp / "out" / f"{stem}_depth.png").astype(np.int64) - want).max()))
+    if worst > SERVE_DEPTH_MM:
+        raise RuntimeError(f"scripts_torch/infer.py depth PNGs {worst} mm off a direct infer() (> {SERVE_DEPTH_MM})")
+    log(f"scripts_torch/infer.py: {len(paths)} images in {len(batches)} batches, {rate:.2f} images/s "
+        f"({seconds:.1f} s with the model's build); depth PNGs within {worst} mm of a direct infer() ({smi})")
+    demo = tmp / "demo"
+    demo.mkdir()
+    (demo / "rgb.png").write_bytes(DEMO_RGB.read_bytes())
+    proc = subprocess.Popen([sys.executable, str(ROOT / "scripts_torch" / "infer.py"), "--input", str(demo),
+                             "--output", str(tmp / "demo_out"), "--save-ply", "--save-panel"], cwd=ROOT,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    figures = {"images": len(paths), "batches": len(batches), "images_per_s": rate, "seconds": seconds,
+               "depth_png_max_mm": worst}
+    return launches, figures, model, (proc, tmp)
+
+
+def serve_cli_check(proc, tmp, figures):
+    """The command line's run on the demo image: exit 0, a PLY of H * W
+    vertices, a panel of RGB | depth."""
+    try:
+        stdout, _ = proc.communicate(timeout=600)
+    finally:
+        proc.kill()
+        proc.wait()
+    if proc.returncode != 0:
+        raise RuntimeError(f"scripts_torch/infer.py --save-ply --save-panel exited {proc.returncode}:\n{stdout[-5000:]}")
+    from unidepth_tpu_torch.utils.png import read_png
+
+    h, w = read_png(DEMO_RGB).shape[:2]
+    with open(tmp / "demo_out" / "rgb.ply", "rb") as f:
+        header = f.read(400).split(b"end_header")[0].decode()
+    if f"element vertex {h * w}\n" not in header:
+        raise RuntimeError(f"the demo's PLY header lacks {h * w} vertices:\n{header}")
+    panel = read_png(tmp / "demo_out" / "rgb_panel.png")
+    if panel.shape != (h, 2 * w, 3):
+        raise RuntimeError(f"the demo's panel has shape {panel.shape}")
+    figures["command_line"] = {"ply_vertices": h * w, "panel": list(panel.shape)}
+    log(f"scripts_torch/infer.py --save-ply --save-panel on the demo image: exit 0, PLY of {h * w} vertices, "
+        f"panel {panel.shape}")
+    shutil.rmtree(tmp)
+
+
+EXPORT_LOADER = """
+import json, sys, time
+import torch
+src = sys.argv[1]
+inputs = torch.load(src + "/inputs.pt")
+out = {}
+for name, args in (("image", inputs[:1]), ("image_rays", inputs)):
+    program = torch.export.load(src + "/" + name + ".pt2").module()
+    args = [a.cuda() for a in args]
+    with torch.no_grad():
+        result = program(*args)
+        for _ in range(2):
+            program(*args)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(5):
+            program(*args)
+        end.record()
+        end.synchronize()
+    out[name] = [t.cpu() for t in result]
+    out[name + "_ms"] = start.elapsed_time(end) / 5
+assert not any(m.startswith("unidepth_tpu") for m in sys.modules), "the loader imported the port"
+torch.save(out, src + "/outputs.pt")
+print(json.dumps({k: v for k, v in out.items() if k.endswith("_ms")}))
+"""
+
+
+def rel_rms(out, ref):
+    return ((out.float() - ref.float()).norm() / ref.float().norm()).item()
+
+
+def serve_export_phase(kernels, none, smi, model, dev):
+    """(b) ``export_forward`` of V2 ViT-L/14 (bf16, on the card) at
+    EXPORT_SHAPE, without and with rays: no kernel launched while tracing,
+    the flags back on after; the bytes loaded and run on the card by a
+    process that imports torch only; its points against the same model's
+    plain ``encode_decode`` (relative RMS <= EXPORT_REL_RMS) and its kernel
+    path's (depth median relative error <= 1e-2); a call of the program
+    loaded here launches nothing. Returns the figures."""
+    from unidepth_tpu_torch.geometry.cameras import Pinhole
+    from unidepth_tpu_torch.models.unidepthv2.export import export_forward
+
+    h, w = EXPORT_SHAPE
+    gen = torch.Generator(device=dev).manual_seed(SEED + 14)
+    image = torch.randn((1, h, w, 3), generator=gen, device=dev)
+    K = torch.tensor([[[520.0, 0.0, w / 2], [0.0, 520.0, h / 2], [0.0, 0.0, 1.0]]], device=dev)
+    rays = Pinhole.from_K(K).get_rays(h, w).reshape(1, h * w, 3)
+    figures, blobs = {}, {}
+    for name, with_camera in (("image", False), ("image_rays", True)):
+        t0 = time.perf_counter()
+        blobs[name], launches = run_path(f"export_forward {name}", kernels,
+                                         lambda: export_forward(model, EXPORT_SHAPE, with_camera=with_camera))
+        figures[f"{name}_export_s"] = time.perf_counter() - t0
+        figures[f"{name}_mb"] = len(blobs[name]) / 2**20
+        check_launches(f"export_forward {name}", launches, none)
+        if not all(m.use_kernels for m in model.modules() if hasattr(m, "use_kernels")):
+            raise RuntimeError("export_forward left a module on the plain versions")
+        log(f"export_forward {name}: {figures[f'{name}_export_s']:.1f} s, {figures[f'{name}_mb']:.1f} MiB, "
+            "no kernel launched, kernels back on")
+    refs = {}
+    with torch.no_grad():
+        for name, args in (("image", (image,)), ("image_rays", (image, rays))):
+            out, launches = run_path(f"encode_decode {name} (kernel path)", kernels,
+                                     lambda: model.encode_decode(*args)["points"])
+            check_launches(f"encode_decode {name}", launches,
+                           {**none, "flash_attention_qkv": 24, "flash_attention_qkv/wgmma": 24, "ln_dense": 24,
+                            "ln_dense/wgmma": 24, "flash_attention": 4, "flash_attention/wgmma": 4})
+            model.set_kernels(False)
+            plain = model.encode_decode(*args)["points"]
+            model.set_kernels(True)
+            refs[name] = out, plain
+        figures["kernel_path_ms"] = time_ms(lambda: model.encode_decode(image), iters=3, reps=3)
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, blob in blobs.items():
+            (Path(tmp) / f"{name}.pt2").write_bytes(blob)
+        torch.save([image.cpu(), rays.cpu()], Path(tmp) / "inputs.pt")
+        run = subprocess.run([sys.executable, "-c", EXPORT_LOADER, tmp], cwd=tmp, capture_output=True, text=True,
+                             timeout=600)
+        if run.returncode != 0:
+            raise RuntimeError(f"loading the exported program without the port failed:\n{run.stderr[-5000:]}")
+        loaded = torch.load(Path(tmp) / "outputs.pt")
+    for name, (kernel_pts, plain_pts) in refs.items():
+        pts = loaded[name][0].to(dev)
+        if pts.shape != plain_pts.shape or not torch.isfinite(pts).all():
+            raise RuntimeError(f"the exported {name} program gave points {tuple(pts.shape)} or non-finite values")
+        rms = rel_rms(pts, plain_pts)
+        depth, ref_depth = pts[..., 2].float(), kernel_pts[..., 2].float()
+        med = ((depth - ref_depth).abs() / ref_depth.abs()).median().item()
+        log(f"exported {name} program (its own process, torch only): points vs plain encode_decode rel RMS "
+            f"{rms:.3e} (gate {EXPORT_REL_RMS}); depth vs the kernel path median rel err {med:.3e} (gate 1e-2); "
+            f"{loaded[name + '_ms']:.2f} ms a call, kernel path {figures['kernel_path_ms']:.2f} ms "
+            f"(B = 1, {h}x{w}, {smi})")
+        if not (rms <= EXPORT_REL_RMS and med <= 1e-2):
+            raise RuntimeError(f"the exported {name} program is off: rel RMS {rms}, depth median {med}")
+        figures[name] = {"rel_rms_plain": rms, "depth_median_kernel": med, "ms": loaded[name + "_ms"]}
+    program = torch.export.load(io.BytesIO(blobs["image"])).module()
+    with torch.no_grad():
+        _, launches = run_path("the exported program, loaded here", kernels, lambda: program(image))
+    check_launches("the exported program", launches, none)
+    return figures
+
+
+def serve_phase(kernels, none, smi, dev):
+    """The rest of serving: (a) the infer CLI, (b) the exporter, (c) register
+    tokens and the stacking modes at full width, (d) the SwiGLU encoder at
+    DINOv2 ViT-g/14 widths. Returns the launches (the CLI's, a register-token
+    ``infer()``'s and the SwiGLU encoder's) and the figures."""
+    from unidepth_tpu_torch.models.backbones.dinov2 import DinoViT, ViTConfig
+    from unidepth_tpu_torch.models.unidepthv2.model import UniDepthV2
+
+    t_phase = time.perf_counter()
+    config = json.loads(CONFIG.read_text())
+    launches, figures = {}, {}
+    launches["cli"], figures["cli"], model, (proc, tmp) = serve_cli_phase(kernels, none, smi, UniDepthV2, config)
+    try:
+        figures["export"] = serve_export_phase(kernels, none, smi, model, dev)
+        del model
+        torch.cuda.empty_cache()
+
+        # (c) registers and softmax stacking on ViT-L/14, then the other stackings at ViT-S
+        rgb = np.random.default_rng(SEED).integers(0, 256, (BATCH, SIDE, SIDE, 3), dtype=np.uint8)
+        v2 = {"flash_attention_qkv": 24, "ln_dense": 24, "flash_attention": 4}
+        vits = {"flash_attention_qkv": 12, "ln_dense": 12, "flash_attention": 4}
+        cases = [("ViT-L/14 registers softmax", CONFIG, {"num_register_tokens": REGISTER_TOKENS,
+                                                         "stacking_fn": "softmax"}, rgb, v2, 1e-2)]
+        cases += [(f"ViT-S/14 {s}", CONFIG_S, {"stacking_fn": s}, rgb[:BATCH_B_CHECK], vits, STACKING_DEPTH_GATE)
+                  for s in OTHER_STACKINGS]
+        figures["stacking"] = {}
+        for label, path, extra, images, expected, gate in cases:
+            cfg = json.loads(path.read_text())
+            cfg["model"]["pixel_encoder"].update(extra)
+            m = UniDepthV2.from_config(cfg).init_params(seed=SEED).eval()
+            tokens = []
+            hook = m.pixel_encoder.blocks[0].register_forward_pre_hook(lambda mod, a: tokens.append(a[0].shape[1]))
+            out, counts = run_path(f"{label} bf16 infer()", kernels, lambda: m.infer(images))
+            hook.remove()
+            check_launches(f"{label} bf16 infer()", counts,
+                           {**none, **expected, **{f"{k}/wgmma": n for k, n in expected.items()}})
+            check_outputs(f"{label} bf16 infer()", out, len(images))
+            reg = extra.get("num_register_tokens", 0)
+            if tokens != [1 + reg + (SIDE // 14) ** 2]:
+                raise RuntimeError(f"{label}: the encoder ran at {tokens} tokens")
+            ref = depth_against_plain(label, UniDepthV2, cfg, images, out["depth"], kernels, dev, gate=gate,
+                                      outputs=("depth", "intrinsics"))
+            rel = ((out["depth"] - ref["depth"]).abs() / ref["depth"].abs()).median().item()
+            figures["stacking"][label] = {"tokens": tokens[0], "depth_median": rel}
+            if reg:
+                launches["registers"] = counts
+            del m, out, ref
+
+        # (d) the SwiGLU encoder at DINOv2 ViT-g/14 widths, random weights drawn on the card
+        t0 = time.perf_counter()
+        with torch.device(dev):
+            enc = DinoViT(ViTConfig(**VITG_REG)).eval()
+        g = torch.Generator(device=dev).manual_seed(SEED)
+        with torch.no_grad():
+            for name, p in enc.named_parameters():
+                if name.endswith("bias"):
+                    p.zero_()
+                elif p.ndim >= 2 and name.startswith("blocks."):  # linears: lecun normal
+                    p.normal_(0.0, p.shape[1] ** -0.5, generator=g)
+                elif p.ndim >= 2:  # patch embedding, cls, pos-embed, registers
+                    p.normal_(0.0, 0.02, generator=g)
+        enc16 = copy.deepcopy(enc).to(torch.bfloat16)
+        n_params = sum(p.numel() for p in enc.parameters())
+        image = torch.randn((BATCH, SIDE, SIDE, 3), generator=g, device=dev)
+        with torch.no_grad():
+            (feats, cls), counts = run_path("ViT-g/14 SwiGLU bf16 encoder", kernels,
+                                            lambda: enc16(image.to(torch.bfloat16)))
+            expected = {"flash_attention_packed": VITG_REG["depth"], "flash_attention_packed/wgmma": VITG_REG["depth"]}
+            check_launches("ViT-g/14 SwiGLU bf16 encoder", counts, {**none, **expected})
+            launches["swiglu"] = counts
+            for blk in [*enc.blocks, *enc16.blocks]:
+                blk.use_kernels = False
+            feats32, cls32 = enc(image)
+            feats_pb, cls_pb = enc16(image.to(torch.bfloat16))  # plain bf16: the rounding alone
+        drift = max(rel_rms(a, b) for a, b in zip([*feats, *cls], [*feats32, *cls32]))
+        plain_drift = max(rel_rms(a, b) for a, b in zip([*feats_pb, *cls_pb], [*feats32, *cls32]))
+        finite = all(torch.isfinite(t).all() for t in [*feats, *cls])
+        side = SIDE // 14
+        if not finite or [tuple(f.shape) for f in feats] != [(BATCH, side, side, VITG_REG["embed_dim"])] * 4:
+            raise RuntimeError(f"ViT-g/14 SwiGLU features {[tuple(f.shape) for f in feats]} or not finite")
+        log(f"ViT-g/14 SwiGLU ({n_params / 1e9:.3f} B params, {1 + VITG_REG['num_register_tokens'] + side * side} "
+            f"tokens, B = {BATCH}): bf16 kernel path vs fp32 plain, feature and cls rel RMS {drift:.3e} (gate "
+            f"{VITG_FEATURE_GATE}); plain bf16 vs fp32 {plain_drift:.3e}; {time.perf_counter() - t0:.1f} s")
+        if not drift <= VITG_FEATURE_GATE:
+            raise RuntimeError(f"ViT-g/14 SwiGLU features drift {drift} > {VITG_FEATURE_GATE}")
+        figures["swiglu"] = {"params": n_params, "rel_rms": drift, "plain_bf16_rel_rms": plain_drift,
+                             "gate": VITG_FEATURE_GATE}
+        del enc, enc16, feats, cls, feats32, cls32, feats_pb, cls_pb
+        torch.cuda.empty_cache()
+        serve_cli_check(proc, tmp, figures["cli"])
+    finally:
+        proc.kill()
+        proc.wait()
+    figures["seconds"] = time.perf_counter() - t_phase
+    log(f"serve phase: {figures['seconds']:.1f} s")
+    return launches, figures
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this test has no CPU path")
@@ -2051,6 +2399,7 @@ def main():
     v1_int8_launches, v1_int8_figures = v1_int8_phase(kernels, none, smi, dev)
     train_cli = train_cli_phase()
     data_launches, data_figures = data_phase(kernels, none, smi, dev)
+    serve_launches, serve_figures = serve_phase(kernels, none, smi, dev)
 
     # each kernel's count from the path it serves: K1-K3 the bf16 ViT-L path,
     # K4 the int8 one, K5 its own call, K6 and K7 the harness
@@ -2095,6 +2444,10 @@ def main():
         m[name]["v1_int8_launches"] = v1_int8_launches[name]
     for name in ("flash_attention_qkv", "ln_dense", "flash_attention"):
         m[name]["data_train_launches"] = data_launches[name]  # DATA_STEPS loader-fed steps
+    # the serving phase's paths: the CLI's three batches, a register-token V2
+    # infer(), the SwiGLU ViT-g/14 encoder
+    for name in ("flash_attention_qkv", "ln_dense", "flash_attention", "flash_attention_packed"):
+        m[name]["serve_launches"] = {path: counts[name] for path, counts in serve_launches.items()}
     record = [
         {"name": name, "route": "cuda", "source": f"unidepth_tpu_torch/csrc/{src}", "replaces": rep, "body": body,
          "launches": path_launches[name],
@@ -2107,6 +2460,7 @@ def main():
     log(json.dumps({"eval": eval_figures}))
     log(json.dumps({"v2old": v2old_figures}))
     log(json.dumps({"data": data_figures}))
+    log(json.dumps({"serve": serve_figures}))
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s, the build included")
     log(json.dumps({"kernels": record}))
     log(json.dumps({"ok": True, "device": {

@@ -197,8 +197,12 @@ def test_vit_max_cls_stacking_matches_jax(encoders):
 
 
 def test_vit_other_stackings_still_raise():
-    with pytest.raises(NotImplementedError, match="max_cls"):
-        DinoViT(ViTConfig(**VIT), stacking="max")
+    """Every stacking mode of the JAX encoder builds (each is held to JAX in
+    tests/test_torch_vit_extras.py); a name outside them raises, naming
+    them."""
+    assert DinoViT(ViTConfig(**VIT), stacking="max").stacking == "max"
+    with pytest.raises(ValueError, match="max_cls"):
+        DinoViT(ViTConfig(**VIT), stacking="median")
 
 
 # ---- the whole model -----------------------------------------------------------

@@ -138,7 +138,8 @@ def _attention_block(out: dict, prefix: str, p: Mapping) -> None:
 
 def encoder_state_dict(p: Mapping, pre: str = "") -> dict[str, torch.Tensor]:
     """JAX ``DinoViT`` parameters -> the port's ``DinoViT`` state_dict (keys
-    prefixed with ``pre``)."""
+    prefixed with ``pre``): the register tokens where it has them, and a
+    block's MLP (``fc1``, ``fc2``) or SwiGLU (``w12``, ``w3``)."""
     out: dict[str, torch.Tensor] = {}
     kernel = np.asarray(p["patch_kernel"])  # (p*p*3, C), rows in (kh, kw, cin) order
     c = kernel.shape[1]
@@ -147,6 +148,8 @@ def encoder_state_dict(p: Mapping, pre: str = "") -> dict[str, torch.Tensor]:
     out[f"{pre}patch_embed.proj.bias"] = _t(p["patch_bias"])
     out[f"{pre}cls_token"] = _t(p["cls_token"])
     out[f"{pre}pos_embed"] = _t(p["pos_embed"])
+    if "register_tokens" in p:
+        out[f"{pre}register_tokens"] = _t(p["register_tokens"])
     i = 0
     for si in range(len([k for k in p if k.startswith("stage_")])):
         stage = p[f"stage_{si}"]
@@ -157,8 +160,9 @@ def encoder_state_dict(p: Mapping, pre: str = "") -> dict[str, torch.Tensor]:
             _dense(out, f"{bp}.attn.qkv", blk["qkv"])
             _dense(out, f"{bp}.attn.proj", blk["proj"])
             _ln(out, f"{bp}.norm2", blk["norm2"])
-            _dense(out, f"{bp}.mlp.fc1", blk["fc1"])
-            _dense(out, f"{bp}.mlp.fc2", blk["fc2"])
+            for name in ("fc1", "fc2", "w12", "w3"):  # the MLP's or SwiGLU's
+                if name in blk:
+                    _dense(out, f"{bp}.mlp.{name}", blk[name])
             if "ls1_gamma" in blk:
                 out[f"{bp}.ls1.gamma"] = _t(blk["ls1_gamma"])
                 out[f"{bp}.ls2.gamma"] = _t(blk["ls2_gamma"])

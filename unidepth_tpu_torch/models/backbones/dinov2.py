@@ -4,28 +4,35 @@
 ``output_idx``, a (B, h, w, C) feature map and a (B, 1, C) cls token:
 
 * ``stacking='last'`` (V2): the features and cls token of each stage's last
-  block;
+  block, after the final norm (``use_norm``);
+* ``'max'``, ``'mean'``, ``'first'``, ``'softmax'``: every block output of
+  a stage, each after the final norm, reduced over the stage's blocks by
+  ``utils.misc.STACKING_FNS``; the cls token is the reduction's token 0;
 * ``stacking='max_cls'`` (V1): each stage's elementwise max over its blocks
   of patches + that block's cls token (a running max: no block's output is
   kept), and the cls tokens of the last ``len(output_idx)`` blocks in
   natural order.
 
+``ViTConfig.num_register_tokens`` R > 0 adds ``register_tokens`` (1, R, C):
+the tokens run as ``[cls, registers, patches]``, the registers without a
+position embedding, and every feature map skips them (``1 + R:``).
 ``ViTConfig.interpolate_offset`` (V1 builds its encoder with 0.1) resizes
 the position embedding with torch's explicit ``scale_factor`` semantics,
-(grid + offset) / pos_embed_size. Register tokens, SwiGLU and the other
-stacking modes are not ported yet.
+(grid + offset) / pos_embed_size.
 
 ``ViTBlock`` has the JAX block's two branches, chosen by the JAX rule
-``_use_fused``: int8 GEMMs turn fusion off.
+``_use_fused``: int8 GEMMs and a SwiGLU MLP (``ffn_layer='swiglu'``) turn
+fusion off.
 
 * fused (bf16 serving): LN1 -> qkv stays plain (``F.layer_norm`` + a GEMM);
   attention is kernel K1 reading the raw (B, N, 3C) projection with the
   softmax scale applied inside the kernel; LN2 -> fc1 -> GELU is kernel K2;
   fc2, LayerScale and the residuals stay plain.
-* unfused (int8 serving, ``DinoViT.quantize``): fp32 LN1 cast to the compute
-  dtype -> int8 qkv -> kernel K4 on the three channel slices of the
-  projection, read in place -> int8 proj; fp32 LN2 cast -> int8 fc1 ->
-  exact GELU -> int8 fc2.
+* unfused (int8 serving, ``DinoViT.quantize``, and SwiGLU): fp32 LN1 cast
+  to the compute dtype -> qkv -> kernel K4 on the three channel slices of
+  the projection, read in place -> proj; fp32 LN2 cast -> fc1 -> exact
+  GELU -> fc2, or SwiGLU's ``w3(silu(a) * g)`` with ``(a, g)`` the halves
+  of ``w12``. The linears are int8 where the block is quantized.
 
 On CPU tensors the kernels' plain versions run; ``use_kernels=False`` pins
 the plain versions on any device. Every LayerNorm here uses eps 1e-6
@@ -61,6 +68,7 @@ from unidepth_tpu_torch.ops.flash_attention import (
 from unidepth_tpu_torch.ops.fused_block import ln_dense, ln_dense_plain
 from unidepth_tpu_torch.ops.quant import QuantLinear, quantize_linear_tree
 from unidepth_tpu_torch.ops.resize import resize
+from unidepth_tpu_torch.utils.misc import STACKING_FNS
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,6 +81,7 @@ class ViTConfig:
     pos_embed_size: int = 37  # 518 // 14 grid, matches released checkpoints
     num_register_tokens: int = 0
     init_values: float = 1.0  # LayerScale
+    ffn_layer: str = "mlp"  # "mlp" | "swiglu"
     output_idx: tuple[int, ...] = (5, 12, 18, 24)
     use_norm: bool = True
     interpolate_offset: float = 0.0  # V1: 0.1, scale_factor semantics for the pos-embed resize
@@ -103,19 +112,40 @@ class _Mlp(nn.Module):
         self.fc1 = nn.Linear(dim, hidden)
         self.fc2 = nn.Linear(hidden, dim)
 
+    def forward(self, y):
+        return self.fc2(F.gelu(self.fc1(y)))
+
+
+class _SwiGLU(nn.Module):
+    """DINOv2's SwiGLU FFN: its hidden width is 2/3 of the MLP's, rounded
+    up to a multiple of 8."""
+
+    def __init__(self, dim: int, hidden: int):
+        super().__init__()
+        hidden = (hidden * 2 // 3 + 7) // 8 * 8
+        self.w12 = nn.Linear(dim, 2 * hidden)
+        self.w3 = nn.Linear(hidden, dim)
+
+    def forward(self, y):
+        a, g = self.w12(y).chunk(2, dim=-1)
+        return self.w3(F.silu(a) * g)
+
 
 class ViTBlock(nn.Module):
     """Pre-LN transformer block with LayerScale, on (B, N, C) tokens."""
 
-    def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0, init_values: float = 1.0):
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0, init_values: float = 1.0,
+                 ffn_layer: str = "mlp"):
         super().__init__()
+        if ffn_layer not in ("mlp", "swiglu"):
+            raise ValueError(f"ffn_layer {ffn_layer!r}: 'mlp' or 'swiglu'")
         self.num_heads = num_heads
         self.use_kernels = True
         self.norm1 = nn.LayerNorm(dim, eps=1e-6)
         self.attn = _Attention(dim)
         self.ls1 = LayerScale(dim, init_values) if init_values else None
         self.norm2 = nn.LayerNorm(dim, eps=1e-6)
-        self.mlp = _Mlp(dim, int(dim * mlp_ratio))
+        self.mlp = (_Mlp if ffn_layer == "mlp" else _SwiGLU)(dim, int(dim * mlp_ratio))
         self.ls2 = LayerScale(dim, init_values) if init_values else None
 
     @property
@@ -128,9 +158,10 @@ class ViTBlock(nn.Module):
         of the attention and MLP branches at keep probability ``keep``."""
         c = x.shape[-1]
         scale = (c // self.num_heads) ** -0.5
-        # the JAX rule _use_fused (dinov2.py:113-135): int8 GEMMs turn the
-        # fused LN -> GEMM and QKV-direct attention kernels off
-        fused = not self.quant
+        # the JAX rule _use_fused (dinov2.py:113-135): int8 GEMMs and a
+        # SwiGLU MLP turn the fused LN -> GEMM and QKV-direct attention
+        # kernels off
+        fused = not self.quant and isinstance(self.mlp, _Mlp)
         qkv = self.attn.qkv(layer_norm(self.norm1, x))
         if fused:
             attn_fn = flash_attention_qkv if self.use_kernels else flash_attention_qkv_plain
@@ -144,13 +175,13 @@ class ViTBlock(nn.Module):
         if keep_masks is not None:
             attn = drop_path(attn, keep_masks[0], keep)
         x = x + attn
-        n2, fc1 = self.norm2, self.mlp.fc1
+        n2 = self.norm2
         if fused:
+            fc1 = self.mlp.fc1
             ln_dense_fn = ln_dense if self.use_kernels else ln_dense_plain
-            y = ln_dense_fn(x, fc1.weight, fc1.bias, n2.weight, n2.bias, n2.eps, "gelu")
+            y = self.mlp.fc2(ln_dense_fn(x, fc1.weight, fc1.bias, n2.weight, n2.bias, n2.eps, "gelu"))
         else:
-            y = F.gelu(fc1(layer_norm(n2, x)))
-        y = self.mlp.fc2(y)
+            y = self.mlp(layer_norm(n2, x))
         if self.ls2 is not None:
             y = self.ls2(y)
         if keep_masks is not None:
@@ -169,28 +200,29 @@ class DinoViT(nn.Module):
 
     def __init__(self, cfg: ViTConfig, stacking: str = "last"):
         super().__init__()
-        if stacking not in ("last", "max_cls"):
-            raise NotImplementedError(f"stacking {stacking!r}: only 'last' and 'max_cls' are ported")
-        if cfg.num_register_tokens:
-            raise NotImplementedError("register tokens are not ported")
+        if stacking not in (*STACKING_FNS, "max_cls"):
+            raise ValueError(f"stacking {stacking!r}: one of {(*STACKING_FNS, 'max_cls')}")
         self.cfg = cfg
         self.stacking = stacking
         c = cfg.embed_dim
         self.patch_embed = _PatchEmbed(cfg.patch_size, c)
         self.cls_token = nn.Parameter(torch.zeros(1, 1, c))
         self.pos_embed = nn.Parameter(torch.zeros(1, cfg.num_patches + 1, c))
+        if cfg.num_register_tokens:
+            self.register_tokens = nn.Parameter(torch.zeros(1, cfg.num_register_tokens, c))
         self.blocks = nn.ModuleList(
-            [ViTBlock(c, cfg.num_heads, cfg.mlp_ratio, cfg.init_values) for _ in range(cfg.depth)]
+            [ViTBlock(c, cfg.num_heads, cfg.mlp_ratio, cfg.init_values, cfg.ffn_layer) for _ in range(cfg.depth)]
         )
         self.norm = nn.LayerNorm(c, eps=1e-6) if cfg.use_norm else None
 
     def quantize(self, quant: bool | tuple = True, weights: dict | None = None) -> "DinoViT":
         """An int8 copy of this encoder, the JAX ``DinoViT(quant=...)``:
         ``quant`` is one bool for every block or a per-stage tuple over
-        ``output_idx``. The qkv/proj/fc1/fc2 linears of the selected stages
-        become QuantLinears quantized from ``weights`` (qualified name ->
-        fp32 (weight, bias), the masters) and their blocks run unfused; every
-        other module and parameter is shared with this encoder."""
+        ``output_idx``. The qkv/proj/fc1/fc2 (SwiGLU: w12/w3) linears of the
+        selected stages become QuantLinears quantized from ``weights``
+        (qualified name -> fp32 (weight, bias), the masters) and their blocks
+        run unfused; every other module and parameter is shared with this
+        encoder."""
         n = len(self.cfg.output_idx)
         mask = (quant,) * n if isinstance(quant, bool) else tuple(bool(q) for q in quant)
         if len(mask) != n:
@@ -240,7 +272,9 @@ class DinoViT(nn.Module):
             patch_pos = resize(patch_pos, (gh, gw), mode="bicubic", align_corners=False, scale_factors=scales)
         x = x + patch_pos.reshape(1, gh * gw, c).to(x.dtype)
         cls = (self.cls_token + pos[:, :1]).expand(b, 1, c).to(x.dtype)
-        x = torch.cat([cls, x], dim=1)
+        reg = cfg.num_register_tokens
+        registers = [self.register_tokens.expand(b, reg, c).to(x.dtype)] if reg else []
+        x = torch.cat([cls, *registers, x], dim=1)
 
         feats, cls_tokens = [], []
         ends = set(cfg.output_idx)
@@ -248,7 +282,7 @@ class DinoViT(nn.Module):
             last = cfg.output_idx[-1]
             stage_max = None
             for i, x in zip(range(last), self._blocks(x, generator)):
-                y = x[:, 1:] + x[:, :1]
+                y = x[:, 1 + reg :] + x[:, :1]
                 stage_max = y if stage_max is None else torch.maximum(stage_max, y)
                 if i >= last - len(cfg.output_idx):
                     cls_tokens.append(x[:, :1])
@@ -256,9 +290,13 @@ class DinoViT(nn.Module):
                     feats.append(stage_max.reshape(b, gh, gw, c))
                     stage_max = None
             return feats, cls_tokens
+        stage = []
         for i, x in enumerate(self._blocks(x, generator)):
+            if self.stacking != "last" or i + 1 in ends:
+                stage.append(layer_norm(self.norm, x) if self.norm is not None else x)
             if i + 1 in ends:
-                out = layer_norm(self.norm, x) if self.norm is not None else x
+                out = STACKING_FNS[self.stacking](stage)
                 cls_tokens.append(out[:, :1])
-                feats.append(out[:, 1:].reshape(b, gh, gw, c))
+                feats.append(out[:, 1 + reg :].reshape(b, gh, gw, c))
+                stage = []
         return feats, cls_tokens

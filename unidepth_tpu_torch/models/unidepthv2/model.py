@@ -206,12 +206,20 @@ class UniDepthV2(ServingPrecisionMixin, nn.Module):
 
     def select_checkpoint_keys(self, state_dict: dict) -> dict:
         """Drop the reference checkpoint entries this model has no use for:
-        DINOv2's ``mask_token``, its dormant ``register_tokens`` and, with
-        ``use_norm`` off, the final ``norm``. Everything else must match."""
-        unused = ("pixel_encoder.mask_token", "pixel_encoder.register_tokens")
+        DINOv2's ``mask_token``, its ``register_tokens`` without registers
+        (the reference keeps a dormant (1, 1, C) one) and, with ``use_norm``
+        off, the final ``norm``. With R registers, ``register_tokens`` keeps
+        its first R. Everything else must match."""
+        unused = ("pixel_encoder.mask_token",)
+        reg = self.encoder_cfg.num_register_tokens
+        if not reg:
+            unused += ("pixel_encoder.register_tokens",)
         if not self.encoder_cfg.use_norm:
             unused += ("pixel_encoder.norm.",)
-        return {k: v for k, v in state_dict.items() if not k.startswith(unused)}
+        out = {k: v for k, v in state_dict.items() if not k.startswith(unused)}
+        if reg and "pixel_encoder.register_tokens" in out:
+            out["pixel_encoder.register_tokens"] = out["pixel_encoder.register_tokens"][:, :reg]
+        return out
 
     @torch.no_grad()
     def init_params(self, seed: int = 0) -> "UniDepthV2":
@@ -220,9 +228,9 @@ class UniDepthV2(ServingPrecisionMixin, nn.Module):
         and conv kernels, truncated normal 0.02 for the patch embedding,
         position embedding and ConvTranspose kernels, normal 1.0 for the
         camera latents, orthogonal level embeddings, LayerScale at its init
-        value, zero biases and cls token, unit LayerNorm scales. Where the
-        model holds the encoder linears below fp32, their fp32 draws are kept
-        as the int8 path's masters."""
+        value, zero biases and cls token, unit LayerNorm scales, normal 1e-6
+        register tokens. Where the model holds the encoder linears below
+        fp32, their fp32 draws are kept as the int8 path's masters."""
         g = torch.Generator().manual_seed(seed)
         drawn = {}
 
@@ -258,6 +266,8 @@ class UniDepthV2(ServingPrecisionMixin, nn.Module):
         put(cam.latents_pos, torch.randn(cam.latents_pos.shape, generator=g))
         le = self.pixel_decoder.level_embeds
         put(le, nn.init.orthogonal_(torch.empty(le.shape[-2:]), generator=g).reshape(le.shape))
+        if self.encoder_cfg.num_register_tokens:  # drawn last: a model without keeps its draws
+            put(enc.register_tokens, torch.randn(enc.register_tokens.shape, generator=g) * 1e-6)
         self._set_fp32_masters(
             {name: (drawn[id(m.weight)], drawn[id(m.bias)]) for name, m in quantizable_linears(enc).items()}
         )

@@ -38,9 +38,9 @@ __all__ = [
     "quantize_linear_tree",
 ]
 
-# Linear submodules of ViTBlock that carry the encoder's GEMM FLOPs (the
-# JAX list also names SwiGLU's w12/w3, which the port does not have yet).
-QUANT_DENSE_NAMES = ("qkv", "proj", "fc1", "fc2")
+# Linear submodules of ViTBlock that carry the encoder's GEMM FLOPs (w12
+# and w3: a SwiGLU block's).
+QUANT_DENSE_NAMES = ("qkv", "proj", "fc1", "fc2", "w12", "w3")
 
 _INT_MM_MIN_ROWS = 17  # torch._int_mm on CUDA needs M > 16
 

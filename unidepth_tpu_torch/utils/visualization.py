@@ -1,8 +1,8 @@
 """Visualisation helpers (counterpart of part of
 unidepth_tpu/utils/visualization.py): ``colorize`` through a fixed magma
-lookup table (no plotting dependency), ``image_grid`` for comparison panels
-and ``log_train_artifacts``, the training-artifact grid. ``save_point_cloud``
-is not ported yet (ROADMAP A9).
+lookup table (no plotting dependency), ``image_grid`` for comparison panels,
+``log_train_artifacts``, the training-artifact grid, and
+``save_point_cloud``, an ASCII PLY writer.
 """
 
 from __future__ import annotations
@@ -10,7 +10,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["colorize", "image_grid", "log_train_artifacts"]
+__all__ = ["colorize", "image_grid", "log_train_artifacts", "save_point_cloud"]
 
 
 def _magma_lut(n: int = 256) -> np.ndarray:
@@ -121,3 +121,30 @@ def log_train_artifacts(rgbs, gts, preds, out_path=None, infos: dict | None = No
 
         write_png(out_path, grid)
     return grid
+
+
+_PLY_CHUNK = 1 << 16  # rows formatted by one % operation
+
+
+def save_point_cloud(path, points, colors=None) -> None:
+    """points (N, 3) float, colors (N, 3) uint8 -> an ASCII PLY, byte for byte
+    the JAX writer's: its header, then one row a point of ``%.5f``
+    coordinates and, with colours, three integers. Rows are formatted a
+    chunk at a time by one ``%`` over a repeated row format, on the float64
+    widening of the values (exact, as the f-string's is; ``%d`` of a colour
+    held in a float64 is its integer)."""
+    points = np.asarray(points).reshape(-1, 3)
+    n = len(points)
+    row = "%.5f %.5f %.5f"
+    values = points.astype(np.float64)
+    header = "ply\nformat ascii 1.0\n" f"element vertex {n}\n" "property float x\nproperty float y\nproperty float z\n"
+    if colors is not None:
+        values = np.concatenate([values, np.asarray(colors).reshape(-1, 3).astype(np.uint8)], axis=1)
+        row += " %d %d %d"
+        header += "property uchar red\nproperty uchar green\nproperty uchar blue\n"
+    row += "\n"
+    with open(path, "w") as f:
+        f.write(header + "end_header\n")
+        for i in range(0, n, _PLY_CHUNK):
+            chunk = values[i : i + _PLY_CHUNK]
+            f.write(row * len(chunk) % tuple(chunk.reshape(-1).tolist()))
