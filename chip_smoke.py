@@ -295,6 +295,42 @@ fails (non-zero exit, no result line) without CUDA or outside a checkout.
    printed beside it). A ``{"serve": ...}`` line carries the figures; K1-K4's
    records gain ``serve_launches``. The whole run's seconds are printed.
 
+17. More than one process (``parallel_phase``). (a) K1, K2 and K3 at the
+   shapes tensor parallelism (tp=2) gives them, in bf16, held to their
+   plain versions at the bf16 gates, timed beside their library calls,
+   with bound and share: K1 at (8, 1531, 8 x 64), K2 at V2 ViT-L/14's M
+   12248, C 1024, F 2048 and at ConvNeXt-L's four stages with F halved
+   (stage 0's F = 384 on the mma.sync body, which K2's shape gate leaves
+   it; the others on the Hopper body), K3 at (32, 1530, 64). (b) Two
+   world-size-1 runs of V2 ViT-L/14 (configs/config_v2_vitl14.json,
+   ``build_trainer``, random weights), 2 steps of 2 x 8 images at 476 x
+   630: the bf16 kernel path (the reference) and the fp32 plain path;
+   twice the bf16 run's drift from the fp32 run sets the gates (the loss
+   slots' worst relative drift; the global gradient norm's; the masters'
+   relative L2 after step 2, the worst tensor and the median; the Adam
+   first moment's over every element and the median tensor). (c) Two
+   ranks spawned on the one card, a gloo group on CUDA tensors (NCCL
+   refuses two ranks on one GPU), each taking the same 2 steps on its
+   rows under dp=2, fsdp=2 and tp=2: loss slots equal on both ranks; the
+   loss slots, the grad norm, the gathered masters and the gathered first
+   moment (which carries the gradient's scale that Adam's step hides from
+   the masters) within the gates of the bf16 reference; K1 192, K2 192,
+   K3 16 a rank, all on the Hopper bodies, at the local shapes (a hook
+   records each launch's shape and body); ms a step and peak memory by
+   rank. Then a batch-sharded
+   ``infer()`` of 8 seeded 518 x 518 images (4 a rank, the outputs
+   all-gathered; depth median relative error from the one-process call
+   <= PAR_SERVE_GATE) and ``validate()`` over 9 Dummy images (shards of
+   5 and 4 padded to 3 batches of 2) against one process on the ranks'
+   batches (PAR_VAL_SAME_RTOL) and on its own (PAR_VAL_RTOL: relative,
+   the counting metrics absolute), beside one image's bf16 map rerun,
+   beside another image and in another row of its batch. (d) NCCL at
+   world size 1 in this process: the collectives' NCCL branches keep
+   their input. A rank
+   that fails fails the spawn and the run. A ``{"parallel": ...}`` line
+   carries the figures; K1-K3's records gain ``parallel`` (the shapes)
+   and ``parallel_launches`` (a rank's launches in each mode).
+
 Each path's launch counts (and the Hopper-body counts of K1-K7) are set
 to 0 just before it runs and read just after. A K2 call
 counts once, though it launches its row statistics and its GEMM. The K6
@@ -306,6 +342,7 @@ JSON record (each kernel with its ``body``) and ``{"ok": true, "device":
 import copy
 import importlib.util
 import io
+import itertools
 import json
 import re
 import shutil
@@ -521,6 +558,449 @@ VITG_REG = dict(embed_dim=1536, depth=40, num_heads=24, mlp_ratio=4.0, num_regis
 VITG_FEATURE_GATE = 9e-2
 
 
+# --- more than one process ------------------------------------------------------
+# two ranks share the one card: gloo on CUDA tensors (NCCL refuses two ranks on
+# one GPU); NCCL runs at world size 1 in this process
+PAR_MODES = {"dp": (2, 1, 1), "fsdp": (1, 2, 1), "tp": (1, 1, 2)}
+PAR_STEPS = 2
+PAR_WORLD = 2
+PAR_GATE_FACTOR = 2.0  # a sharded bf16 run within twice the bf16 run's own drift from fp32
+PAR_VAL_LENGTH, PAR_VAL_BATCH = 9, 2  # an odd Dummy set; images a rank a batch
+PAR_SERVE_GATE = 1e-2  # the V2 gate: depth median relative error
+# validate() at 2 ranks against 1 process running the ranks' own batches: the
+# same maps, so the metrics may differ only by the order of the float64 mean
+PAR_VAL_SAME_RTOL = 1e-12
+# against 1 process running its own batches ([0, 1], [2, 3], ...): a bf16 map
+# moves with its image's row in the batch (measured beside it: image 1 second
+# in [0, 1] against first in [1, 3]; a rerun and another batch-mate leave it
+# bitwise equal), so the evaluation contract's rtol 1e-3
+# (tests/test_torch_validation.py) for the continuous metrics, and 1e-3 of the
+# pixels for the metrics that count them
+PAR_VAL_RTOL = 1e-3
+PAR_VAL_COUNTING = ("d1", "d2", "d3", "tau", "d_auc", "d1_ssi", "tau_ssi", "d1_si", "tau_si")
+# the kernels at the local shapes tp=2 gives them (V2 ViT-L/14 training at 476 x 630,
+# 8 images a micro-batch; ConvNeXt-L at 462 x 616, B = 8): name -> shape
+PAR_K1 = (BATCH, TRAIN_TOKENS, 8, 64)  # 8 of ViT-L's 16 heads
+PAR_K2 = {"vitl14_tp2": (BATCH * TRAIN_TOKENS, 1024, 2048, 1e-6),  # fc1's F / 2
+          **{f"cnvnxtl_tp2_stage{i}": (rows, c, f // 2, eps) for i, (rows, c, f, eps) in
+             enumerate(list(V1_K2_SHAPES.values())[:4])}}
+PAR_K3 = (BATCH * 4, TRAIN_TOKENS - 1, 64)  # 4 of the decoder's 8 heads
+
+
+def _par_hooks():
+    """Record the shape and body of every K1, K2 and K3 launch in this
+    process: {kernel: Counter of (shape, hopper)}."""
+    import collections
+
+    from unidepth_tpu_torch.ops import flash_attention as fa
+    from unidepth_tpu_torch.ops import fused_block as fb
+
+    seen = {k: collections.Counter() for k in ("flash_attention_qkv", "ln_dense", "flash_attention")}
+
+    def wrap(module, attr, key, wrapper, shape_of):
+        real = getattr(module, attr)
+
+        def launch(*args):
+            before = wrapper.hopper_launches
+            out = real(*args)
+            seen[key][(shape_of(*args), wrapper.hopper_launches - before)] += 1
+            return out
+
+        setattr(module, attr, launch)
+
+    wrap(fa, "_qkv_launch", "flash_attention_qkv", fa.flash_attention_qkv,
+         lambda qkv, heads, scale: (*qkv.shape[:2], heads, qkv.shape[2] // 3 // heads))
+    wrap(fb, "_ln_dense_launch", "ln_dense", fb.ln_dense,
+         lambda x, w, *rest: (x.numel() // x.shape[-1], *w.shape[::-1]))
+    wrap(fa, "_flash_launch", "flash_attention", fa.flash_attention, lambda q, k, v, scale: tuple(q.shape))
+    return seen
+
+
+def _par_take_rows(batch, mesh):
+    local = batch["image"].shape[1] // mesh.batch_shards
+    return {k: v[:, mesh.batch_rank * local : (mesh.batch_rank + 1) * local] for k, v in batch.items()}
+
+
+def _rel_l2(a, b):
+    return ((a.double() - b.double()).norm() / b.double().norm().clamp_min(1e-300)).item()
+
+
+def _tree_drift(got, want):
+    """(relative L2 over every element of the dicts of tensors, relative L2 by
+    name)."""
+    rel = {n: _rel_l2(got[n], want[n]) for n in want}
+    diff = sum((got[n].double() - want[n].double()).square().sum().item() for n in want)
+    norm = sum(want[n].double().square().sum().item() for n in want)
+    return (diff / norm) ** 0.5, rel
+
+
+def _parallel_rank(rank, spec):
+    """One rank of the two-rank run: PAR_STEPS train steps under each mode
+    of PAR_MODES, batch-sharded ``infer()`` and ``validate()``; writes its
+    figures to ``spec['out']/rank{rank}.json``. Any failure raises, and the
+    spawn raises in the parent."""
+    sys.path.insert(0, str(ROOT))
+    import torch.distributed as dist
+
+    from unidepth_tpu_torch.datasets.dummy import Dummy
+    from unidepth_tpu_torch.datasets.loader import eval_batches, make_batch
+    from unidepth_tpu_torch.models.unidepthv2.model import UniDepthV2
+    from unidepth_tpu_torch.ops.flash_attention import flash_attention, flash_attention_qkv
+    from unidepth_tpu_torch.ops.fused_block import ln_dense
+    from unidepth_tpu_torch.parallel.mesh import batch_sharded, initialize_distributed, make_mesh
+    from unidepth_tpu_torch.training.trainer import build_trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(spec["device"])
+    torch.cuda.set_device(dev)
+    initialize_distributed(backend="gloo", init_method=f"file://{spec['store']}", world_size=PAR_WORLD, rank=rank)
+    wrappers = {"flash_attention_qkv": flash_attention_qkv, "ln_dense": ln_dense, "flash_attention": flash_attention}
+    seen = _par_hooks()
+    ref = torch.load(spec["ref"], weights_only=True) if rank == 0 else None
+    config = json.loads(CONFIG.read_text())
+    shape = tuple(spec["shape"])
+    batch = make_batch(Dummy(image_shape=shape, length=1024, seed=SEED), spec["batch"], spec["accum"],
+                       np.random.default_rng(SEED))
+    out = {"modes": {}}
+    for mode, dims in PAR_MODES.items():
+        mesh = make_mesh(*dims, device=dev)
+        trainer = build_trainer(config, seed=SEED, mesh=mesh)
+        rows = _par_take_rows(batch, mesh)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        for w in wrappers.values():
+            w.launches = w.hopper_launches = 0
+        for c in seen.values():
+            c.clear()
+        slots, ms = [], []
+        for step in range(PAR_STEPS):
+            dist.barrier()
+            t0 = time.perf_counter()
+            metrics = trainer.step(rows, (SEED, step))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            slots.append({k: v.item() for k, v in metrics.items()})
+        peak = torch.cuda.max_memory_allocated(dev)
+        launches = {k: [w.launches, w.hopper_launches] for k, w in wrappers.items()}
+        shapes = {k: [[list(s), h, n] for (s, h), n in c.items()] for k, c in seen.items()}
+        state, layout = trainer.state, trainer.layout
+        held = {"params": sum(t.numel() for t in state.params.values()),
+                "moments": sum(t.numel() for t in state.opt_state.mu.values()),
+                "shadow": sum(t.numel() for t in state.ema.shadow.values())}
+        whole = layout.full(state.params)  # every rank takes part
+        mu = layout.full(state.opt_state.mu)
+        figures = {"ms": ms, "slots": slots, "peak_gib": peak / 2**30, "launches": launches, "shapes": shapes,
+                   "held": held}
+        if rank == 0:
+            rel = {n: _rel_l2(whole[n], ref["masters"][n]) for n in whole}
+            worst = max(rel, key=rel.get)
+            mu_global, mu_rel = _tree_drift(mu, ref["mu"])
+            figures.update(master_max=rel[worst], master_max_param=worst,
+                           master_median=statistics.median(rel.values()), mu_global=mu_global,
+                           mu_median=statistics.median(mu_rel.values()))
+        out["modes"][mode] = figures
+        del trainer, state, layout, whole, mu
+        torch.cuda.empty_cache()
+    # batch-sharded serving: each rank infers its 4 of the 8 images
+    mesh = make_mesh(PAR_WORLD, 1, 1, device=dev)
+    model = UniDepthV2.from_config(config).init_params(seed=SEED)
+    rgb = torch.load(spec["rgb"], weights_only=True).to(dev)
+    for w in wrappers.values():
+        w.launches = w.hopper_launches = 0
+    with torch.inference_mode():
+        served = batch_sharded(model.infer, mesh, rgb)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        batch_sharded(model.infer, mesh, rgb)
+        torch.cuda.synchronize()
+    out["serve"] = {"ms": (time.perf_counter() - t0) * 1e3, "shape": list(served["depth"].shape),
+                    "launches": {k: [w.launches, w.hopper_launches] for k, w in wrappers.items()}}
+    if rank == 0:
+        rel = ((served["depth"].float() - ref["depth"].to(dev)).abs() / ref["depth"].to(dev).abs()).flatten()
+        out["serve"]["depth_median_rel"] = rel.median().item()
+        out["serve"]["depth_max_rel"] = rel.max().item()
+    # validate() over a ragged set: each rank its padded shard
+    from unidepth_tpu_torch.utils.validation import validate
+
+    data = Dummy(image_shape=shape, length=PAR_VAL_LENGTH, seed=SEED + 2)
+    loaders = {"Dummy": eval_batches(data, PAR_VAL_BATCH, mesh.batch_shards, mesh.batch_rank)}
+    with torch.inference_mode():
+        out["val"] = validate(model, loaders)["Dummy"]
+    (Path(spec["out"]) / f"rank{rank}.json").write_text(json.dumps(out))
+    dist.destroy_process_group()
+
+
+def parallel_phase(kernels, none, smi, dev):
+    """Item 17: K1-K3 at the local shapes of tp=2; two world-size-1 runs
+    (bf16 kernel path, fp32 plain path) that set the gates; two ranks on the
+    card under dp=2, fsdp=2 and tp=2, batch-sharded infer() and validate();
+    NCCL at world size 1. Returns (each kernel's figures, the launches by
+    mode, the phase's figures)."""
+    import tempfile
+
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from unidepth_tpu_torch.datasets.dummy import Dummy
+    from unidepth_tpu_torch.datasets.loader import collate, eval_batches, make_batch
+    from unidepth_tpu_torch.models.unidepthv2.model import UniDepthV2
+    from unidepth_tpu_torch.ops.flash_attention import (
+        flash_attention,
+        flash_attention_plain,
+        flash_attention_qkv,
+        flash_attention_qkv_plain,
+    )
+    from unidepth_tpu_torch.ops.fused_block import ln_dense, ln_dense_plain
+    from unidepth_tpu_torch.parallel.mesh import (
+        _reduce_scatter,
+        all_gather_cat,
+        copy_to_tp,
+        initialize_distributed,
+        reduce_from_tp,
+    )
+    from unidepth_tpu_torch.training.trainer import build_trainer, train_image_shape
+    from unidepth_tpu_torch.utils.misc import normalize_rgb
+    from unidepth_tpu_torch.utils.validation import validate
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev)
+
+    def randn(*shape, std=1.0, mean=0.0):
+        return (torch.randn(shape, generator=gen, device=dev) * std + mean).to(torch.bfloat16)
+
+    # (a) the kernels at the shapes tp=2 gives them
+    rec = {"flash_attention_qkv": {}, "ln_dense": {}, "flash_attention": {}}
+    b, n, h, d = PAR_K1
+
+    def k1():
+        gen.manual_seed(41)
+        return randn(b, n, 3 * h * d), h, d**-0.5
+
+    def sdpa_qkv(qkv, heads, scale):
+        return sdpa(*(heads_view(t, heads) for t in qkv.chunk(3, dim=-1)), scale)
+
+    rec["flash_attention_qkv"]["vitl14_tp2"] = {"shape": list(PAR_K1), **shape_phase(
+        f"K1 tp=2 {PAR_K1}", flash_attention_qkv, flash_attention_qkv_plain, k1, 4 * b * n * n * h * d, sdpa_qkv,
+        smi)}
+    for key, (rows, c, f, eps) in PAR_K2.items():
+        def k2(rows=rows, c=c, f=f, eps=eps):
+            gen.manual_seed(rows + f)
+            return (randn(rows, c, std=2.0, mean=0.5), randn(f, c, std=c**-0.5), randn(f, std=0.1),
+                    randn(c, std=0.1, mean=1.0), randn(c, std=0.1), eps, "gelu")
+        hopper = c % 64 == 0 and c <= 2048 and f % 256 == 0
+        rec["ln_dense"][key] = {"shape": [rows, c, f], "body": "wgmma" if hopper else "mma.sync", **shape_phase(
+            f"K2 {key} (M {rows}, C {c}, F {f})", ln_dense, ln_dense_plain, k2, 2 * rows * c * f,
+            lambda x, w, bias, g, beta, eps, act: lambda: F.gelu(F.linear(F.layer_norm(x, x.shape[-1:], g, beta, eps),
+                                                                          w, bias)), smi, hopper=hopper)}
+    bh, n3, d3 = PAR_K3
+
+    def k3():
+        gen.manual_seed(43)
+        return randn(bh, n3, d3), randn(bh, n3, d3), randn(bh, n3, d3), d3**-0.5
+
+    rec["flash_attention"]["decoder_tp2"] = {"shape": list(PAR_K3), **shape_phase(
+        f"K3 tp=2 {PAR_K3}", flash_attention, flash_attention_plain, k3, 4 * bh * n3 * n3 * d3,
+        lambda q, k, v, scale: sdpa(q[None], k[None], v[None], scale), smi)}
+
+    # (b) two world-size-1 runs on the same batches and seeds: the bf16
+    # kernel path (the reference) and the fp32 plain path (its drift sets the gates)
+    config = json.loads(CONFIG.read_text())
+    tr = config["training"]
+    shape = train_image_shape(config)
+    batch_size, accum = tr["batch_size"], tr["nsteps_accumulation_gradient"]
+    batch = make_batch(Dummy(image_shape=shape, length=1024, seed=SEED), batch_size, accum,
+                       np.random.default_rng(SEED))
+    runs = {}
+    for label in ("bf16", "fp32 plain"):
+        trainer = build_trainer(config, seed=SEED)
+        if label == "fp32 plain":
+            trainer.model.float().set_kernels(False)
+        torch.cuda.reset_peak_memory_stats(dev)
+        slots, ms = [], []
+        for step in range(PAR_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            metrics = trainer.step(batch, (SEED, step))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            slots.append({k: v.item() for k, v in metrics.items()})
+        runs[label] = {"slots": slots, "ms": ms, "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+                       "masters": {k: v.cpu() for k, v in trainer.state.params.items()},
+                       "mu": {k: v.cpu() for k, v in trainer.state.opt_state.mu.items()}}
+        log(f"parallel reference, world size 1, {label}: {PAR_STEPS} steps of {accum} x {batch_size} at "
+            f"{shape[0]}x{shape[1]}: totals {[s['total'] for s in slots]}, ms {[round(t, 1) for t in ms]}, peak "
+            f"{runs[label]['peak_gib']:.2f} GiB ({smi})")
+        del trainer
+        torch.cuda.empty_cache()
+    ref, plain = runs["bf16"], runs["fp32 plain"]
+    # the loss slots; the global gradient norm, and the first moment, which
+    # carry the gradient's scale (Adam's step hides it from the masters)
+    slot_keys = [k for k in ref["slots"][0] if k != "grad_norm"]
+
+    def slot_drift(got, want, keys):
+        return max(abs(a[k] - p[k]) / abs(p[k]) for a, p in zip(got, want) for k in keys)
+
+    loss_drift = slot_drift(ref["slots"], plain["slots"], slot_keys)
+    norm_drift = slot_drift(ref["slots"], plain["slots"], ["grad_norm"])
+    master_rel = {n: _rel_l2(ref["masters"][n], plain["masters"][n]) for n in ref["masters"]}
+    mu_global, mu_rel = _tree_drift(ref["mu"], plain["mu"])
+    gates = {"loss": PAR_GATE_FACTOR * loss_drift, "grad_norm": PAR_GATE_FACTOR * norm_drift,
+             "master_max": PAR_GATE_FACTOR * max(master_rel.values()),
+             "master_median": PAR_GATE_FACTOR * statistics.median(master_rel.values()),
+             "mu_global": PAR_GATE_FACTOR * mu_global,
+             "mu_median": PAR_GATE_FACTOR * statistics.median(mu_rel.values())}
+    log(f"parallel gates (twice the bf16 run's drift from the fp32 plain run after {PAR_STEPS} steps): loss slots "
+        f"{gates['loss']:.3e}, grad_norm {gates['grad_norm']:.3e}, masters relative L2 max {gates['master_max']:.3e}, "
+        f"median {gates['master_median']:.3e}, first moment relative L2 over every element {gates['mu_global']:.3e}, "
+        f"median {gates['mu_median']:.3e}")
+    model = UniDepthV2.from_config(config).init_params(seed=SEED)
+    rgb = torch.from_numpy(np.random.default_rng(SEED + 3).integers(0, 256, (BATCH, SIDE, SIDE, 3), dtype=np.uint8))
+    with torch.inference_mode():
+        depth = model.infer(rgb.to(dev))["depth"].float()
+        val_data = Dummy(image_shape=shape, length=PAR_VAL_LENGTH, seed=SEED + 2)
+        # the ranks' batches, shard 0's then shard 1's; and one process's own
+        val_same = validate(model, {"Dummy": itertools.chain(
+            *(eval_batches(val_data, PAR_VAL_BATCH, PAR_WORLD, r) for r in range(PAR_WORLD)))})["Dummy"]
+        val_ref = validate(model, {"Dummy": eval_batches(val_data, PAR_VAL_BATCH, pad=True)})["Dummy"]
+
+        def depth_of(idx):  # a bf16 forward of the images idx, as validate() runs it
+            b = collate([val_data[i] for i in idx])
+            return model.encode_decode(normalize_rgb(torch.as_tensor(b["image"]).to(dev).float()),
+                                       rays_gt=torch.as_tensor(b["rays"]).to(dev))["depth"].float()
+
+        # one image's map against itself: rerun, beside another image, in another row of the batch
+        base, rerun, mate, row = (depth_of(idx) for idx in ((0, 1), (0, 1), (0, 2), (1, 3)))
+        composition = {k: {"bitwise": bool(torch.equal(m, want)), "differing_share": (m != want).float().mean().item(),
+                           "max_rel": ((m - want).abs() / want.abs()).max().item()}
+                       for k, m, want in (("rerun", rerun[1], base[1]), ("other_batch_mate", mate[0], base[0]),
+                                          ("other_row", row[0], base[1]))}
+    log(f"validate() maps, one image's bf16 depth: batch [0, 1] rerun {composition['rerun']}; image 0 beside 2 "
+        f"{composition['other_batch_mate']}; image 1 first in [1, 3] against second in [0, 1] "
+        f"{composition['other_row']} ({smi})")
+    del model, base, rerun, mate, row
+    torch.cuda.empty_cache()
+
+    # (c) two ranks on the card
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="parallel_", dir=ROOT / "build"))
+    torch.save({"masters": ref["masters"], "mu": ref["mu"], "depth": depth.cpu()}, tmp / "ref.pt")
+    torch.save(rgb, tmp / "rgb.pt")
+    ref_slots = ref["slots"]
+    reference = {"loss_drift": loss_drift, "grad_norm_drift": norm_drift, "mu_global": mu_global,
+                 "mu_median": statistics.median(mu_rel.values()), "master_rel_max": max(master_rel.values()),
+                 "master_rel_median": statistics.median(master_rel.values()),
+                 **{f"{k.replace(' ', '_')}_ms": v["ms"] for k, v in runs.items()},
+                 **{f"{k.replace(' ', '_')}_peak_gib": v["peak_gib"] for k, v in runs.items()}}
+    del runs, ref, plain, master_rel, mu_rel
+    spec = {"store": str(tmp / "store"), "ref": str(tmp / "ref.pt"), "rgb": str(tmp / "rgb.pt"), "out": str(tmp),
+            "shape": list(shape), "batch": batch_size, "accum": accum,
+            "device": f"cuda:{torch.cuda.current_device()}" if dev.type == "cuda" else str(dev)}
+    t0 = time.perf_counter()
+    mp.spawn(_parallel_rank, args=(spec,), nprocs=PAR_WORLD, join=True)  # a rank's failure raises here
+    spawn_s = time.perf_counter() - t0
+    ranks = [json.loads((tmp / f"rank{r}.json").read_text()) for r in range(PAR_WORLD)]
+    figures = {"gates": gates, "reference": reference, "modes": {}, "spawn_s": spawn_s}
+    per_step = {"flash_attention_qkv": 96, "ln_dense": 96, "flash_attention": 8}  # 2 micro-batches, the recompute
+    local = {"dp": {"flash_attention_qkv": [batch_size // 2, TRAIN_TOKENS, 16, 64],
+                    "ln_dense": [batch_size // 2 * TRAIN_TOKENS, 1024, 4096],
+                    "flash_attention": [batch_size // 2 * 8, TRAIN_TOKENS - 1, 64]},
+             "tp": {"flash_attention_qkv": list(PAR_K1), "ln_dense": list(PAR_K2["vitl14_tp2"][:3]),
+                    "flash_attention": list(PAR_K3)}}
+    local["fsdp"] = local["dp"]
+    launches_by_mode = {}
+    for mode in PAR_MODES:
+        figs = [r["modes"][mode] for r in ranks]
+        for r, fig in enumerate(figs):
+            for k, (count, hop) in fig["launches"].items():
+                if (count, hop) != (per_step[k] * PAR_STEPS,) * 2:
+                    raise RuntimeError(f"parallel {mode} rank {r}: {k} launched {count} times, {hop} on the Hopper "
+                                       f"body; expected {per_step[k] * PAR_STEPS}, all on the Hopper body")
+            for k, seen in fig["shapes"].items():  # [shape, hopper, count]
+                if {tuple(s) for s, _, _ in seen} != {tuple(local[mode][k])} or any(h != 1 for _, h, _ in seen):
+                    raise RuntimeError(f"parallel {mode} rank {r}: {k} ran at {seen}, expected {local[mode][k]} on "
+                                       f"the Hopper body")
+        if figs[0]["slots"] != figs[1]["slots"]:
+            raise RuntimeError(f"parallel {mode}: the ranks' loss slots differ: {figs[0]['slots']} {figs[1]['slots']}")
+        loss_dev = slot_drift(figs[0]["slots"], ref_slots, slot_keys)
+        norm_dev = slot_drift(figs[0]["slots"], ref_slots, ["grad_norm"])
+        a = figs[0]
+        log(f"parallel {mode} (2 ranks on one card, gloo): loss slots {loss_dev:.3e} from world size 1 (gate "
+            f"{gates['loss']:.3e}), grad_norm {norm_dev:.3e} (gate {gates['grad_norm']:.3e}); after step {PAR_STEPS} "
+            f"masters relative L2 max {a['master_max']:.3e} ({a['master_max_param']}; gate {gates['master_max']:.3e}), "
+            f"median {a['master_median']:.3e} (gate {gates['master_median']:.3e}), first moment over every element "
+            f"{a['mu_global']:.3e} (gate {gates['mu_global']:.3e}), median {a['mu_median']:.3e} (gate "
+            f"{gates['mu_median']:.3e}); ms a step by rank {[[round(t, 1) for t in f['ms']] for f in figs]}; "
+            f"peak {[round(f['peak_gib'], 2) for f in figs]} GiB a rank; a rank holds "
+            f"{a['held']['params'] / 1e6:.1f} M master elements; K1/K2/K3 at {local[mode]} ({smi})")
+        got = {"loss": loss_dev, "grad_norm": norm_dev, **{k: a[k] for k in gates if k not in ("loss", "grad_norm")}}
+        if not all(got[k] <= gates[k] for k in gates):
+            raise RuntimeError(f"parallel {mode} past its gates {gates}: {got}")
+        launches_by_mode[mode] = {k: figs[0]["launches"][k][0] for k in per_step}
+        figures["modes"][mode] = {"loss_dev": loss_dev, "grad_norm_dev": norm_dev, "mu_global": a["mu_global"],
+                                  "mu_median": a["mu_median"], "ms": [f["ms"] for f in figs],
+                                  "peak_gib": [f["peak_gib"] for f in figs], "held": a["held"],
+                                  "master_max": a["master_max"], "master_max_param": a["master_max_param"],
+                                  "master_median": a["master_median"], "totals": [s["total"] for s in a["slots"]]}
+    fsdp_saves = figures["modes"]["dp"]["peak_gib"][0] - figures["modes"]["fsdp"]["peak_gib"][0]
+    serve = [r["serve"] for r in ranks]
+    for r, s in enumerate(serve):
+        want = {"flash_attention_qkv": 48, "ln_dense": 48, "flash_attention": 8}  # two calls on 4 images
+        if {k: tuple(v) for k, v in s["launches"].items()} != {k: (v, v) for k, v in want.items()}:
+            raise RuntimeError(f"parallel serving rank {r}: launches {s['launches']}, expected {want} on Hopper")
+        if s["shape"] != [BATCH, SIDE, SIDE, 1]:
+            raise RuntimeError(f"parallel serving rank {r}: gathered depth {s['shape']}")
+    if not serve[0]["depth_median_rel"] <= PAR_SERVE_GATE:
+        raise RuntimeError(f"parallel serving: depth {serve[0]['depth_median_rel']} from world size 1")
+    log(f"batch-sharded infer() B={BATCH} {SIDE}x{SIDE} over 2 ranks: depth median relative error "
+        f"{serve[0]['depth_median_rel']:.3e} (max {serve[0]['depth_max_rel']:.3e}) from world size 1 (gate "
+        f"{PAR_SERVE_GATE}); {[round(s['ms'], 1) for s in serve]} ms a call by rank ({smi})")
+    val = [r["val"] for r in ranks]
+    if val[0] != val[1] or set(val[0]) != set(val_ref) or set(val_same) != set(val_ref):
+        raise RuntimeError(f"parallel validate(): ranks {val}, world size 1 {val_ref}, {val_same}")
+
+    def val_dev(want):  # relative; the counting metrics absolute
+        return {k: abs(val[0][k] - v) if k in PAR_VAL_COUNTING else abs(val[0][k] - v) / abs(v)
+                for k, v in want.items()}
+
+    same_dev, own_dev = val_dev(val_same), val_dev(val_ref)
+    log(f"validate() over {PAR_VAL_LENGTH} Dummy images at 2 ranks (shards of {(PAR_VAL_LENGTH + 1) // 2} and "
+        f"{PAR_VAL_LENGTH // 2}, each padded to {-(-(PAR_VAL_LENGTH + 1) // 2 // PAR_VAL_BATCH)} batches of "
+        f"{PAR_VAL_BATCH}): against 1 process on the ranks' batches the worst {max(same_dev, key=same_dev.get)} "
+        f"{max(same_dev.values()):.3e} (gate {PAR_VAL_SAME_RTOL}); against 1 process on its own batches the worst "
+        f"{max(own_dev, key=own_dev.get)} {max(own_dev.values()):.3e} (gate {PAR_VAL_RTOL}; relative, the counting "
+        f"ones absolute) (d1 {val[0]['d1']:.6f}, arel {val[0]['arel']:.6f})")
+    for k in val_ref:
+        if not (np.isfinite(val[0][k]) and same_dev[k] <= PAR_VAL_SAME_RTOL and own_dev[k] <= PAR_VAL_RTOL):
+            raise RuntimeError(f"parallel validate(): {k} {val[0][k]} at 2 ranks, {val_same[k]} at 1 on the ranks' "
+                               f"batches, {val_ref[k]} on its own")
+
+    # (d) NCCL, the card's production backend, at world size 1: the collectives' NCCL branches
+    initialize_distributed(backend="nccl", init_method=f"file://{tmp / 'nccl_store'}", world_size=1, rank=0)
+    try:
+        from unidepth_tpu_torch.utils.validation import _gather_values
+
+        world = dist.group.WORLD
+        x = torch.arange(8, dtype=torch.float32, device=dev)
+        y = x.clone().requires_grad_()
+        reduce_from_tp(copy_to_tp(y, world) * 2, world).sum().backward()
+        ok = (torch.equal(all_gather_cat(x, world), x) and torch.equal(_reduce_scatter(x, world), x)
+              and torch.equal(y.grad, torch.full_like(x, 2.0))
+              and np.array_equal(_gather_values(np.arange(3.0), world), np.arange(3.0)))
+        if dist.get_backend(world) != "nccl" or not ok:
+            raise RuntimeError("parallel: the NCCL collectives at world size 1 changed their input")
+    finally:
+        dist.destroy_process_group()
+    shutil.rmtree(tmp, ignore_errors=True)
+    figures.update(serve={"depth_median_rel": serve[0]["depth_median_rel"], "ms": [s["ms"] for s in serve]},
+                   val=val[0], val_same_dev=same_dev, val_dev=own_dev, val_composition=composition, nccl_world1=True,
+                   fsdp_saves_gib=fsdp_saves, seconds=time.perf_counter() - t_phase)
+    log(f"parallel phase: {figures['seconds']:.1f} s ({spawn_s:.1f} s in the two ranks); fsdp=2 saves "
+        f"{fsdp_saves:.2f} GiB of a rank's peak against dp=2 ({smi}). Two ranks share one card: these figures "
+        f"hold correctness and memory, not speed across cards")
+    return rec, launches_by_mode, figures
+
+
 def log(*args):
     print(*args, flush=True)
 
@@ -594,16 +1074,17 @@ def kernel_phase(name, kernel, plain, make_inputs, fp32_tol, flops, library=None
             **bound(flops, nbytes(*args, out))}
 
 
-def shape_phase(name, kernel, plain, make_args, flops, library, smi):
+def shape_phase(name, kernel, plain, make_args, flops, library, smi, hopper=True):
     """``kernel`` in bf16 at one more shape of a model path: it must take its
-    Hopper body; held to its plain version (fp32, same inputs) at the bf16
-    gates; timed beside ``library(*args)()``; its bound and share."""
+    Hopper body (``hopper``; else the mma.sync body its shape gate leaves);
+    held to its plain version (fp32, same inputs) at the bf16 gates; timed
+    beside ``library(*args)()``; its bound and share."""
     args = make_args()
-    hopper = kernel.hopper_launches
+    before = kernel.launches, kernel.hopper_launches
     out = kernel(*args)
     torch.cuda.synchronize()
-    if kernel.hopper_launches != hopper + 1:
-        raise RuntimeError(f"{name}: the bf16 call did not run the Hopper body")
+    if (kernel.launches, kernel.hopper_launches) != (before[0] + 1, before[1] + hopper):
+        raise RuntimeError(f"{name}: the bf16 call did not launch the {'Hopper' if hopper else 'mma.sync'} body once")
     err, rel_rms = check_bf16(name, out, plain(*[a.float() if torch.is_tensor(a) else a for a in args]))
     ms, library_ms = time_ms(lambda: kernel(*args)), time_ms(library(*args))
     bd = bound(flops, nbytes(*args, out))
@@ -2400,6 +2881,7 @@ def main():
     train_cli = train_cli_phase()
     data_launches, data_figures = data_phase(kernels, none, smi, dev)
     serve_launches, serve_figures = serve_phase(kernels, none, smi, dev)
+    parallel_records, parallel_launches, parallel_figures = parallel_phase(kernels, none, smi, dev)
 
     # each kernel's count from the path it serves: K1-K3 the bf16 ViT-L path,
     # K4 the int8 one, K5 its own call, K6 and K7 the harness
@@ -2448,6 +2930,11 @@ def main():
     # infer(), the SwiGLU ViT-g/14 encoder
     for name in ("flash_attention_qkv", "ln_dense", "flash_attention", "flash_attention_packed"):
         m[name]["serve_launches"] = {path: counts[name] for path, counts in serve_launches.items()}
+    # the parallel phase: the shapes tp=2 gives K1-K3, and a rank's launches in
+    # PAR_STEPS train steps under each mode
+    for name in ("flash_attention_qkv", "ln_dense", "flash_attention"):
+        m[name]["parallel"] = parallel_records[name]
+        m[name]["parallel_launches"] = {mode: counts[name] for mode, counts in parallel_launches.items()}
     record = [
         {"name": name, "route": "cuda", "source": f"unidepth_tpu_torch/csrc/{src}", "replaces": rep, "body": body,
          "launches": path_launches[name],
@@ -2461,6 +2948,7 @@ def main():
     log(json.dumps({"v2old": v2old_figures}))
     log(json.dumps({"data": data_figures}))
     log(json.dumps({"serve": serve_figures}))
+    log(json.dumps({"parallel": parallel_figures}))
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s, the build included")
     log(json.dumps({"kernels": record}))
     log(json.dumps({"ok": True, "device": {

@@ -11,6 +11,7 @@ both packages, at tests/test_torch_train_step.py's gates."""
 
 import json
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -125,6 +126,29 @@ def test_ordered_mode_under_threads_keeps_every_ticket_in_order():
         sys.setswitchinterval(interval)
     with pytest.raises(RuntimeError, match="closed"):
         next(iter(ld))
+
+
+def test_close_stops_a_worker_in_the_middle_of_a_slow_batch():
+    """A batch of slow samples (here 16 of 0.5 s, 8 s a batch) takes longer
+    than close() waits: the workers stop between samples."""
+    slow = _Shapes()
+    real = slow.get_single_item
+
+    def get_single_item(*a, **k):
+        time.sleep(0.5)
+        return real(*a, **k)
+
+    slow.get_single_item = get_single_item
+    ld = loader.Loader(loader.WeightedConcat([slow]), batch_size=8, accum=2, num_threads=2,
+                       shape_sampler=loader.ShapeSampler(CONSTRAINTS, seed=2), shape_seed=5)
+    ld._threads = [threading.Thread(target=ld._worker, args=(t,), daemon=True) for t in range(2)]
+    for t in ld._threads:
+        t.start()
+    time.sleep(1.0)
+    t0 = time.perf_counter()
+    ld.close()
+    assert not ld._threads and time.perf_counter() - t0 < 3.0
+    assert slow.calls < 2 * 16
 
 
 def test_a_dying_worker_raises_in_the_consumer():

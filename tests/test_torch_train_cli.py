@@ -56,7 +56,7 @@ def test_two_steps_then_resume(tiny_config, tmp_path, capsys):
               "--checkpoint-dir", str(ckpt)]
     saved = train.main([*common, "--steps", "2"])
     out = capsys.readouterr().out
-    assert "no sharding" in out
+    assert "(1 process)" in out
     lines = _lines(out)
     assert [line["step"] for line in lines] == [1, 2]
     for line in lines:
@@ -139,7 +139,7 @@ def test_two_steps_each_family(family, tmp_path, capsys):
     saved = _script().main(["--config-file", str(config), "--dummy-data", "--device", "cpu", "--image-shape", *shape,
                             "--checkpoint-dir", str(ckpt), "--steps", "2"])
     out = capsys.readouterr().out
-    assert f"training {cfg['model']['name']} " in out and "no sharding" in out
+    assert f"training {cfg['model']['name']} " in out and "(1 process)" in out
     slots = {"depth", "camera", "invariance", "total"} | ({"ssi", "confidence"} if family == "v2old" else set())
     lines = _lines(out)
     assert [line["step"] for line in lines] == [1, 2]

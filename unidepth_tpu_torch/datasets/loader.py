@@ -14,7 +14,8 @@ unidepth_tpu/datasets/loader.py).
   * ``collate`` stacks equal-shape samples into channel-last numpy arrays,
     with rays from the port's cameras; ``make_batch`` draws one optimizer
     step from one fixed-shape dataset (the Dummy path); ``eval_batches``
-    walks a dataset in order for validation.
+    walks a dataset, or a rank's shard of it padded to the batches every
+    rank runs, in order for validation.
 """
 
 from __future__ import annotations
@@ -138,17 +139,30 @@ def make_batch(dataset, batch_size: int, accum: int, rng: np.random.Generator, n
     return {k: np.stack([m[k] for m in micro]) for k in micro[0]}
 
 
-def eval_batches(dataset, batch_size: int):
-    """Collated batches of ``dataset`` in index order, the last one ragged
-    (one process: the sampler's only shard)."""
-    batch = []
-    for i in ShardedEvalSampler(len(dataset), 1, 0):
-        batch.append(dataset[i])
-        if len(batch) == batch_size:
-            yield collate(batch)
-            batch = []
-    if batch:
-        yield collate(batch)
+def eval_batches(dataset, batch_size: int, num_shards: int = 1, shard_id: int = 0, pad: bool | None = None):
+    """Collated batches of shard ``shard_id`` of ``num_shards`` of
+    ``dataset`` (``ShardedEvalSampler``: indices shard_id, shard_id +
+    num_shards, ...) in index order.
+
+    Unpadded (the default for one shard) the last batch is ragged. Padded
+    (always over several shards) every shard yields the same number of
+    whole batches, ceil(ceil(len / num_shards) / batch_size): the missing
+    entries repeat the shard's last sample and carry ``pad_mask`` False, so
+    their metrics are dropped, and ranks whose forward communicates
+    (tensor parallelism) run the same batches (the JAX trainer's
+    ``_val_loaders``)."""
+    idxs = list(ShardedEvalSampler(len(dataset), num_shards, shard_id))
+    if not (num_shards > 1 if pad is None else pad):
+        for b in range(0, len(idxs), batch_size):
+            yield collate([dataset[i] for i in idxs[b : b + batch_size]])
+        return
+    n_valid = len(idxs)
+    n_batches = -(-(-(-len(dataset) // num_shards)) // batch_size)
+    idxs += [idxs[-1] if idxs else 0] * (n_batches * batch_size - n_valid)
+    for b in range(n_batches):
+        batch = collate([dataset[i] for i in idxs[b * batch_size : (b + 1) * batch_size]])
+        batch["pad_mask"] = np.arange(b * batch_size, (b + 1) * batch_size) < n_valid
+        yield batch
 
 
 class _WorkerDied:
@@ -224,7 +238,9 @@ class Loader:
         """Batch ``n``'s shape in ordered mode: a function of (shape_seed, n)."""
         return self.shape_sampler.sample(np.random.default_rng([int(self.shape_seed), int(n)]))
 
-    def _make_batch(self, rng: np.random.Generator, ticket: int | None = None) -> dict:
+    def _make_batch(self, rng: np.random.Generator, ticket: int | None = None) -> dict | None:
+        """One batch; None when the loader stops while it is built (a batch
+        of large samples takes seconds, longer than ``close()`` waits)."""
         if self._ordered and ticket is not None:
             shape = self.shape_for_batch(ticket)
         else:
@@ -233,6 +249,8 @@ class Loader:
         for _ in range(self.accum):
             samples = []
             for _ in range(self.batch_size // self.num_copies):
+                if self._stop.is_set():
+                    return None
                 # num_copies > 1: one base sample, num_copies independent
                 # crops and augmentations, interleaved (SelfDistill's layout)
                 ds, idx = self.dataset.sample(rng)
@@ -288,7 +306,7 @@ class Loader:
                 batch = self._make_batch(rng, ticket)
                 # keep offering the same batch: dropping a built batch on a
                 # full queue would burn host time rebuilding it
-                if not self._put((ticket, batch) if self._ordered else batch):
+                if batch is None or not self._put((ticket, batch) if self._ordered else batch):
                     return
         except BaseException as e:  # noqa: BLE001 -- handed to the consumer, which raises it
             self._put(_WorkerDied(e))
@@ -327,7 +345,8 @@ class Loader:
 
     def close(self):
         """Stop and join the worker threads (they poll the stop flag each
-        second, so this takes at most ~3 s; a thread still alive is kept)."""
+        second and before each sample, so this takes at most ~3 s; a thread
+        still alive is kept)."""
         self._stop.set()
         alive = []
         for t in self._threads:

@@ -11,6 +11,7 @@ from __future__ import annotations
 from pathlib import Path
 
 import torch
+import torch.distributed as dist
 
 from unidepth_tpu_torch.training.ema import EMAState
 from unidepth_tpu_torch.training.optim import AdamWState
@@ -19,29 +20,44 @@ from unidepth_tpu_torch.training.step import TrainState
 __all__ = ["load_train_state", "save_train_state"]
 
 
-def save_train_state(directory, state: TrainState) -> Path:
+def _multi(layout) -> bool:
+    return layout is not None and layout.mesh.world > 1
+
+
+def save_train_state(directory, state: TrainState, layout=None) -> Path:
+    """Write ``state`` to ``directory/step_XXXXXXXX.pt``; with ``layout``,
+    every rank calls it and rank 0 writes the gathered whole state."""
     path = Path(directory) / f"step_{state.step:08d}.pt"
-    path.parent.mkdir(parents=True, exist_ok=True)
-    torch.save(
-        {
-            "params": state.params,
-            "opt": {"count": state.opt_state.count, "mu": state.opt_state.mu, "nu": state.opt_state.nu},
-            "ema": {"shadow": state.ema.shadow, "num_updates": state.ema.num_updates},
-            "step": state.step,
-        },
-        path,
-    )
+    whole = (lambda d: d) if not _multi(layout) else layout.full
+    tensors = {"params": whole(state.params), "mu": whole(state.opt_state.mu), "nu": whole(state.opt_state.nu),
+               "shadow": whole(state.ema.shadow)}
+    if not _multi(layout) or dist.get_rank() == 0:
+        path.parent.mkdir(parents=True, exist_ok=True)
+        torch.save(
+            {
+                "params": tensors["params"],
+                "opt": {"count": state.opt_state.count, "mu": tensors["mu"], "nu": tensors["nu"]},
+                "ema": {"shadow": tensors["shadow"], "num_updates": state.ema.num_updates},
+                "step": state.step,
+            },
+            path,
+        )
+    if _multi(layout):
+        dist.barrier()  # the file exists for every rank once this returns
     return path
 
 
-def load_train_state(path, template: TrainState) -> TrainState:
+def load_train_state(path, template: TrainState, layout=None) -> TrainState:
     """The state saved at ``path``, each tensor placed like the template's;
-    raises if the names or shapes differ."""
+    raises if the names or shapes differ. ``layout``: the template holds
+    this rank's shards, cut from the whole tensors of the file."""
     saved = torch.load(path, map_location="cpu", weights_only=True)
 
     def place(tensors: dict, like: dict) -> dict:
         if list(tensors) != list(like):
             raise ValueError(f"{path}: parameter names differ from the model's")
+        if _multi(layout):
+            tensors = layout.from_full(tensors, like)
         for name, t in tensors.items():
             if t.shape != like[name].shape:
                 raise ValueError(f"{path}: {name} has shape {tuple(t.shape)}, the model {tuple(like[name].shape)}")

@@ -34,7 +34,7 @@ import torch
 import torch.nn as nn
 from torch.utils.checkpoint import checkpoint
 
-from unidepth_tpu_torch.nn.layers import drop_path, layer_norm, ln_linear_gelu
+from unidepth_tpu_torch.nn.layers import drop_path, layer_norm, ln_linear_gelu, uniform_rows
 
 LAYER_SCALE_INIT = 1e-6
 
@@ -152,8 +152,7 @@ class ConvNeXt(nn.Module):
                 rate = float(next(rates))
                 keep, mask = 1.0 - rate, None
                 if use_dp and rate > 0.0:
-                    u = torch.rand((x.shape[0],), generator=generator, device=generator.device)
-                    mask = (u < keep).to(x.device)
+                    mask = (uniform_rows(generator, (), x.shape[0]) < keep).to(x.device)
                 if torch.is_grad_enabled():
                     # the mask is an input, so no RNG state needs restoring
                     x = checkpoint(block, x, mask, keep, use_reentrant=False, preserve_rng_state=False)

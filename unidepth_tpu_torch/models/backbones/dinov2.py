@@ -45,7 +45,14 @@ K2 launch twice a block per micro-batch. ``forward(image, generator)`` with
 ``drop_path_rate > 0`` applies stochastic depth at the JAX ramp
 ``linspace(0, rate, depth)``: two per-sample keep masks a block (one a
 residual branch), drawn from ``generator`` before the block runs, so the
-recompute sees the same draw.
+recompute sees the same draw; over several processes each draws the
+whole batch's masks and takes its rows (``nn.layers.BatchRows``).
+
+Under tensor parallelism (``parallel/tp.py``) ``num_heads`` is the rank's
+share of the heads and qkv, proj, fc1 and fc2 hold its slices; the block
+takes its widths from ``num_heads`` and ``head_dim``, never from x (which
+stays full width), and K2 takes its input and LN2's parameters through
+``copy_to_tp``.
 """
 
 from __future__ import annotations
@@ -58,7 +65,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from unidepth_tpu_torch.nn.layers import LayerScale, drop_path, layer_norm
+from unidepth_tpu_torch.nn.layers import LayerScale, drop_path, layer_norm, uniform_rows
 from unidepth_tpu_torch.ops.flash_attention import (
     flash_attention_packed,
     flash_attention_packed_plain,
@@ -68,6 +75,7 @@ from unidepth_tpu_torch.ops.flash_attention import (
 from unidepth_tpu_torch.ops.fused_block import ln_dense, ln_dense_plain
 from unidepth_tpu_torch.ops.quant import QuantLinear, quantize_linear_tree
 from unidepth_tpu_torch.ops.resize import resize
+from unidepth_tpu_torch.parallel.mesh import tp_inputs
 from unidepth_tpu_torch.utils.misc import STACKING_FNS
 
 
@@ -139,7 +147,8 @@ class ViTBlock(nn.Module):
         super().__init__()
         if ffn_layer not in ("mlp", "swiglu"):
             raise ValueError(f"ffn_layer {ffn_layer!r}: 'mlp' or 'swiglu'")
-        self.num_heads = num_heads
+        self.num_heads = num_heads  # this rank's heads under tensor parallelism (parallel/tp.py)
+        self.head_dim = dim // num_heads
         self.use_kernels = True
         self.norm1 = nn.LayerNorm(dim, eps=1e-6)
         self.attn = _Attention(dim)
@@ -156,8 +165,10 @@ class ViTBlock(nn.Module):
     def forward(self, x, keep_masks=None, keep: float = 1.0):
         """``keep_masks``: None, or (2, B) bools, the stochastic-depth draw
         of the attention and MLP branches at keep probability ``keep``."""
-        c = x.shape[-1]
-        scale = (c // self.num_heads) ** -0.5
+        # under tensor parallelism x is full width and qkv holds this rank's
+        # heads: the widths come from the heads, never from x
+        c = self.num_heads * self.head_dim
+        scale = self.head_dim**-0.5
         # the JAX rule _use_fused (dinov2.py:113-135): int8 GEMMs and a
         # SwiGLU MLP turn the fused LN -> GEMM and QKV-direct attention
         # kernels off
@@ -179,7 +190,8 @@ class ViTBlock(nn.Module):
         if fused:
             fc1 = self.mlp.fc1
             ln_dense_fn = ln_dense if self.use_kernels else ln_dense_plain
-            y = self.mlp.fc2(ln_dense_fn(x, fc1.weight, fc1.bias, n2.weight, n2.bias, n2.eps, "gelu"))
+            xt, gamma, beta = tp_inputs(fc1, x, n2.weight, n2.bias)
+            y = self.mlp.fc2(ln_dense_fn(xt, fc1.weight, fc1.bias, gamma, beta, n2.eps, "gelu"))
         else:
             y = self.mlp(layer_norm(n2, x))
         if self.ls2 is not None:
@@ -242,8 +254,7 @@ class DinoViT(nn.Module):
         for block, rate in zip(self.blocks, rates):
             keep, masks = 1.0 - float(rate), None
             if use_dp and rate > 0.0:
-                u = torch.rand((2, x.shape[0]), generator=generator, device=generator.device)
-                masks = (u < keep).to(x.device)
+                masks = (uniform_rows(generator, (2,), x.shape[0]) < keep).to(x.device)
             if torch.is_grad_enabled():
                 # the masks are inputs, so no RNG state needs restoring
                 x = checkpoint(block, x, masks, keep, use_reentrant=False, preserve_rng_state=False)

@@ -6,6 +6,13 @@ Tokens are (B, N, C). LayerNorm statistics run in fp32 and the result is
 cast to the module's compute dtype (its weights' dtype); products run in
 that dtype. Every LayerNorm here uses eps 1e-5. Submodule names are the
 reference checkpoint's.
+
+Under tensor parallelism (``parallel/tp.py``) ``q``, ``kv`` and ``proj1``
+hold a rank's heads or hidden units and ``out`` and ``proj2`` sum over the
+ranks: a block then runs its local heads, and each rank adds its heads'
+channels of the full-width positional embeddings. ``BatchRows`` and
+``uniform_rows`` give the stochastic-depth draw of a rank's rows of the
+whole batch.
 """
 
 from __future__ import annotations
@@ -16,6 +23,7 @@ import torch.nn.functional as F
 
 from unidepth_tpu_torch.ops.attention import attention, sdpa
 from unidepth_tpu_torch.ops.fused_block import ln_dense, ln_dense_plain
+from unidepth_tpu_torch.parallel.mesh import tp_columns, tp_inputs
 
 
 def layer_norm(norm: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
@@ -33,7 +41,32 @@ def ln_linear_gelu(norm: nn.LayerNorm, linear: nn.Linear, x: torch.Tensor, use_k
     cover."""
     fits = linear.in_features % 32 == 0 and linear.out_features % 128 == 0
     fn = ln_dense if use_kernels and fits else ln_dense_plain
-    return fn(x, linear.weight, linear.bias, norm.weight, norm.bias, norm.eps, "gelu")
+    x, gamma, beta = tp_inputs(linear, x, norm.weight, norm.bias)
+    return fn(x, linear.weight, linear.bias, gamma, beta, norm.eps, "gelu")
+
+
+class BatchRows:
+    """A generator that draws for a whole batch of ``batch`` rows, of which
+    this process holds ``rows`` from ``start`` on: each process of a
+    data-parallel step takes its rows of one global draw, so the step draws
+    what one process would draw for the whole batch."""
+
+    def __init__(self, generator: torch.Generator, batch: int, start: int):
+        self.generator, self.batch, self.start = generator, batch, start
+
+    @property
+    def device(self):
+        return self.generator.device
+
+
+def uniform_rows(generator, lead: tuple, rows: int) -> torch.Tensor:
+    """(*lead, rows) uniforms from ``generator``: a ``torch.Generator``
+    (every row this process's), or a ``BatchRows`` (its rows of the whole
+    batch's draw)."""
+    if isinstance(generator, BatchRows):
+        u = torch.rand((*lead, generator.batch), generator=generator.generator, device=generator.device)
+        return u[..., generator.start : generator.start + rows]
+    return torch.rand((*lead, rows), generator=generator, device=generator.device)
 
 
 def drop_path(x: torch.Tensor, keep_mask: torch.Tensor, keep: float) -> torch.Tensor:
@@ -121,9 +154,9 @@ class AttentionBlock(nn.Module):
         k = split_heads(k, self.num_heads)
         v = split_heads(v, self.num_heads)
         if pos_embed is not None:
-            q = q + split_heads(pos_embed.to(q.dtype), self.num_heads)
+            q = q + split_heads(tp_columns(self.q, pos_embed.to(q.dtype)), self.num_heads)
         if pos_embed_context is not None:
-            k = k + split_heads(pos_embed_context.to(k.dtype), self.num_heads)
+            k = k + split_heads(tp_columns(self.q, pos_embed_context.to(k.dtype)), self.num_heads)
         attn = self.out(merge_heads(self._attend(q, k, v)))
         if self.ls1 is not None:
             attn = self.ls1(attn)

@@ -56,16 +56,20 @@ def ema_update(state: EMAState, params: dict, decay: float = 0.9995, update_afte
 
 
 @contextlib.contextmanager
-def ema_weights(model: torch.nn.Module, state: EMAState):
+def ema_weights(model: torch.nn.Module, state: EMAState, layout=None):
     """Inside the block the model's parameters hold the shadow, cast to
     their dtype; after it they hold their own values again, bit for bit
     (kept as a copy). Nothing else is written: the fp32 masters stay as they
-    are."""
+    are. ``layout`` (``parallel.mesh.Layout``): the shadow is this rank's
+    shards, all-gathered into the model."""
     params = dict(model.named_parameters())
     live = {n: p.detach().clone() for n, p in params.items()}
     with torch.no_grad():
-        for n, p in params.items():
-            p.copy_(state.shadow[n])
+        if layout is not None:
+            layout.load_into(params, state.shadow)
+        else:
+            for n, p in params.items():
+                p.copy_(state.shadow[n])
     try:
         yield model
     finally:

@@ -15,6 +15,21 @@ update. Random draws (stochastic depth on the model's device, the LocalSSI
 buckets on the CPU) come from generators seeded from the step's ``seed``
 and the micro-batch index, so a step is a function of its state, its batch
 and its seed.
+
+Over several processes (``layout``, a ``parallel.mesh.Layout``) each rank
+runs its rows of every micro-batch (the batch split over data x fsdp; tp
+peers share rows). The state holds the rank's shards: before the forward
+the masters are all-gathered over fsdp into the model; after accumulation
+the gradients are averaged over data x fsdp and reduce-scattered over
+fsdp (a tensor whole on the tp ranks also averaged over tp, which keeps
+its copies equal where a backward kernel's atomics round differently on
+each); the global norm sums the squares of the shards over fsdp x tp,
+counting a tensor that is whole on several ranks once; the optimizer and
+EMA update the shards; the loss metrics are averaged over every rank.
+Stochastic depth draws for the whole batch from the shared seed and each
+rank takes its rows (``nn.layers.BatchRows``), and LocalSSI's draws use the
+same seed on every rank, so a sharded step computes what one process does
+on the whole batch.
 """
 
 from __future__ import annotations
@@ -24,6 +39,9 @@ import dataclasses
 import numpy as np
 import torch
 
+import torch.distributed as dist
+
+from unidepth_tpu_torch.nn.layers import BatchRows
 from unidepth_tpu_torch.training.ema import EMAState, ema_init, ema_update
 from unidepth_tpu_torch.training.losses import build_losses
 from unidepth_tpu_torch.training.optim import AdamWState, global_norm
@@ -47,12 +65,13 @@ def master_params(model: torch.nn.Module) -> dict[str, torch.Tensor]:
 
 
 @torch.no_grad()
-def sync_model(model: torch.nn.Module, state: TrainState) -> None:
+def sync_model(model: torch.nn.Module, state: TrainState, layout=None) -> None:
     """Write the masters into the model through ``load_state_dict``: its
     parameters in their dtype, and the fp32 masters int8 serving quantizes
     from (``ServingPrecisionMixin``). Call it when training ends or
-    checkpoints."""
-    missing, unexpected = model.load_state_dict(state.params, strict=False)
+    checkpoints. ``layout``: the masters are shards, gathered first."""
+    params = state.params if layout is None else layout.gather(state.params)
+    missing, unexpected = model.load_state_dict(params, strict=False)
     params = dict(model.named_parameters())
     if unexpected or any(k in params for k in missing):
         raise ValueError(f"train state does not fit the model: missing {missing}, unexpected {unexpected}")
@@ -149,11 +168,12 @@ def forward_backward(model, losses: dict, batch: dict, recipe=compute_losses_v2,
     return {k: v.detach() for k, v in ldict.items()}
 
 
-def make_train_step(model, optimizer, config: dict, recipe=None):
+def make_train_step(model, optimizer, config: dict, recipe=None, layout=None):
     """Returns (init_state, train_step) for ``model`` (a UniDepthV2, or a
     model with its ``encode_decode``) and ``optimizer`` (``optim.AdamW``).
     ``recipe`` maps (losses, outputs, batch, rng) to the loss dict and
-    defaults to V2's slots."""
+    defaults to V2's slots. ``layout`` (``parallel.mesh.Layout``): the step
+    of one rank of a mesh, whose state holds this rank's shards."""
     losses = build_losses(config)
     recipe = recipe or compute_losses_v2
     ema_cfg = ema_config(config)
@@ -167,20 +187,32 @@ def make_train_step(model, optimizer, config: dict, recipe=None):
             raise ValueError("params must hold the model's parameters, by name, in order")
         return TrainState(params=params, opt_state=optimizer.init(params), ema=ema_init(params), step=0)
 
+    mesh = None if layout is None else layout.mesh
+    world_group = None if mesh is None else mesh.group("data", "fsdp", "tp")
+
     def train_step(state: TrainState, batch: dict, seed) -> tuple[TrainState, dict]:
         """``batch`` leaves are (accum, micro_batch, ...) numpy arrays or
-        tensors; a flat (batch, ...) layout is one micro-batch."""
+        tensors; a flat (batch, ...) layout is one micro-batch. Over a mesh,
+        the rank's rows of the whole batch."""
         batch = to_device(batch, device)
         if batch["image"].ndim == 4:
             batch = {k: v[None] for k, v in batch.items()}
-        accum = batch["image"].shape[0]
+        accum, rows = batch["image"].shape[:2]
+        if mesh is not None and "invariance" in losses and rows % 2:
+            # SelfDistill pairs rows (2i, 2i + 1): a rank's rows must hold whole pairs
+            raise ValueError(f"{rows} rows a rank split the invariance loss's pairs: the batch a rank must be even")
         with torch.no_grad():
-            for n in names:
-                weights[n].copy_(state.params[n])
-        grads = {n: torch.zeros_like(p) for n, p in state.params.items()}
+            if layout is None:
+                for n in names:
+                    weights[n].copy_(state.params[n])
+            else:
+                layout.load_into(weights, state.params)
+        grads = {n: torch.zeros_like(p, dtype=torch.float32) for n, p in weights.items()}
         ldicts = []
         for i, (s_dp, s_loss) in enumerate(micro_seeds(seed, accum)):
             gen_dp = torch.Generator(device=device).manual_seed(s_dp)
+            if mesh is not None:
+                gen_dp = BatchRows(gen_dp, rows * mesh.batch_shards, rows * mesh.batch_rank)
             gen_loss = torch.Generator().manual_seed(s_loss)
             mb = {k: v[i] for k, v in batch.items()}
             ldicts.append(forward_backward(model, losses, mb, recipe, norm_mode, gen_dp, gen_loss))
@@ -190,8 +222,17 @@ def make_train_step(model, optimizer, config: dict, recipe=None):
                     grads[n].add_(g.float())
                 weights[n].grad = None
         torch._foreach_div_(list(grads.values()), float(accum))
-        g_norm = global_norm(grads.values())
         metrics = {k: torch.stack([d[k] for d in ldicts]).mean() for k in ldicts[0]}
+        if layout is None:
+            g_norm = global_norm(grads.values())
+        else:
+            grads = layout.reduce_grads(grads)
+            g_norm = layout.global_norm(grads)
+            if world_group is not None:  # tp peers hold the same rows: their mean is the same number on every rank
+                keys = list(metrics)
+                flat = torch.stack([metrics[k].float() for k in keys])
+                dist.all_reduce(flat, group=world_group)
+                metrics = dict(zip(keys, (flat / mesh.world).unbind(0)))
         metrics["grad_norm"] = g_norm
         optimizer.apply(state.params, grads, state.opt_state, g_norm)
         ema_update(state.ema, state.params, **ema_cfg)
@@ -201,6 +242,6 @@ def make_train_step(model, optimizer, config: dict, recipe=None):
     return init_state, train_step
 
 
-def make_train_step_v1(model, optimizer, config: dict):
+def make_train_step_v1(model, optimizer, config: dict, layout=None):
     """``make_train_step`` with V1's loss slots."""
-    return make_train_step(model, optimizer, config, recipe=compute_losses_v1)
+    return make_train_step(model, optimizer, config, recipe=compute_losses_v1, layout=layout)

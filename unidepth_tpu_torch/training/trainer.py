@@ -1,9 +1,13 @@
-"""A one-device trainer for UniDepthV1 (ViT or ConvNeXt), UniDepthV2 and
-UniDepthV2old (what ``scripts_torch/train.py`` runs): the model from a
-config with random weights, float32 masters beside its compute-dtype copy,
-the optimizer and schedules of the config's training section, the family's
-train step (V1's loss slots for V1, V2's for V2 and V2old, as the JAX
-trainer does), and validation under the EMA shadow.
+"""The trainer of UniDepthV1 (ViT or ConvNeXt), UniDepthV2 and UniDepthV2old
+(what ``scripts_torch/train.py`` runs): the model from a config with random
+weights, float32 masters beside its compute-dtype copy, the optimizer and
+schedules of the config's training section, the family's train step (V1's
+loss slots for V1, V2's for V2 and V2old, as the JAX trainer does), and
+validation under the EMA shadow. On one device, or on one rank of a
+``parallel.mesh.Mesh``: the model split over its tp axis
+(``parallel.tp.shard_model_``), the masters, moments and shadow over its
+fsdp axis (``layout``), and validation's metrics gathered over its batch
+axes.
 """
 
 from __future__ import annotations
@@ -18,6 +22,8 @@ from unidepth_tpu_torch.models.backbones.convnext import ConvNeXt
 from unidepth_tpu_torch.models.unidepthv1.model import UniDepthV1
 from unidepth_tpu_torch.models.unidepthv2.model import UniDepthV2, compute_dtype, resolve_device
 from unidepth_tpu_torch.models.unidepthv2.old import UniDepthV2old
+from unidepth_tpu_torch.parallel.mesh import Layout, Mesh
+from unidepth_tpu_torch.parallel.tp import shard_model_
 from unidepth_tpu_torch.training.ema import ema_weights
 from unidepth_tpu_torch.training.optim import AdamW, build_optimizer
 from unidepth_tpu_torch.training.step import TrainState, make_train_step, make_train_step_v1, master_params, sync_model
@@ -34,6 +40,7 @@ class Trainer:
     optimizer: AdamW
     state: TrainState
     train_step: object  # (state, batch, seed) -> (state, metrics)
+    layout: Layout | None = None  # the mesh and each parameter's split; None: one process
 
     def step(self, batch: dict, seed) -> dict:
         self.state, metrics = self.train_step(self.state, batch, seed)
@@ -42,13 +49,17 @@ class Trainer:
     def sync_model(self) -> None:
         """Write the float32 masters into the model (its parameters and the
         int8 path's masters)."""
-        sync_model(self.model, self.state)
+        sync_model(self.model, self.state, self.layout)
 
     def validate(self, val_loaders: dict, **kwargs) -> dict:
         """``utils.validation.validate`` with the EMA shadow in the model (as
         the reference validates); the model's own weights come back bit for
-        bit afterwards, and the masters are not touched."""
-        with ema_weights(self.model, self.state.ema):
+        bit afterwards, and the masters are not touched. Over a mesh, each
+        rank validates its loaders (its rows of each dataset) and the
+        metrics are gathered over the batch axes."""
+        if self.layout is not None:  # tp peers hold the same rows: gather over the batch axes only
+            kwargs.setdefault("group", self.layout.mesh.group("data", "fsdp"))
+        with ema_weights(self.model, self.state.ema, self.layout):
             return validate(self.model, val_loaders, **kwargs)
 
 
@@ -67,15 +78,20 @@ def num_encoder_layers(model: nn.Module) -> int:
     return sum(enc.cfg.depths) if isinstance(enc, ConvNeXt) else enc.cfg.depth
 
 
-def build_trainer(config: dict, device=None, seed: int = 13, image_shape=None) -> Trainer:
+def build_trainer(config: dict, device=None, seed: int = 13, image_shape=None, mesh: Mesh | None = None) -> Trainer:
     """The model ``config["model"]["name"]`` names (UniDepthV2 if none) on
     ``device`` (the card unless named; raises without one), weights from
     ``init_params(seed)`` drawn in float32 and kept as the masters, the model
     then cast to its compute dtype (bf16 on the card). UniDepthV1, a
     fixed-shape model, is built at the training image shape
     (``train_image_shape(config, image_shape)``), which is written into its
-    ``data.image_shape`` as the JAX trainer does."""
-    device = resolve_device(device)
+    ``data.image_shape`` as the JAX trainer does.
+
+    ``mesh``: one rank of a multi-process run (``parallel.mesh.make_mesh``),
+    on ``mesh.device``. Every rank draws the same whole weights, splits the
+    model over tp and keeps its fsdp shards of the masters, moments and
+    shadow."""
+    device = resolve_device(mesh.device if mesh is not None else device)
     name = config["model"].get("name", "UniDepthV2")
     if name not in MODELS:
         raise ValueError(f"unknown model {name!r}: training takes {sorted(MODELS)}")
@@ -83,6 +99,7 @@ def build_trainer(config: dict, device=None, seed: int = 13, image_shape=None) -
         config = copy.deepcopy(config)
         config.setdefault("data", {})["image_shape"] = list(train_image_shape(config, image_shape))
     model = MODELS[name].from_config(config, device=device, dtype=torch.float32).init_params(seed=seed)
+    layout = None if mesh is None else Layout(mesh, shard_model_(model, mesh))
     params = master_params(model)
     model.to(dtype=compute_dtype(device))
     tr = config["training"]
@@ -102,5 +119,7 @@ def build_trainer(config: dict, device=None, seed: int = 13, image_shape=None) -
         lr_warmup=tr.get("lr_warmup", 1.0),
     )
     make = make_train_step_v1 if name == "UniDepthV1" else make_train_step
-    init_state, train_step = make(model, optimizer, config)
-    return Trainer(model=model, optimizer=optimizer, state=init_state(params), train_step=train_step)
+    init_state, train_step = make(model, optimizer, config, layout=layout)
+    if layout is not None:
+        params = layout.shard(params)
+    return Trainer(model=model, optimizer=optimizer, state=init_state(params), train_step=train_step, layout=layout)

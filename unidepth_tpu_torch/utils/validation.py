@@ -1,6 +1,11 @@
 """The validation driver (counterpart of unidepth_tpu/utils/validation.py):
 runs the model's eval forward over validation loaders, computes the
 per-sample metrics on the model's device and averages them on the host.
+Over several processes each rank validates its shard of each dataset
+(``datasets.loader.eval_batches``) and the per-sample metrics are
+all-gathered before the mean, as the JAX package's ``process_allgather``
+does: the shards are ragged, so each is padded with NaN to the longest and
+the mean skips NaN (the padded samples of the last batch are NaN too).
 """
 
 from __future__ import annotations
@@ -9,19 +14,48 @@ from collections import defaultdict
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from unidepth_tpu_torch.utils.evaluation import eval_3d, eval_depth
 from unidepth_tpu_torch.utils.misc import normalize_rgb
 
-__all__ = ["MetricAccumulator", "points_3d", "validate"]
+__all__ = ["WORLD", "MetricAccumulator", "points_3d", "validate"]
+
+
+WORLD = "world"  # the default process group when one with more than one rank is up
+
+
+def _resolve_group(group):
+    if group != WORLD:
+        return group
+    if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
+        return dist.group.WORLD
+    return None
+
+
+def _gather_values(local: np.ndarray, group) -> np.ndarray:
+    """Every rank's ``local`` (float64, ragged), each padded with NaN to the
+    longest, concatenated in rank order."""
+    device = torch.device("cuda", torch.cuda.current_device()) if dist.get_backend(group) == "nccl" else "cpu"
+    n = torch.tensor([local.size], dtype=torch.int64, device=device)
+    dist.all_reduce(n, op=dist.ReduceOp.MAX, group=group)
+    padded = np.full(int(n.item()), np.nan)
+    padded[: local.size] = local
+    t = torch.from_numpy(padded).to(device)
+    parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, t, group=group)
+    return torch.cat(parts).cpu().numpy()
 
 
 class MetricAccumulator:
-    """A dataset's per-sample metrics, averaged by ``get_evaluation``."""
+    """A dataset's per-sample metrics, averaged by ``get_evaluation`` over
+    the ranks of ``group`` (``WORLD``: every rank, when more than one runs;
+    None: this process alone)."""
 
-    def __init__(self, name: str, max_depth: float | None = None):
+    def __init__(self, name: str, max_depth: float | None = None, group=WORLD):
         self.name = name
         self.max_depth = max_depth
+        self.group = _resolve_group(group)
         self._values: dict[str, list[np.ndarray]] = defaultdict(list)
 
     def accumulate(self, depth_gt, depth_pred, mask, points_gt=None, points_pred=None, thresholds=None, mask3d=None,
@@ -42,12 +76,11 @@ class MetricAccumulator:
                 store(k, v)
 
     def get_evaluation(self) -> dict[str, float]:
-        if torch.distributed.is_available() and torch.distributed.is_initialized() \
-                and torch.distributed.get_world_size() > 1:
-            raise NotImplementedError("validation across processes is not ported (ROADMAP A8)")
         out = {}
         for k, vs in self._values.items():
             local = np.concatenate([np.atleast_1d(v) for v in vs])
+            if self.group is not None:
+                local = _gather_values(local, self.group)
             out[k] = float(np.nanmean(local)) if np.any(np.isfinite(local)) else float("nan")
         self._values.clear()
         return out
@@ -70,7 +103,7 @@ def points_3d(rays_gt, depth_gt, depth, mask, rays_pred=None) -> dict:
 
 
 def validate(model, val_loaders: dict, max_iters: int | None = None, with_3d: bool = False,
-             depth_ranges: dict | None = None) -> dict:
+             depth_ranges: dict | None = None, group=WORLD) -> dict:
     """val_loaders: {name: iterable of collated numpy batches (raw 0..255
     images)}. Returns {dataset: {metric: value}}.
 
@@ -78,12 +111,15 @@ def validate(model, val_loaders: dict, max_iters: int | None = None, with_3d: bo
     and the GT rays, under ``torch.inference_mode`` on the model's device.
     ``with_3d`` adds the Chamfer distance and F1-AUC over 100 log-spaced
     thresholds between the dataset's min_depth and max_depth / 20 on the
-    clouds of ``points_3d``."""
+    clouds of ``points_3d``. ``group``: the ranks whose loaders hold the
+    shards of each dataset (``WORLD``: every rank, when more than one runs);
+    each rank must run the same number of batches where the forward itself
+    communicates (tensor parallelism)."""
     device = next(model.parameters()).device
     results = {}
     with torch.inference_mode():
         for name, loader in val_loaders.items():
-            acc = MetricAccumulator(name)
+            acc = MetricAccumulator(name, group=group)
             dmin, dmax = (depth_ranges or {}).get(name, (0.01, 80.0))
             thresholds = torch.exp(torch.linspace(float(np.log(dmin)), float(np.log(dmax / 20.0)), 100, device=device))
             for i, batch in enumerate(loader):
