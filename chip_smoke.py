@@ -193,8 +193,9 @@ fails (non-zero exit, no result line) without CUDA or outside a checkout.
    the formula's maximum, (T - 1) / T for T thresholds); ``eval_3d``'s ms a
    batch. (d) ``scripts_torch/eval.py --dummy-data --eval-3d --max-iters 2``
    and ``scripts_torch/demo.py`` (random weights) as subprocesses on the
-   card: both exit 0, the eval's metrics finite, the demo prints an ARel. A
-   ``{"eval": ...}`` line carries the figures; K1-K3's records gain
+   card, at once with item 14's (``cli_phase``, after item 13): both exit
+   0, the eval's metrics finite, the demo prints an ARel. A ``{"eval":
+   ...}`` line carries the figures; K1-K3's records gain
    ``eval_launches``.
 
 12. Training of the other families, each through the train phase of item
@@ -237,7 +238,9 @@ fails (non-zero exit, no result line) without CUDA or outside a checkout.
    from the same call. A ConvNeXt-L V1 refuses int8. K1-K4's records gain
    ``v1_int8_launches``.
 14. ``scripts_torch/train.py --config-file configs/config_v1_cnvnxtl.json
-   --dummy-data --steps 2`` as a subprocess on the card: exit 0, a finite
+   --dummy-data --steps 2`` as a subprocess on the card, at once with item
+   11's eval and demo scripts (three processes share the card; their
+   seconds are the group's): exit 0, a finite
    JSON line a step, its MetricLogger JSONL stream and one artifact PNG
    (read back). A ``{"v1_int8": ..., "train_cli": ...}`` line carries the
    figures.
@@ -266,6 +269,27 @@ fails (non-zero exit, no result line) without CUDA or outside a checkout.
    (2 steps of 4 images) and ``scripts_torch/eval.py --data-root --datasets
    KITTI NYUv2Depth`` as subprocesses on the card at once: exit 0, finite
    losses and metrics. A ``{"data": ...}`` line carries the figures.
+   (f) The last sixteen transforms, which no dataset builds
+   (``augment_phase``), before the CLIs: (a) each numpy transform whose JAX
+   counterpart calls Pillow (``PILLOW_CHECKS``: the ``ImageEnhance`` four,
+   ``RandomColor``'s HSV round trip, autocontrast, solarize, posterize,
+   equalize) against a few lines of Pillow on this host, bit for bit, at
+   prob 1 on AUG_SEEDS seeded frames of 375 x 1242 and 602 x 952, at both
+   ends of each level's range; (b) the sixteen (the fifteen random ones at
+   prob 1, then ``Normalize``) appended to each reader's own augmenter, each
+   wrapped to count its calls, the validity pixels it turns False and any
+   exception it raises (the loader retries a failed sample, which would
+   hide one): the loader alone in batches a second with them, at the shape
+   seed (c) timed without them, then AUG_STEPS steps of the same trainer
+   fed by that running loader: finite
+   losses, each batch on the card at its sampled shape, K1 96, K2 96, K3 8
+   a step on the Hopper bodies, every transform called and none raising,
+   validity pixels turned False by ``Rotate``, ``RandomShear`` and
+   ``RandomTranslate``, and zeros in each step's ``validity_mask``; (c) ms a
+   sample of each at 375 x 1242 in this thread (one host core), the median
+   of AUG_TIMING_REPS, beside the card's name and power limit. An
+   ``{"augment": ...}`` line carries the figures; K1-K3's records gain
+   ``augment_train_launches``.
 16. The rest of serving (``serve_phase``). (a) ``scripts_torch/infer.py``'s
    ``main`` in this process on a folder of the demo image and two
    NuScenes-style frames of six seeded 900 x 1600 PNGs (13 images, 3
@@ -350,6 +374,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import warnings
 from pathlib import Path
@@ -522,6 +547,24 @@ DATA_LARGEST = (602, 952)
 DATA_THREADS = 4
 DATA_LOADER_BATCHES = 5  # the loader alone: the first batch is its start, the next four are timed
 DATA_CLI_STEPS = 2
+# (f) the last sixteen transforms (datasets/pipelines.py), which no dataset
+# builds: appended at prob 1 to each reader's own augmenter for AUG_STEPS
+# loader-fed steps. Before them, each numpy transform whose JAX counterpart
+# calls Pillow against Pillow itself on AUG_SEEDS frames of each AUG_FRAMES
+# shape (a synthetic KITTI frame, the sampler's largest shape), at the
+# values in PILLOW_CHECKS (both ends of each level's default range)
+AUG_STEPS = 2
+AUG_SEEDS = 8
+AUG_FRAMES = ((375, 1242), DATA_LARGEST)
+AUG_TIMING_REPS = 20  # ms a sample of each transform at 375 x 1242: the median of these
+PILLOW_CHECKS = {
+    "RandomSaturation": ("level", (-0.5, 0.5)), "RandomSharpness": ("level", (-0.5, 0.5)),
+    "RandomBrightness": ("level", (-0.5, 0.5)), "RandomContrast": ("level", (-0.5, 0.5)),
+    "RandomColor": ("level", (-0.05, 0.05)), "RandomAutoContrast": (None, (None,)),
+    "RandomSolarize": ("threshold", (1, 128, 255)), "RandomPosterize": ("bits", (1, 4, 8)),
+    "RandomEqualize": (None, (None,)),
+}
+GEOMETRIC = ("Rotate", "RandomShear", "RandomTranslate")  # the transforms that bring in invalid borders
 # what a shard's node paths are served from when h5py is absent: the nodes of
 # <shard path>.npz, read through NpzShard
 H5PY_ABSENT = importlib.util.find_spec("h5py") is None
@@ -571,11 +614,15 @@ PAR_SERVE_GATE = 1e-2  # the V2 gate: depth median relative error
 # same maps, so the metrics may differ only by the order of the float64 mean
 PAR_VAL_SAME_RTOL = 1e-12
 # against 1 process running its own batches ([0, 1], [2, 3], ...): a bf16 map
-# moves with its image's row in the batch (measured beside it: image 1 second
-# in [0, 1] against first in [1, 3]; a rerun and another batch-mate leave it
-# bitwise equal), so the evaluation contract's rtol 1e-3
-# (tests/test_torch_validation.py) for the continuous metrics, and 1e-3 of the
-# pixels for the metrics that count them
+# moves with its image's row in a batch of 2 (measured beside it: image 1
+# second in [0, 1] against first in [1, 3]; a rerun and another batch-mate
+# leave it bitwise equal). The op is cuDNN's bf16 3x3 convolution of the V2
+# decoder's second ResidualConvUnit stage (ups.1, 512 -> 512 channels; (2, 512,
+# 74, 74) at 518 x 518): at B = 2 it rounds row 1 otherwise than the same image
+# alone, on ~0.1% of its outputs by one bf16 ulp, and PyTorch's own conv and
+# fp32 do not (scripts_torch/batch_row_probe.py, ROADMAP C4). So the evaluation
+# contract's rtol 1e-3 (tests/test_torch_validation.py) for the continuous
+# metrics, and 1e-3 of the pixels for the metrics that count them
 PAR_VAL_RTOL = 1e-3
 PAR_VAL_COUNTING = ("d1", "d2", "d3", "tau", "d_auc", "d1_ssi", "tau_ssi", "d1_si", "tau_si")
 # the kernels at the local shapes tp=2 gives them (V2 ViT-L/14 training at 476 x 630,
@@ -1584,31 +1631,6 @@ def eval_phase(config, kernels, none, smi, dev):
     del model, image, rays, gt, mask, pred, pts, sub
     torch.cuda.empty_cache()
 
-    # (d) the CLIs, each its own process on the card
-    with tempfile.TemporaryDirectory() as tmp:
-        for name, argv in (
-            ("eval", ["--config-file", str(CONFIG), "--dummy-data", "--eval-3d", "--max-iters", "2"]),
-            ("demo", ["--output", str(Path(tmp) / "demo.png")]),
-        ):
-            t0 = time.perf_counter()
-            proc = subprocess.run([sys.executable, str(ROOT / "scripts_torch" / f"{name}.py"), *argv], cwd=ROOT,
-                                  capture_output=True, text=True, timeout=600)
-            if proc.returncode != 0:
-                raise RuntimeError(f"scripts_torch/{name}.py exited {proc.returncode}:\n{proc.stdout[-3000:]}\n"
-                                   f"{proc.stderr[-3000:]}")
-            lines = proc.stdout.strip().splitlines()
-            if name == "eval":
-                cli = json.loads(lines[-1])["eval"]["Dummy"]
-                if set(cli) != {*DEPTH_METRICS, "chamfer", "F1"} or not all(np.isfinite(list(cli.values()))):
-                    raise RuntimeError(f"scripts_torch/eval.py: metrics {cli}")
-                figures["eval_cli"] = cli
-            else:
-                arel = [line for line in lines if line.startswith("ARel: ")]
-                if not arel:
-                    raise RuntimeError(f"scripts_torch/demo.py printed no ARel:\n{proc.stdout[-3000:]}")
-                figures["demo_arel"] = arel[0]
-            log(f"scripts_torch/{name}.py {' '.join(argv)}: exit 0 in {time.perf_counter() - t0:.1f} s"
-                + (f", {arel[0]} (random weights)" if name == "demo" else ""))
     per_batch = {k: v // EVAL_BATCHES for k, v in val_launches.items()}
     return per_batch, infer_launches, figures
 
@@ -1690,35 +1712,77 @@ def v1_int8_phase(kernels, none, smi, dev):
     return launches, figures
 
 
-def train_cli_phase():
-    """scripts_torch/train.py on V1 ConvNeXt-L for TRAIN_CLI_STEPS steps on
-    Dummy data, its own process on the card: exit 0, one JSON line a step,
-    its MetricLogger stream and one artifact PNG."""
+def run_at_once(commands):
+    """Each command (name -> argv) its own process, all at once on the one
+    card, killed if still running after 600 s. Returns name -> (exit code,
+    stdout, stderr) and the seconds until the last one ended."""
+    procs = {}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as logs:
+        try:
+            for name, argv in commands.items():
+                with open(Path(logs) / f"{name}.out", "w") as out, open(Path(logs) / f"{name}.err", "w") as err:
+                    procs[name] = subprocess.Popen(argv, cwd=ROOT, stdout=out, stderr=err)
+            for proc in procs.values():
+                proc.wait(timeout=600)
+        finally:
+            for proc in procs.values():
+                proc.kill()
+                proc.wait()
+        seconds = time.perf_counter() - t0
+        return {name: (procs[name].returncode, (Path(logs) / f"{name}.out").read_text(),
+                       (Path(logs) / f"{name}.err").read_text()) for name in commands}, seconds
+
+
+def check_exit(script, result):
+    code, stdout, stderr = result
+    if code != 0:
+        raise RuntimeError(f"{script} exited {code}:\n{stdout[-3000:]}\n{stderr[-3000:]}")
+    return stdout
+
+
+def cli_phase():
+    """scripts_torch/eval.py (Dummy, the 3-D metrics, 2 batches), demo.py
+    (random weights) and train.py (V1 ConvNeXt-L, TRAIN_CLI_STEPS steps on
+    Dummy data), each its own process, all at once on the card: exit 0; the
+    eval's metrics finite; the demo's ARel; the trainer's JSON line a step,
+    its MetricLogger stream and one artifact PNG. Returns the eval's and
+    the trainer's figures."""
+    from unidepth_tpu_torch.utils.evaluation import DEPTH_METRICS
     from unidepth_tpu_torch.utils.png import read_png
 
-    config = CONFIG_V1["V1 ConvNeXt-L"]
+    train_config = CONFIG_V1["V1 ConvNeXt-L"]
     with tempfile.TemporaryDirectory() as tmp:
-        argv = ["--config-file", str(config), "--dummy-data", "--steps", str(TRAIN_CLI_STEPS), "--checkpoint-dir", tmp]
-        t0 = time.perf_counter()
-        proc = subprocess.run([sys.executable, str(ROOT / "scripts_torch" / "train.py"), *argv], cwd=ROOT,
-                              capture_output=True, text=True, timeout=600)
-        seconds = time.perf_counter() - t0
-        if proc.returncode != 0:
-            raise RuntimeError(f"scripts_torch/train.py exited {proc.returncode}:\n{proc.stdout[-3000:]}\n"
-                               f"{proc.stderr[-3000:]}")
-        steps = [json.loads(line) for line in proc.stdout.splitlines() if line.startswith('{"step"')]
+        argv = {
+            "eval": ["--config-file", str(CONFIG), "--dummy-data", "--eval-3d", "--max-iters", "2"],
+            "demo": ["--output", str(Path(tmp) / "demo.png")],
+            "train": ["--config-file", str(train_config), "--dummy-data", "--steps", str(TRAIN_CLI_STEPS),
+                      "--checkpoint-dir", tmp],
+        }
+        results, seconds = run_at_once(
+            {name: [sys.executable, str(ROOT / "scripts_torch" / f"{name}.py"), *a] for name, a in argv.items()})
+        out = {name: check_exit(f"scripts_torch/{name}.py", results[name]) for name in argv}
+        cli = json.loads(out["eval"].strip().splitlines()[-1])["eval"]["Dummy"]
+        if set(cli) != {*DEPTH_METRICS, "chamfer", "F1"} or not all(np.isfinite(list(cli.values()))):
+            raise RuntimeError(f"scripts_torch/eval.py: metrics {cli}")
+        arel = [line for line in out["demo"].splitlines() if line.startswith("ARel: ")]
+        if not arel:
+            raise RuntimeError(f"scripts_torch/demo.py printed no ARel:\n{out['demo'][-3000:]}")
+        steps = [json.loads(line) for line in out["train"].splitlines() if line.startswith('{"step"')]
         if [s["step"] for s in steps] != list(range(1, TRAIN_CLI_STEPS + 1)) or not all(
                 np.isfinite(v) for s in steps for v in s.values()):
             raise RuntimeError(f"scripts_torch/train.py printed {steps}")
-        records = [json.loads(line) for line in (Path(tmp) / f"{config.stem}.jsonl").read_text().splitlines()]
+        records = [json.loads(line) for line in (Path(tmp) / f"{train_config.stem}.jsonl").read_text().splitlines()]
         images = [r[k] for r in records for k in r if k.startswith("image/")]
         if [r["step"] for r in records if "train/total" in r] != list(range(1, TRAIN_CLI_STEPS + 1)) or len(images) != 1:
             raise RuntimeError(f"scripts_torch/train.py's MetricLogger stream: {records}")
         grid = read_png(images[0])
-        peak = [line for line in proc.stdout.splitlines() if line.startswith("peak device memory")]
-    log(f"scripts_torch/train.py {' '.join(argv[:-2])}: exit 0 in {seconds:.1f} s; {len(records)} JSONL records, "
-        f"artifact {grid.shape} PNG; {peak[0] if peak else ''}; step seconds {[round(s['seconds'], 2) for s in steps]}")
-    return {"seconds": seconds, "steps": steps, "artifact_shape": list(grid.shape)}
+        peak = [line for line in out["train"].splitlines() if line.startswith("peak device memory")]
+    log(f"scripts_torch/eval.py, demo.py and train.py at once: exit 0 in {seconds:.1f} s; eval metrics finite; demo "
+        f"{arel[0]} (random weights); train.py {' '.join(argv['train'][:-2])}: {len(records)} JSONL records, artifact "
+        f"{grid.shape} PNG; {peak[0] if peak else ''}; step seconds {[round(s['seconds'], 2) for s in steps]}")
+    return ({"eval_cli": cli, "demo_arel": arel[0], "cli_seconds": seconds},
+            {"seconds": seconds, "steps": steps, "artifact_shape": list(grid.shape)})
 
 
 class NpzShard:
@@ -1813,27 +1877,13 @@ def data_cli_phase(root, config_path, smi):
         "eval": ["--config-file", str(config_path), "--data-root", str(root), "--datasets", "KITTI", "NYUv2Depth",
                  "--max-iters", "2", "--batch", "4"],
     }
-    figures, procs, stdout = {}, {}, {}
-    t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as logs:
-        try:
-            for name, argv in runs.items():  # both at once, on the one card
-                with open(Path(logs) / name, "w") as out:
-                    procs[name] = subprocess.Popen([sys.executable, "-c", launch, str(ROOT),
-                                                    str(ROOT / "scripts_torch" / f"{name}.py"), *argv], cwd=ROOT,
-                                                   stdout=out, stderr=subprocess.STDOUT)
-            for proc in procs.values():
-                proc.wait(timeout=600)
-        finally:
-            for proc in procs.values():
-                proc.kill()
-                proc.wait()
-        seconds = time.perf_counter() - t0
-        stdout = {name: (Path(logs) / name).read_text() for name in runs}
+    results, seconds = run_at_once({name: [sys.executable, "-c", launch, str(ROOT),
+                                           str(ROOT / "scripts_torch" / f"{name}.py"), *argv]
+                                    for name, argv in runs.items()})
+    figures = {}
     for name, argv in runs.items():
-        if procs[name].returncode != 0:
-            raise RuntimeError(f"scripts_torch/{name}.py exited {procs[name].returncode}:\n{stdout[name][-5000:]}")
-        lines = [json.loads(line) for line in stdout[name].splitlines() if line.startswith("{")]
+        stdout = check_exit(f"scripts_torch/{name}.py", results[name])
+        lines = [json.loads(line) for line in stdout.splitlines() if line.startswith("{")]
         if name == "train":
             steps = [line for line in lines if "step" in line and "val" not in line]
             if [s["step"] for s in steps] != list(range(1, DATA_CLI_STEPS + 1)) or not all(
@@ -1841,12 +1891,200 @@ def data_cli_phase(root, config_path, smi):
                 raise RuntimeError(f"scripts_torch/train.py printed {steps}")
             figures[name] = {"totals": [s["total"] for s in steps], "seconds": seconds}
         else:
-            results = lines[-1]["eval"]
-            if sorted(results) != ["KITTI", "NYUv2Depth"] or not all(
-                    np.isfinite(v) for r in results.values() for v in r.values()):
-                raise RuntimeError(f"scripts_torch/eval.py printed {results}")
-            figures[name] = {"d1": {k: r["d1"] for k, r in results.items()}, "seconds": seconds}
+            metrics = lines[-1]["eval"]
+            if sorted(metrics) != ["KITTI", "NYUv2Depth"] or not all(
+                    np.isfinite(v) for r in metrics.values() for v in r.values()):
+                raise RuntimeError(f"scripts_torch/eval.py printed {metrics}")
+            figures[name] = {"d1": {k: r["d1"] for k, r in metrics.items()}, "seconds": seconds}
         log(f"scripts_torch/{name}.py {' '.join(argv)}: exit 0 in {seconds:.1f} s; {figures[name]} ({smi})")
+    return figures
+
+
+def pillow_reference(name, img, value):
+    """What the JAX package's transform ``name`` computes through Pillow on
+    ``img`` at ``value`` (its level, threshold or bits)."""
+    from PIL import Image, ImageEnhance, ImageOps
+
+    pil = Image.fromarray(img)
+    enhance = {"RandomSaturation": ImageEnhance.Color, "RandomSharpness": ImageEnhance.Sharpness,
+               "RandomBrightness": ImageEnhance.Brightness, "RandomContrast": ImageEnhance.Contrast}
+    if name in enhance:
+        return np.asarray(enhance[name](pil).enhance(2.0**value))
+    if name == "RandomColor":
+        hsv = np.asarray(pil.convert("HSV")).copy()
+        hsv[..., 0] = (hsv[..., 0].astype(np.int16) + int(value * 255)) % 256
+        return np.asarray(Image.fromarray(hsv, "HSV").convert("RGB"))
+    if name == "RandomSolarize":
+        return np.asarray(ImageOps.solarize(pil, threshold=value))
+    if name == "RandomPosterize":
+        return np.asarray(ImageOps.posterize(pil, bits=value))
+    return np.asarray({"RandomAutoContrast": ImageOps.autocontrast, "RandomEqualize": ImageOps.equalize}[name](pil))
+
+
+def pillow_phase(smi):
+    """(f)(a): each numpy transform of PILLOW_CHECKS against Pillow on this
+    host, bit for bit, at prob 1 on AUG_SEEDS seeded frames of each
+    AUG_FRAMES shape. Returns the Pillow version and the count of checks."""
+    import PIL
+
+    from unidepth_tpu_torch.datasets import pipelines as P
+    from unidepth_tpu_torch.datasets.synthetic import _image
+
+    t0 = time.perf_counter()
+    checked = 0
+    for h, w in AUG_FRAMES:
+        for seed in range(AUG_SEEDS):
+            img = _image(np.random.default_rng(seed), h, w)
+            for name, (param, values) in PILLOW_CHECKS.items():
+                for value in values:
+                    transform = getattr(P, name)(prob=1.0, **({param: value} if param else {}))
+                    got = transform({"image": img.copy()}, np.random.default_rng(seed))["image"]
+                    want = pillow_reference(name, img, value)
+                    if got.dtype != want.dtype or got.shape != want.shape or not np.array_equal(got, want):
+                        raise RuntimeError(f"augment: {name}({param}={value}) at {h}x{w}, seed {seed}, differs from "
+                                           f"Pillow {PIL.__version__} on {np.count_nonzero(got != want)} values")
+                    checked += 1
+    log(f"augment: the numpy transforms against Pillow {PIL.__version__}, bit for bit: {checked} checks "
+        f"({', '.join(PILLOW_CHECKS)}) at {AUG_FRAMES}, {AUG_SEEDS} seeds each, in {time.perf_counter() - t0:.1f} s")
+    return PIL.__version__, checked
+
+
+class CountedTransform:
+    """A transform that counts its calls and the validity pixels it turned
+    False (under a lock: the loader's threads share it), and records any
+    exception before raising it again, so that the loader's retry of a
+    failed sample cannot hide it."""
+
+    def __init__(self, transform):
+        self.transform, self.name = transform, type(transform).__name__
+        self.calls, self.zeroed, self.errors = 0, 0, []
+        self.lock = threading.Lock()
+
+    def __call__(self, sample, rng):
+        valid = int(np.count_nonzero(sample["validity"]))
+        try:
+            sample = self.transform(sample, rng)
+        except Exception as e:
+            with self.lock:
+                self.errors.append(repr(e))
+            raise
+        zeroed = valid - int(np.count_nonzero(sample["validity"]))
+        with self.lock:
+            self.calls += 1
+            self.zeroed += max(zeroed, 0)
+        return sample
+
+
+def sixteen_transforms():
+    """The fifteen random transforms no dataset builds, at prob 1 and their
+    default ranges, then ``Normalize``."""
+    from unidepth_tpu_torch.datasets import pipelines as P
+    from unidepth_tpu_torch.utils.constants import IMAGENET_DATASET_MEAN, IMAGENET_DATASET_STD
+
+    random = [getattr(P, name)(prob=1.0) for name in (
+        "Rotate", "RandomSaturation", "RandomSharpness", "RandomBrightness", "RandomContrast", "RandomColor",
+        "RandomInvert", "RandomAutoContrast", "RandomShear", "RandomTranslate", "RandomSolarize", "RandomPosterize",
+        "RandomEqualize", "RandomMasking")]
+    return [*random, P.RandomFiller(), P.Normalize(IMAGENET_DATASET_MEAN, IMAGENET_DATASET_STD)]
+
+
+def loader_rate(it):
+    """Batches a second of a loader's iterator ``it`` alone once it runs: its
+    first batch is its start, the next DATA_LOADER_BATCHES - 1 are timed."""
+    next(it)
+    t0 = time.perf_counter()
+    for _ in range(DATA_LOADER_BATCHES - 1):
+        next(it)
+    return (DATA_LOADER_BATCHES - 1) / (time.perf_counter() - t0)
+
+
+def augment_phase(kernels, none, smi, dev, trainer, datasets, loader, rate_without):
+    """(f): the sixteen transforms appended to each reader's augmenter. (a)
+    the numpy ones against Pillow; (b) the loader alone with them at the
+    shape seed whose rate without them the data phase took
+    (``rate_without``), then AUG_STEPS steps of V2 ViT-L/14 fed through them
+    from the same running loader (a batch is built on one thread: a fresh
+    loader's first batch takes ~16 samples' time); (c) ms a sample of each
+    on one host core at 375 x 1242. Returns the figures."""
+    from unidepth_tpu_torch.datasets.loader import device_prefetch
+    from unidepth_tpu_torch.datasets.pipelines import Compose
+    from unidepth_tpu_torch.datasets.synthetic import _image
+
+    t_phase = time.perf_counter()
+    pil_version, checked = pillow_phase(smi)
+    counted = [CountedTransform(t) for t in sixteen_transforms()]
+    own = [ds.augmenter for ds in datasets]
+    for ds in datasets:
+        ds.augmenter = Compose([ds.augmenter, *counted])
+    feed = loader(SEED + 1)
+    it = iter(feed)
+    rates = {"without": rate_without, "with": loader_rate(it)}
+    log(f"augment: the loader alone ({DATA_THREADS} threads) {rates['without']:.3f} batches/s without the sixteen "
+        f"transforms, {rates['with']:.3f} with them ({smi})")
+
+    expected_shapes = [feed.shape_for_batch(DATA_LOADER_BATCHES + n) for n in range(AUG_STEPS)]
+    steps = []
+
+    def run():
+        batches = device_prefetch(it, dev, size=2)
+        for i in range(AUG_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            batch = next(batches)
+            t1 = time.perf_counter()
+            metrics = trainer.step(batch, (SEED + 1, i))
+            values = {k: v.item() for k, v in metrics.items()}
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            shape = tuple(batch["image"].shape[-3:-1])
+            invalid = int((batch["validity_mask"] == 0).sum().item())
+            steps.append({"shape": list(shape), "wait_ms": (t1 - t0) * 1e3, "ms": (t2 - t0) * 1e3,
+                          "total": values["total"], "invalid_pixels": invalid})
+            if not all(np.isfinite(list(values.values()))):
+                raise RuntimeError(f"augment: step {i + 1} at {shape} has non-finite metrics {values}")
+            if shape != expected_shapes[i] or batch["image"].device.type != dev.type:
+                raise RuntimeError(f"augment: batch {i} of shape {shape} on {batch['image'].device}, expected "
+                                   f"{expected_shapes[i]}")
+            log(f"augment step {i + 1}: {shape[0]}x{shape[1]}, host wait {steps[-1]['wait_ms']:.1f} ms, step "
+                f"{steps[-1]['ms']:.1f} ms, total {values['total']:.4f}, {invalid} pixels of validity_mask 0 ({smi})")
+        batches.close()
+
+    _, launches = run_path(f"V2 ViT-L/14 training through the sixteen transforms ({AUG_STEPS} steps)", kernels, run)
+    feed.close()
+    expected = {k: v * AUG_STEPS for k, v in {"flash_attention_qkv": 96, "ln_dense": 96, "flash_attention": 8}.items()}
+    check_launches("augmented training", launches, {**none, **expected, **{f"{k}/wgmma": v for k, v in expected.items()}})
+    calls = {c.name: c.calls for c in counted}
+    errors = {c.name: c.errors for c in counted if c.errors}
+    if errors or not all(calls.values()):
+        raise RuntimeError(f"augment: calls {calls}, errors {errors}")
+    zeroed = {c.name: c.zeroed for c in counted if c.name in GEOMETRIC}
+    if not sum(zeroed.values()) or not all(s["invalid_pixels"] for s in steps):
+        raise RuntimeError(f"augment: validity pixels zeroed {zeroed}; validity_mask zeros a step "
+                           f"{[s['invalid_pixels'] for s in steps]}")
+    for ds, aug in zip(datasets, own):
+        ds.augmenter = aug
+
+    # (c) ms a sample of each transform, one at a time in this thread (the loader closed)
+    h, w = AUG_FRAMES[0]
+    rng = np.random.default_rng(SEED)
+    base = {"image": _image(rng, h, w), "depth": rng.uniform(1.0, 80.0, (h, w)).astype(np.float32),
+            "validity": rng.random((h, w)) < 0.9, "K": np.eye(3, dtype=np.float32)}
+    sample_ms = {}
+    for c in counted:
+        times = []
+        for rep in range(AUG_TIMING_REPS):
+            sample = copy.deepcopy(base)
+            t0 = time.perf_counter()
+            c.transform(sample, np.random.default_rng(rep))
+            times.append((time.perf_counter() - t0) * 1e3)
+        sample_ms[c.name] = statistics.median(times)
+    log(f"augment: ms a sample at {h}x{w} on one host core, median of {AUG_TIMING_REPS}: "
+        f"{', '.join(f'{k} {v:.2f}' for k, v in sample_ms.items())}; all sixteen {sum(sample_ms.values()):.1f} ({smi})")
+    figures = {"pillow": pil_version, "pillow_checks": checked, "loader_batches_per_s": rates, "steps": steps,
+               "launches": {k: launches[k] for k in expected},
+               "calls": calls, "validity_zeroed": zeroed, "sample_ms_375x1242": sample_ms, "device": smi,
+               "seconds": time.perf_counter() - t_phase}
+    log(f"augment step: {figures['seconds']:.1f} s")
     return figures
 
 
@@ -1900,17 +2138,13 @@ def data_phase(kernels, none, smi, dev):
     # the loader alone: batches a second once it runs
     alone = loader(SEED + 1)
     it = iter(alone)
-    next(it)
-    t0 = time.perf_counter()
-    for _ in range(DATA_LOADER_BATCHES - 1):
-        next(it)
-    loader_rate = (DATA_LOADER_BATCHES - 1) / (time.perf_counter() - t0)
+    rate_alone = loader_rate(it)
     host_batch = next(it)
     alone.close()
     if any(t.is_alive() for t in alone._threads):
         raise RuntimeError("data: Loader.close() left a worker thread alive")
     log(f"data: the loader alone ({DATA_THREADS} threads, {accum} x {batch_size} images a batch): "
-        f"{loader_rate:.3f} batches/s ({smi})")
+        f"{rate_alone:.3f} batches/s ({smi})")
 
     # one batch's upload: pageable, and pinned as device_prefetch sends it
     def pageable():
@@ -1993,6 +2227,7 @@ def data_phase(kernels, none, smi, dev):
         f"{largest[-1]['wait_ms']:.1f}) against {statistics.median(premade):.1f} ms on a premade batch on the card "
         f"({', '.join(f'{t:.1f}' for t in premade)}); peak {max(s['peak_gib'] for s in largest):.2f} GiB; native calls "
         f"{decoded} ({smi})")
+    augment = augment_phase(kernels, none, smi, dev, trainer, datasets, loader, rate_alone)
     del trainer, last, datasets
     torch.cuda.empty_cache()
 
@@ -2004,10 +2239,10 @@ def data_phase(kernels, none, smi, dev):
     cli = data_cli_phase(root, root / "config.json", smi)
     tmp.cleanup()
     figures = {"storage": storage, "samples": DATA_SAMPLES, "datasets": list(DATA_NAMES), "threads": DATA_THREADS,
-               "loader_batches_per_s": loader_rate, "upload_ms": upload, "upload_mib": nbytes_batch / 2**20,
+               "loader_batches_per_s": rate_alone, "upload_ms": upload, "upload_mib": nbytes_batch / 2**20,
                "steps": steps, "premade_ms": premade, "largest": list(DATA_LARGEST),
                "peak_gib_largest": max(s["peak_gib"] for s in largest), "native_calls": decoded, "cli": cli,
-               "device": smi, "seconds": time.perf_counter() - t_phase}
+               "augment": augment, "device": smi, "seconds": time.perf_counter() - t_phase}
     log(f"data phase: {figures['seconds']:.1f} s")
     return launches, figures
 
@@ -2878,7 +3113,8 @@ def main():
         train_launches[label], train_figures[label] = train_phase(label, spec, kernels, none, smi, dev)
     eval_launches, camera_infer_launches, eval_figures = eval_phase(config, kernels, none, smi, dev)
     v1_int8_launches, v1_int8_figures = v1_int8_phase(kernels, none, smi, dev)
-    train_cli = train_cli_phase()
+    eval_cli, train_cli = cli_phase()
+    eval_figures.update(eval_cli)
     data_launches, data_figures = data_phase(kernels, none, smi, dev)
     serve_launches, serve_figures = serve_phase(kernels, none, smi, dev)
     parallel_records, parallel_launches, parallel_figures = parallel_phase(kernels, none, smi, dev)
@@ -2924,8 +3160,10 @@ def main():
         m[name]["eval_launches"] = {"validate_batch": eval_launches[name], "camera_infer": camera_infer_launches[name]}
     for name in ("flash_attention_qkv", "ln_dense", "flash_attention", "flash_attention_packed"):
         m[name]["v1_int8_launches"] = v1_int8_launches[name]
+    augment_figures = data_figures.pop("augment")
     for name in ("flash_attention_qkv", "ln_dense", "flash_attention"):
         m[name]["data_train_launches"] = data_launches[name]  # DATA_STEPS loader-fed steps
+        m[name]["augment_train_launches"] = augment_figures["launches"][name]  # AUG_STEPS steps through the sixteen
     # the serving phase's paths: the CLI's three batches, a register-token V2
     # infer(), the SwiGLU ViT-g/14 encoder
     for name in ("flash_attention_qkv", "ln_dense", "flash_attention", "flash_attention_packed"):
@@ -2947,6 +3185,7 @@ def main():
     log(json.dumps({"eval": eval_figures}))
     log(json.dumps({"v2old": v2old_figures}))
     log(json.dumps({"data": data_figures}))
+    log(json.dumps({"augment": augment_figures}))
     log(json.dumps({"serve": serve_figures}))
     log(json.dumps({"parallel": parallel_figures}))
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s, the build included")

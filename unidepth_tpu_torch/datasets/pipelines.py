@@ -1,8 +1,12 @@
 """Host-side data transforms in numpy (the counterpart of
 unidepth_tpu/datasets/pipelines.py, which runs them through PIL): the
-transforms the datasets build. Each is a callable over a ``sample`` dict
-(image (H, W, 3) uint8, depth (H, W) float32, K (3, 3) float32, validity
-(H, W) bool, flip, ...) and a numpy ``Generator``, drawing from it in the
+transforms the datasets build, and the augmentation library's others
+(``Rotate``, the ``ImageEnhance`` and ``ImageOps`` ones, ``RandomColor``,
+``RandomShear``, ``RandomTranslate``, ``Normalize``, ``RandomMasking``,
+``RandomFiller``, ``masked_nearest_fill``). Each is a callable over a
+``sample`` dict (image (H, W, 3) uint8, depth (H, W) float32, K (3, 3)
+float32, validity (H, W) bool, flip, ...) and a numpy ``Generator``,
+drawing from it in the
 JAX transform's order and number, so a seeded pipeline crops and jitters
 identically. The cameras follow the pixels (a flip moves cx, a crop shifts
 the principal point, a resize scales fx, fy).
@@ -12,9 +16,13 @@ the JAX package's bit for bit: the resampling (``resize_image``: two
 passes, horizontal then vertical, through a uint8 image, with 22-bit
 fixed-point coefficients; nearest by a running float64 source position),
 ``ImageEnhance``'s blends (float32, truncated, clipped to 0..255), the ITU-R
-601 grey and the Gaussian blur as three box blurs with fractional edges.
-They stay in numpy, which releases the interpreter lock on large arrays, so
-the loader's threads augment in parallel.
+601 grey, the Gaussian blur as three box blurs with fractional edges, the
+SMOOTH filter, the HSV conversions and the ``ImageOps`` tables. They stay
+in numpy, which releases the interpreter lock on large arrays, so the
+loader's threads augment in parallel. The rotation, shear and shift
+resample through Pillow, imported at the call: it takes another
+nearest-neighbour path for a shift, a fixed-point and a float affine map,
+and calling it equals the JAX package by construction.
 """
 
 from __future__ import annotations
@@ -187,6 +195,121 @@ def gaussian_blur(img: np.ndarray, radius: float) -> np.ndarray:
     for _ in range(3):
         out = _box_blur_rows(out, box)
     return np.ascontiguousarray(out)
+
+
+def _smooth(img: np.ndarray) -> np.ndarray:
+    """PIL's ``filter(ImageFilter.SMOOTH)`` of (H, W, 3) uint8: the 3x3
+    kernel (1 1 1 / 1 5 1 / 1 1 1) / 13 in float32, each row of three summed
+    in order, the rows from the one below to the one above, plus 0.5,
+    truncated; the border pixels (and an image under 3 x 3) stay as they
+    are."""
+    f = np.float32
+    k1, k5 = f(1) / f(13), f(5) / f(13)
+    x = img.astype(f)
+    out = img.copy()
+
+    def row(r, k):
+        return (r[:, :-2] * k[0] + r[:, 1:-1] * k[1]) + r[:, 2:] * k[2]
+
+    ss = np.full(x[1:-1, 1:-1].shape, f(0.5), f)
+    ss += row(x[2:], (k1, k1, k1))
+    ss += row(x[1:-1], (k1, k5, k1))
+    ss += row(x[:-2], (k1, k1, k1))
+    out[1:-1, 1:-1] = np.clip(ss, 0, 255).astype(np.uint8)
+    return out
+
+
+def _rgb_to_hsv(img: np.ndarray) -> np.ndarray:
+    """PIL's ``convert("HSV")`` of (H, W, 3) uint8, in its float and double
+    steps: s and the channel ratios in float32, the hue's sum and wrap in
+    float64 stored to float32, both scaled by 255 and truncated."""
+    f32, f64 = np.float32, np.float64
+    r, g, b = (img[..., i].astype(np.int32) for i in range(3))
+    maxc = np.maximum(r, np.maximum(g, b))
+    minc = np.minimum(r, np.minimum(g, b))
+    grey = maxc == minc
+    cr = np.where(grey, 1, maxc - minc).astype(f32)
+    s = (maxc - minc).astype(f32) / np.maximum(maxc, 1).astype(f32)
+    rc, gc, bc = (((maxc - c).astype(f32) / cr).astype(f64) for c in (r, g, b))
+    h = np.where(r == maxc, (bc.astype(f32) - gc.astype(f32)).astype(f64),
+                 np.where(g == maxc, 2.0 + rc - bc, 4.0 + gc - rc)).astype(f32)
+    h = np.fmod(h.astype(f64) / 6.0 + 1.0, 1.0).astype(f32)
+    uh = np.clip((h.astype(f64) * 255.0).astype(np.int64), 0, 255)
+    us = np.clip((s.astype(f64) * 255.0).astype(np.int64), 0, 255)
+    return np.stack([np.where(grey, 0, uh), np.where(grey, 0, us), maxc], axis=-1).astype(np.uint8)
+
+
+def _hsv_to_rgb(hsv: np.ndarray) -> np.ndarray:
+    """PIL's ``convert("RGB")`` of an (H, W, 3) uint8 HSV image: the sector
+    and its fraction in float64 (the fraction stored to float32), p, q and t
+    rounded in float64 (no value of the uint8 domain falls on a tie, so
+    ``np.round`` gives C's ``round``: every HSV triple is checked in the
+    tests)."""
+    f32, f64 = np.float32, np.float64
+    h, s, v = (hsv[..., i] for i in range(3))
+    hf = h.astype(f64) * 6.0 / 255.0
+    sector = np.floor(hf)
+    frac = (hf - sector).astype(f32)
+    fs = (s.astype(f64) / 255.0).astype(f32)
+    vf = v.astype(f64)
+
+    def level(x):
+        return np.clip(np.round(vf * x), 0, 255).astype(np.uint8)
+
+    p = level(1.0 - fs.astype(f64))
+    q = level(1.0 - (fs * frac).astype(f64))
+    t = level(1.0 - fs.astype(f64) * (1.0 - frac.astype(f64)))
+    sel = sector.astype(np.int64) % 6
+    rgb = np.stack([np.choose(sel, [v, q, p, p, t, v]), np.choose(sel, [t, v, v, q, p, p]),
+                    np.choose(sel, [p, p, t, v, v, q])], axis=-1)
+    return np.where((s == 0)[..., None], v[..., None], rgb)
+
+
+def _band_luts(img: np.ndarray, lut_of) -> np.ndarray:
+    """(H, W, 3) uint8 through a 256-entry table a channel, each made by
+    ``lut_of`` from that channel's histogram and clipped to 0..255 (PIL's
+    ``point`` with the tables of ``ImageOps``)."""
+    out = np.empty_like(img)
+    for c in range(img.shape[-1]):
+        lut = np.clip(lut_of(np.bincount(img[..., c].ravel(), minlength=256)), 0, 255).astype(np.uint8)
+        out[..., c] = lut[img[..., c]]
+    return out
+
+
+def _autocontrast_lut(hist: np.ndarray) -> np.ndarray:
+    """``ImageOps.autocontrast``'s table (no cutoff): the lowest and highest
+    values present stretched to 0 and 255 in float64, truncated."""
+    present = np.flatnonzero(hist)
+    if present.size == 0 or present[-1] <= present[0]:
+        return np.arange(256)
+    lo, hi = int(present[0]), int(present[-1])
+    scale = 255.0 / (hi - lo)
+    offset = -lo * scale
+    return np.clip((np.arange(256) * scale + offset).astype(np.int64), 0, 255)
+
+
+def _equalize_lut(hist: np.ndarray) -> np.ndarray:
+    """``ImageOps.equalize``'s table: the running count from half a step,
+    integer-divided by the step (the count less the top value's, over 255)."""
+    present = hist[hist > 0]
+    if present.size <= 1:
+        return np.arange(256)
+    step = (int(present.sum()) - int(present[-1])) // 255
+    if not step:
+        return np.arange(256)
+    return (step // 2 + np.concatenate([[0], np.cumsum(hist)[:-1]])) // step
+
+
+def _pil_image():
+    """PIL's ``Image`` module, imported at the call: the affine transforms
+    resample through it (its nearest-neighbour paths for a shift, a
+    fixed-point and a float affine map), and its absence is named."""
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise ImportError("Rotate, RandomShear and RandomTranslate resample through PIL (Pillow), which is not "
+                          "installed") from e
+    return Image
 
 
 @dataclasses.dataclass
@@ -484,6 +607,192 @@ class KittiCrop:
         return sample
 
 
+_IMAGENET_FILL = (124, 116, 104)  # the image's fill where a rotation or an affine map brings in a border
+
+
+def _affine_sample(sample, warp):
+    """``warp`` (a PIL image -> its rotated or affinely mapped image, nearest
+    neighbour) over the image, filled with ``_IMAGENET_FILL``, and over
+    depth and validity as float32 "F" images filled with 0, so the borders
+    it brings in drop out of the loss."""
+    Image = _pil_image()
+    sample["image"] = np.asarray(warp(Image.fromarray(sample["image"]), _IMAGENET_FILL))
+    for k in ("depth", "validity"):
+        if k in sample:
+            arr = sample[k]
+            sample[k] = np.asarray(warp(Image.fromarray(arr.astype(np.float32)), 0.0)).astype(arr.dtype)
+    return sample
+
+
+@dataclasses.dataclass
+class Rotate:
+    """Random rotation by +-``angle`` (or a uniform draw from a range),
+    nearest neighbour through PIL; sets ``sample["rotation"]``."""
+
+    angle: float | tuple[float, float] = 5.0
+    prob: float = 0.5
+
+    def __call__(self, sample, rng):
+        if rng.random() > self.prob:
+            return sample
+        if isinstance(self.angle, (int, float)):
+            a = float(rng.choice([-1.0, 1.0])) * self.angle
+        else:
+            a = float(rng.uniform(self.angle[0], self.angle[1]))
+        Image = _pil_image()
+        sample = _affine_sample(sample, lambda im, fill: im.rotate(a, resample=Image.NEAREST, fillcolor=fill))
+        sample["rotation"] = a
+        return sample
+
+
+@dataclasses.dataclass
+class _LevelPhotometric:
+    """The standalone photometric transforms: ``level`` is log2 of
+    ``ImageEnhance``'s factor, a scalar or a uniform draw from a range."""
+
+    level: float | tuple[float, float] = (-0.5, 0.5)
+    prob: float = 0.5
+
+    def _factor(self, rng) -> float:
+        if isinstance(self.level, (int, float)):
+            return 2.0 ** float(self.level)
+        return 2.0 ** float(rng.uniform(self.level[0], self.level[1]))
+
+    def __call__(self, sample, rng):
+        if rng.random() > self.prob:
+            return sample
+        img = sample["image"]
+        sample["image"] = _blend(self._degenerate(img), img, self._factor(rng))
+        return sample
+
+
+class RandomSaturation(_LevelPhotometric):
+    """``ImageEnhance.Color``: towards or away from the grey image."""
+
+    def _degenerate(self, img):
+        return _grey(img)[..., None]
+
+
+class RandomSharpness(_LevelPhotometric):
+    """``ImageEnhance.Sharpness``: towards or away from the SMOOTH-filtered
+    image."""
+
+    def _degenerate(self, img):
+        return _smooth(img)
+
+
+class RandomBrightness(_LevelPhotometric):
+    """``ImageEnhance.Brightness``: towards or away from black."""
+
+    def _degenerate(self, img):
+        return np.zeros((), np.uint8)
+
+
+class RandomContrast(_LevelPhotometric):
+    """``ImageEnhance.Contrast``: towards or away from the grey image's
+    mean, rounded."""
+
+    def _degenerate(self, img):
+        grey = _grey(img)
+        return np.asarray(int(int(grey.sum(dtype=np.int64)) / grey.size + 0.5), np.uint8)
+
+
+@dataclasses.dataclass
+class RandomColor:
+    """Random hue rotation by ``level`` of the full cycle, in PIL's HSV
+    (the hue shifted by ``int(level * 255)`` modulo 256)."""
+
+    level: float | tuple[float, float] = (-0.05, 0.05)
+    prob: float = 0.5
+
+    def __call__(self, sample, rng):
+        if rng.random() > self.prob:
+            return sample
+        if isinstance(self.level, (int, float)):
+            f = float(self.level)
+        else:
+            f = float(rng.uniform(self.level[0], self.level[1]))
+        hsv = _rgb_to_hsv(sample["image"])
+        hsv[..., 0] = (hsv[..., 0].astype(np.int16) + int(f * 255)) % 256
+        sample["image"] = _hsv_to_rgb(hsv)
+        return sample
+
+
+@dataclasses.dataclass
+class RandomInvert:
+    prob: float = 0.5
+
+    def __call__(self, sample, rng):
+        if rng.random() > self.prob:
+            return sample
+        sample["image"] = 255 - sample["image"]
+        return sample
+
+
+@dataclasses.dataclass
+class RandomAutoContrast:
+    """Per-channel histogram stretch (``ImageOps.autocontrast``)."""
+
+    prob: float = 0.5
+
+    def __call__(self, sample, rng):
+        if rng.random() > self.prob:
+            return sample
+        sample["image"] = _band_luts(sample["image"], _autocontrast_lut)
+        return sample
+
+
+def _magnitude(magnitude, rng) -> float:
+    if isinstance(magnitude, (int, float)):
+        return float(magnitude) * float(rng.choice([-1.0, 1.0]))
+    return float(rng.uniform(magnitude[0], magnitude[1]))
+
+
+def _affine(coeffs):
+    Image = _pil_image()
+
+    def warp(im, fill):
+        return im.transform(im.size, Image.AFFINE, coeffs, resample=Image.NEAREST, fillcolor=fill)
+
+    return warp
+
+
+@dataclasses.dataclass
+class RandomShear:
+    """Random horizontal or vertical shear by ``magnitude`` (+-a scalar, or
+    a uniform draw from a range), nearest neighbour through PIL."""
+
+    magnitude: float | tuple[float, float] = (-0.2, 0.2)
+    prob: float = 0.5
+    horizontal: bool = True
+
+    def __call__(self, sample, rng):
+        if rng.random() > self.prob:
+            return sample
+        m = _magnitude(self.magnitude, rng)
+        coeffs = (1, m, 0, 0, 1, 0) if self.horizontal else (1, 0, 0, m, 1, 0)
+        return _affine_sample(sample, _affine(coeffs))
+
+
+@dataclasses.dataclass
+class RandomTranslate:
+    """Random shift by ``magnitude`` of the width (or height), truncated to
+    whole pixels, through PIL."""
+
+    magnitude: float | tuple[float, float] = (-0.1, 0.1)
+    prob: float = 0.5
+    horizontal: bool = True
+
+    def __call__(self, sample, rng):
+        if rng.random() > self.prob:
+            return sample
+        m = _magnitude(self.magnitude, rng)
+        h, w = sample["image"].shape[:2]
+        dx = int(m * w) if self.horizontal else 0
+        dy = 0 if self.horizontal else int(m * h)
+        return _affine_sample(sample, _affine((1, 0, -dx, 0, 1, -dy)))
+
+
 @dataclasses.dataclass
 class PanoCrop:
     """Trim the polar bands of an equirectangular panorama: drop
@@ -549,3 +858,128 @@ class AnnotationMask:
             m &= cm
         sample["depth_mask"] = m
         return sample
+
+
+@dataclasses.dataclass
+class Normalize:
+    """ImageNet-style normalisation into ``image_norm`` (float32 ``(x / 255
+    - mean) / std``); ``image`` stays as it is."""
+
+    mean: tuple[float, float, float]
+    std: tuple[float, float, float]
+
+    def __call__(self, sample, rng):
+        x = sample["image"].astype(np.float32) / 255.0
+        sample["image_norm"] = (x - np.asarray(self.mean, np.float32)) / np.asarray(self.std, np.float32)
+        return sample
+
+
+@dataclasses.dataclass
+class RandomSolarize:
+    """Values at or above ``threshold`` inverted (``ImageOps.solarize``)."""
+
+    prob: float = 0.1
+    threshold: int = 128
+
+    def __call__(self, sample, rng):
+        if rng.random() >= self.prob:
+            return sample
+        img = sample["image"]
+        sample["image"] = np.where(img < self.threshold, img, 255 - img).astype(np.uint8)
+        return sample
+
+
+@dataclasses.dataclass
+class RandomPosterize:
+    """The top ``bits`` of each value kept (``ImageOps.posterize``)."""
+
+    prob: float = 0.1
+    bits: int = 4
+
+    def __call__(self, sample, rng):
+        if rng.random() >= self.prob:
+            return sample
+        sample["image"] = sample["image"] & np.uint8(256 - 2 ** (8 - self.bits))
+        return sample
+
+
+@dataclasses.dataclass
+class RandomEqualize:
+    """Per-channel histogram equalisation (``ImageOps.equalize``)."""
+
+    prob: float = 0.1
+
+    def __call__(self, sample, rng):
+        if rng.random() >= self.prob:
+            return sample
+        sample["image"] = _band_luts(sample["image"], _equalize_lut)
+        return sample
+
+
+@dataclasses.dataclass
+class RandomMasking:
+    """Zero ``mask_ratio`` of the image's area in random square patches."""
+
+    prob: float = 0.2
+    mask_ratio: float = 0.1
+    patch: int = 16
+
+    def __call__(self, sample, rng):
+        if rng.random() >= self.prob:
+            return sample
+        img = sample["image"].copy()
+        h, w = img.shape[:2]
+        n = int(self.mask_ratio * (h * w) / self.patch**2)
+        for _ in range(n):
+            y = int(rng.integers(0, max(1, h - self.patch)))
+            x = int(rng.integers(0, max(1, w - self.patch)))
+            img[y : y + self.patch, x : x + self.patch] = 0
+        sample["image"] = img
+        return sample
+
+
+@dataclasses.dataclass
+class RandomFiller:
+    """Fill the image where validity is False with noise, black or white
+    (one mode a call, drawn from ``modes``)."""
+
+    modes: tuple[str, ...] = ("noise", "black", "white")
+
+    def __call__(self, sample, rng):
+        v = sample.get("validity")
+        if v is None or v.all():
+            return sample
+        img = sample["image"].copy()
+        mode = self.modes[int(rng.integers(0, len(self.modes)))]
+        inv = ~v
+        if mode == "noise":
+            img[inv] = rng.integers(0, 255, (int(inv.sum()), 3), dtype=np.uint8)
+        elif mode == "white":
+            img[inv] = 255
+        else:
+            img[inv] = 0
+        sample["image"] = img
+        return sample
+
+
+def masked_nearest_fill(depth: np.ndarray, mask: np.ndarray, iters: int = 2) -> np.ndarray:
+    """Spread valid depth into invalid 4-neighbours ``iters`` times: each
+    newly filled pixel takes the mean of its valid neighbours; the
+    neighbours wrap around the borders (``np.roll``)."""
+    d = depth.copy()
+    m = mask.copy()
+    for _ in range(iters):
+        if m.all():
+            break
+        acc = np.zeros_like(d)
+        cnt = np.zeros_like(d)
+        for a in (0, 1):
+            for s in (1, -1):
+                sm = np.roll(m, s, axis=a)
+                acc += np.where(sm, np.roll(d, s, axis=a), 0.0)
+                cnt += sm.astype(d.dtype)
+        fill = np.divide(acc, np.maximum(cnt, 1), out=np.zeros_like(d))
+        new = ~m & (cnt > 0)
+        d[new] = fill[new]
+        m = m | new
+    return d

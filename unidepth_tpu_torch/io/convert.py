@@ -136,6 +136,20 @@ def _attention_block(out: dict, prefix: str, p: Mapping) -> None:
             out[f"{prefix}.{name}.gamma"] = _t(p[name]["gamma"])
 
 
+def _attention_decoder_block(out: dict, prefix: str, p: Mapping) -> None:
+    """JAX ``AttentionDecoderBlock`` parameters -> the port's keys (the
+    block's names are the same on both sides)."""
+    for part in ("ca", "sa"):
+        _ln(out, f"{prefix}.norm_{part}", p[f"norm_{part}"])
+        _ln(out, f"{prefix}.norm_ctx_{part}", p[f"norm_ctx_{part}"])
+        for name in ("kv", "q", "out"):
+            _dense(out, f"{prefix}.{name}_{part}", p[f"{name}_{part}"])
+    _mlp(out, f"{prefix}.mlp", p["mlp"])
+    for name in ("ls1", "ls2", "ls3"):
+        if name in p:
+            out[f"{prefix}.{name}.gamma"] = _t(p[name]["gamma"])
+
+
 def encoder_state_dict(p: Mapping, pre: str = "") -> dict[str, torch.Tensor]:
     """JAX ``DinoViT`` parameters -> the port's ``DinoViT`` state_dict (keys
     prefixed with ``pre``): the register tokens where it has them, and a

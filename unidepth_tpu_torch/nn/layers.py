@@ -100,17 +100,24 @@ class LayerScale(nn.Module):
 
 
 class MLP(nn.Module):
-    """LN -> Linear -> exact GELU -> Linear."""
+    """LN -> Linear -> exact GELU -> Linear; ``gated``: SwiGLU, with
+    ``proj1`` giving the value and the gate halves of a hidden width of
+    ``dim * int(expansion * 2 / 3)``."""
 
-    def __init__(self, dim: int, expansion: int = 4, output_dim: int | None = None):
+    def __init__(self, dim: int, expansion: int = 4, output_dim: int | None = None, gated: bool = False):
         super().__init__()
-        hidden = int(dim * expansion)
+        self.gated = gated
+        hidden = int(dim * (int(expansion * 2 / 3) if gated else expansion))
         self.norm = nn.LayerNorm(dim, eps=1e-5)
-        self.proj1 = nn.Linear(dim, hidden)
+        self.proj1 = nn.Linear(dim, 2 * hidden if gated else hidden)
         self.proj2 = nn.Linear(hidden, output_dim if output_dim is not None else dim)
 
     def forward(self, x):
-        return self.proj2(F.gelu(self.proj1(layer_norm(self.norm, x))))
+        x = self.proj1(layer_norm(self.norm, x))
+        if self.gated:
+            value, gate = x.chunk(2, dim=-1)
+            return self.proj2(value * F.silu(gate))
+        return self.proj2(F.gelu(x))
 
 
 class AttentionBlock(nn.Module):
@@ -178,3 +185,68 @@ class AttentionLayer(nn.Module):
         for layer in self.layers:
             x = layer(x, context=context, pos_embed=pos_embed, pos_embed_context=pos_embed_context)
         return x
+
+
+class AttentionDecoderBlock(nn.Module):
+    """Cross-attention (one head unless ``single_head_ca`` is False), then
+    self-attention, then the MLP, each a residual with an optional
+    LayerScale (``ls1``, ``ls2``, ``ls3``). Each attention has its own
+    pre-LNs of the queries and of the context (``norm_{ca,sa}``,
+    ``norm_ctx_{ca,sa}``; the self-attention's two normalise the same
+    ``x``) and its own ``kv``, ``q`` and ``out`` projections. ``pos_embed``
+    is added to the queries of both, ``pos_embed_context`` to the
+    cross-attention's keys; ``attn_bias`` goes to both. ``cosine``
+    normalises q and k (norms clipped at 1e-12). Both run the plain
+    ``sdpa``, as the JAX block does; no shipped model builds this block."""
+
+    def __init__(
+        self,
+        dim: int,
+        num_heads: int = 4,
+        expansion: int = 4,
+        cosine: bool = False,
+        gated: bool = False,
+        layer_scale: float = 1.0,
+        context_dim: int | None = None,
+        single_head_ca: bool = True,
+    ):
+        super().__init__()
+        context_dim = context_dim or dim
+        self.num_heads = num_heads
+        self.ca_heads = 1 if single_head_ca else num_heads
+        self.cosine = cosine
+        for prefix, ctx_dim in (("ca", context_dim), ("sa", dim)):
+            setattr(self, f"norm_{prefix}", nn.LayerNorm(dim, eps=1e-5))
+            setattr(self, f"norm_ctx_{prefix}", nn.LayerNorm(ctx_dim, eps=1e-5))
+            setattr(self, f"kv_{prefix}", nn.Linear(ctx_dim, 2 * dim))
+            setattr(self, f"q_{prefix}", nn.Linear(dim, dim))
+            setattr(self, f"out_{prefix}", nn.Linear(dim, dim))
+        self.mlp = MLP(dim, expansion=expansion, gated=gated)
+        scales = [LayerScale(dim, layer_scale) if layer_scale > 0.0 else None for _ in range(3)]
+        self.ls1, self.ls2, self.ls3 = scales
+
+    def _attend(self, prefix, y, ctx, heads, pos_q=None, pos_k=None, attn_bias=None):
+        yn = layer_norm(getattr(self, f"norm_{prefix}"), y)
+        cn = layer_norm(getattr(self, f"norm_ctx_{prefix}"), ctx)
+        k, v = getattr(self, f"kv_{prefix}")(cn).chunk(2, dim=-1)
+        q = split_heads(getattr(self, f"q_{prefix}")(yn), heads)
+        k, v = split_heads(k, heads), split_heads(v, heads)
+        if pos_q is not None:
+            q = q + split_heads(pos_q.to(q.dtype), heads)
+        if pos_k is not None:
+            k = k + split_heads(pos_k.to(k.dtype), heads)
+        if self.cosine:
+            q = q / torch.linalg.norm(q, dim=-1, keepdim=True).clamp_min(1e-12)
+            k = k / torch.linalg.norm(k, dim=-1, keepdim=True).clamp_min(1e-12)
+        return getattr(self, f"out_{prefix}")(merge_heads(sdpa(q, k, v, bias=attn_bias)))
+
+    @staticmethod
+    def _scaled(ls, y):
+        return ls(y) if ls is not None else y
+
+    def forward(self, x, context=None, pos_embed=None, pos_embed_context=None, attn_bias=None):
+        context = x if context is None else context
+        x = x + self._scaled(self.ls1, self._attend("ca", x, context, self.ca_heads, pos_embed, pos_embed_context,
+                                                    attn_bias))
+        x = x + self._scaled(self.ls2, self._attend("sa", x, x, self.num_heads, pos_embed, None, attn_bias))
+        return x + self._scaled(self.ls3, self.mlp(x))
