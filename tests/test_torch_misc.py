@@ -1,6 +1,6 @@
 """The port's small helpers against the JAX package's on seeded numpy inputs
 (fp32, CPU): the stacking functions, the pad-aware eval helpers, the
-profiler, the PLY writer and the positional encodings.
+PLY writer and the positional encodings.
 
 Tolerances: the stacking reductions, ``remove_padding`` and the PLY bytes
 are exact (the same float32 operations, or formatting of the same values);
@@ -94,25 +94,6 @@ def test_ssi_helper_matches_jax():
     want = jmisc.ssi_helper(jnp.asarray(x), jnp.asarray(target))
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5, atol=1e-6)
-
-
-def test_profile_method_and_profile_method_context(capsys):
-    calls = []
-
-    class M:
-        @tmisc.profile_method(verbose=True)
-        def fwd(self, x):
-            calls.append(x)
-            return torch.as_tensor(x) + 1
-
-    m = M()
-    for i in range(26):
-        assert int(m.fwd(i)) == i + 1
-    assert calls == list(range(26)) and M.fwd.__name__ == "fwd"
-    assert "fwd: p50=" in capsys.readouterr().out  # the 26th call prints the percentiles of calls 6-26
-    with tmisc.ProfileMethod(None, "block") as p:
-        sum(range(1000))
-    assert p.name == "block" and p.dt >= 0.0
 
 
 @pytest.mark.parametrize("colors", [False, True], ids=["points", "coloured"])

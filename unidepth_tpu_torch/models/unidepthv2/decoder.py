@@ -24,6 +24,7 @@ from unidepth_tpu_torch.nn.layers import MLP, AttentionBlock, AttentionLayer, la
 from unidepth_tpu_torch.nn.upsample import ResUpsampleBil
 from unidepth_tpu_torch.ops.fourier import generate_fourier_features
 from unidepth_tpu_torch.ops.resize import flat_interpolate, resize
+from unidepth_tpu_torch.utils import tracing
 
 
 def _to_nchw(tokens: torch.Tensor, h: int, w: int) -> torch.Tensor:
@@ -126,18 +127,26 @@ class DepthHead(nn.Module):
         y = resize(lr(y), out_hw, mode="bilinear", align_corners=True, channel_last=False)
         return hr(y)
 
-    def forward(self, features, rays_hr, shapes, original_shapes, confidence: bool = True):
-        """features: 4 x (B, N, hidden); rays_hr (B, H*W, 3). Returns NCHW
-        log-depth and log-confidence (None unless ``confidence``) at
-        ``original_shapes`` and the (B, N, hidden) initial latents."""
-        h, w = shapes
+    def prompt(self, features, rays_hr, shapes, original_shapes):
+        """features: 4 x (B, N, hidden); rays_hr (B, H*W, 3). The features
+        conditioned on the rays' embedding, and the (B, N, hidden) initial
+        latents."""
         dtype = self.to_latents.weight.dtype
         rays_embedding = self.embed_rays(rays_hr, shapes, original_shapes).to(dtype)
         conditioned = [p(f, context=rays_embedding) for p, f in zip(self.prompt_camera, features)]
-        init_latents = self.to_latents(conditioned[0])
+        return conditioned, self.to_latents(conditioned[0])
+
+    def pyramid(self, conditioned, init_latents, shapes):
+        """The NCHW latents of the last level of the feature pyramid."""
+        h, w = shapes
         latents = _to_nchw(init_latents, h, w)
         for i, up in enumerate(self.ups):
             latents = up(latents + self.process_features[i](_to_nchw(conditioned[i + 1], h, w)))
+        return latents
+
+    def heads(self, latents, original_shapes, confidence: bool = True):
+        """NCHW log-depth and log-confidence (None unless ``confidence``) at
+        ``original_shapes``."""
         (depth_mlp,) = self.depth_mlp.values()
         logdepth = self._head(latents, depth_mlp, self.to_depth_lr, self.to_depth_hr, original_shapes)
         logconf = None
@@ -145,7 +154,7 @@ class DepthHead(nn.Module):
             logconf = self._head(
                 latents, self.confidence_mlp, self.to_confidence_lr, self.to_confidence_hr, original_shapes
             )
-        return logdepth, logconf, init_latents
+        return logdepth, logconf
 
 
 class _Adapters(nn.Module):
@@ -198,19 +207,27 @@ class Decoder(nn.Module):
         ``confidence=False`` skips the confidence head."""
         H, W = image_shape
         b, gh, gw, _ = features[0].shape
-        feats = [a(f.reshape(b, gh * gw, -1)) for a, f in zip(self.input_adapter.input_adapters, features)]
-        cam_tokens = [a(t) for a, t in zip(self.camera_token_adapter.input_adapters, cls_tokens)]
-        intrinsics, rays = self.run_camera(torch.cat(cam_tokens, dim=1), (H, W))
+        device = features[0].device
+        head = self.depth_layer
+        with tracing.span("unidepth.decoder.camera", device):
+            cam_tokens = [a(t) for a, t in zip(self.camera_token_adapter.input_adapters, cls_tokens)]
+            intrinsics, rays = self.run_camera(torch.cat(cam_tokens, dim=1), (H, W))
         if rays_gt is not None:
             rays = rays_gt
-        logdepth, logconf, depth_features = self.depth_layer(feats, rays, (gh, gw), (H, W), confidence)
-        radius = torch.exp(logdepth.float().clamp(-8.0, 8.0) + 2.0).permute(0, 2, 3, 1)
-        out = {
-            "radius": radius,  # (B, H, W, 1)
-            "depth_features": depth_features,  # (B, N, hidden)
-            "intrinsics": intrinsics,  # (B, 3, 3)
-            "rays": rays,  # (B, H*W, 3)
-        }
-        if logconf is not None:
-            out["confidence"] = torch.exp(logconf.float().clamp(-8.0, 8.0)).permute(0, 2, 3, 1)
+        with tracing.span("unidepth.decoder.prompt", device):
+            feats = [a(f.reshape(b, gh * gw, -1)) for a, f in zip(self.input_adapter.input_adapters, features)]
+            conditioned, depth_features = head.prompt(feats, rays, (gh, gw), (H, W))
+        with tracing.span("unidepth.decoder.pyramid", device):
+            latents = head.pyramid(conditioned, depth_features, (gh, gw))
+        with tracing.span("unidepth.decoder.heads", device):
+            logdepth, logconf = head.heads(latents, (H, W), confidence)
+            radius = torch.exp(logdepth.float().clamp(-8.0, 8.0) + 2.0).permute(0, 2, 3, 1)
+            out = {
+                "radius": radius,  # (B, H, W, 1)
+                "depth_features": depth_features,  # (B, N, hidden)
+                "intrinsics": intrinsics,  # (B, 3, 3)
+                "rays": rays,  # (B, H*W, 3)
+            }
+            if logconf is not None:
+                out["confidence"] = torch.exp(logconf.float().clamp(-8.0, 8.0)).permute(0, 2, 3, 1)
         return out

@@ -36,6 +36,7 @@ from unidepth_tpu_torch.nn.layers import LayerScale
 from unidepth_tpu_torch.nn.upsample import ResidualConvUnit
 from unidepth_tpu_torch.ops.quant import quantizable_linears
 from unidepth_tpu_torch.ops.resize import resize
+from unidepth_tpu_torch.utils import tracing
 from unidepth_tpu_torch.utils.constants import IMAGENET_DATASET_MEAN, IMAGENET_DATASET_STD
 
 
@@ -321,6 +322,32 @@ class UniDepthV2(ServingPrecisionMixin, nn.Module):
         channel-last float32 outputs at the input resolution; ``outputs``
         selects a subset of INFER_OUTPUTS (leaving out 'confidence' skips
         the confidence head)."""
+        device = next(self.parameters()).device
+        with tracing.span("unidepth.infer", device):
+            with tracing.span("unidepth.infer.prepare", device):
+                x, rays_gt, key = self._prepare(rgb, camera, normalize, outputs)
+            _, _, pads, padded, (new_h, new_w), factor, _, _, out_key = key
+            with tracing.span("unidepth.infer.encoder", device):
+                feats, cls_tokens = self._serving_encoder()(x)
+            want_conf = out_key is None or "confidence" in out_key
+            with tracing.span("unidepth.infer.decoder", device):
+                out = self.pixel_decoder(feats, cls_tokens, (new_h, new_w), rays_gt=rays_gt, confidence=want_conf)
+            with tracing.span("unidepth.infer.postprocess", device):
+                rays = out["rays"].reshape(-1, new_h, new_w, 3).float()
+                core = {
+                    "points": rays * out["radius"],
+                    "rays": rays,
+                    "confidence": out.get("confidence"),
+                    "intrinsics": out["intrinsics"],
+                    "depth_features": out["depth_features"],
+                }
+                return self._postprocess(core, pads, padded, factor, out_key)
+
+    def _prepare(self, rgb, camera, normalize, outputs):
+        """``infer``'s input on the model's device: the image uploaded,
+        normalised, padded and resized to the network's shape in the model's
+        dtype; the rays of a given camera at that shape (or None); the shape
+        key (``serving_shape_key``)."""
         p = next(self.parameters())
         device, dtype = p.device, p.dtype
         rgb = torch.as_tensor(np.asarray(rgb) if not torch.is_tensor(rgb) else rgb)
@@ -338,7 +365,7 @@ class UniDepthV2(ServingPrecisionMixin, nn.Module):
                 camera = camera.expand(B)
 
         key = self.serving_shape_key((H, W), camera is not None, normalize, outputs)
-        _, _, pads, padded, (new_h, new_w), factor, _, _, out_key = key
+        _, _, pads, padded, (new_h, new_w), factor, _, _, _ = key
         pl, pr, pt, pb = pads
         x = rgb
         if normalize:
@@ -352,19 +379,7 @@ class UniDepthV2(ServingPrecisionMixin, nn.Module):
         if camera is not None:
             cam = camera.crop(-pl, -pt).resize(factor)
             rays_gt = cam.get_rays(new_h, new_w, eps=1e-4).reshape(B, new_h * new_w, 3)
-
-        feats, cls_tokens = self._serving_encoder()(x.to(dtype))
-        want_conf = out_key is None or "confidence" in out_key
-        out = self.pixel_decoder(feats, cls_tokens, (new_h, new_w), rays_gt=rays_gt, confidence=want_conf)
-        rays = out["rays"].reshape(-1, new_h, new_w, 3).float()
-        core = {
-            "points": rays * out["radius"],
-            "rays": rays,
-            "confidence": out.get("confidence"),
-            "intrinsics": out["intrinsics"],
-            "depth_features": out["depth_features"],
-        }
-        return self._postprocess(core, pads, padded, factor, out_key)
+        return x.to(dtype), rays_gt, key
 
     def encode_decode(self, image, rays_gt=None, generator: torch.Generator | None = None) -> dict:
         """The train forward on a normalised batch (B, H, W, 3), H and W

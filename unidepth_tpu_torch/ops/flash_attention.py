@@ -41,7 +41,9 @@ designs).
 A CPU tensor takes the plain version. A CUDA tensor launches a kernel, or
 raises when it cannot: nothing falls back. ``launches`` on each wrapper
 counts the kernel launches it made; ``hopper_launches`` counts those of the
-Hopper body among them. Both count forward launches only.
+Hopper body among them. Both count forward launches only. Each launch runs
+in the host span ``unidepth.kernel.K1``, ``K3`` or ``K4``
+(``utils/tracing.py``).
 
 Gradients: each kernel route is a ``torch.autograd.Function`` whose forward
 is the launch and whose backward (``_flash_attention_qkv_bwd``,
@@ -58,6 +60,7 @@ from __future__ import annotations
 import torch
 
 from unidepth_tpu_torch.ops import _cuda
+from unidepth_tpu_torch.utils import tracing
 
 __all__ = [
     "flash_attention",
@@ -168,7 +171,8 @@ class _FlashAttentionQKV(torch.autograd.Function):
     def forward(ctx, qkv, num_heads, scale):
         ctx.save_for_backward(qkv)
         ctx.num_heads, ctx.scale = num_heads, scale
-        return _qkv_launch(qkv, num_heads, scale)
+        with tracing.span("unidepth.kernel.K1"):
+            return _qkv_launch(qkv, num_heads, scale)
 
     @staticmethod
     def backward(ctx, g):
@@ -224,7 +228,8 @@ class _FlashAttention(torch.autograd.Function):
     def forward(ctx, q, k, v, scale):
         ctx.save_for_backward(q, k, v)
         ctx.scale = scale
-        return _flash_launch(q, k, v, scale)
+        with tracing.span("unidepth.kernel.K3"):
+            return _flash_launch(q, k, v, scale)
 
     @staticmethod
     def backward(ctx, g):
@@ -299,7 +304,8 @@ class _FlashAttentionPacked(torch.autograd.Function):
     def forward(ctx, q, k, v, num_heads, scale):
         ctx.save_for_backward(q, k, v)
         ctx.num_heads, ctx.scale = num_heads, scale
-        return _packed_launch(q, k, v, num_heads, scale)
+        with tracing.span("unidepth.kernel.K4"):
+            return _packed_launch(q, k, v, num_heads, scale)
 
     @staticmethod
     def backward(ctx, g):

@@ -23,7 +23,8 @@ fp32), which needs C % 32 == 0 and F % 128 == 0.
 A CPU tensor takes the plain version. A CUDA tensor launches a kernel or
 raises: nothing falls back. ``ln_dense.launches`` counts calls that
 launched a kernel (a Hopper call counts once), ``ln_dense.hopper_launches``
-those that ran the Hopper body; both count forward launches only.
+those that ran the Hopper body; both count forward launches only. Each call's
+launches run in the host span ``unidepth.kernel.K2`` (``utils/tracing.py``).
 
 The kernel route is a ``torch.autograd.Function``: its backward,
 ``_ln_dense_bwd``, is the VJP of ``ln_dense_plain`` recomputed from the
@@ -37,6 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from unidepth_tpu_torch.ops import _cuda
+from unidepth_tpu_torch.utils import tracing
 
 __all__ = ["ln_dense", "ln_dense_plain"]
 
@@ -86,7 +88,8 @@ class _LnDense(torch.autograd.Function):
     def forward(ctx, x, weight, bias, gamma, beta, eps, activation):
         ctx.save_for_backward(x, weight, bias, gamma, beta)
         ctx.eps, ctx.activation = eps, activation
-        return _ln_dense_launch(x, weight, bias, gamma, beta, eps, activation)
+        with tracing.span("unidepth.kernel.K2"):
+            return _ln_dense_launch(x, weight, bias, gamma, beta, eps, activation)
 
     @staticmethod
     def backward(ctx, g):

@@ -1,15 +1,10 @@
 """Small helpers (counterpart of unidepth_tpu/utils/misc.py, channel-last):
 ImageNet normalisation, the encoder's stacking functions, the pad-aware
 eval helpers (``remove_padding``, ``match_gt``, ``match_intrinsics``,
-``ssi_helper``) and a wall-clock profiler with percentile statistics."""
+``ssi_helper``)."""
 
 from __future__ import annotations
 
-import functools
-import time
-from collections import defaultdict
-
-import numpy as np
 import torch
 
 from unidepth_tpu_torch.ops.resize import resize
@@ -28,8 +23,6 @@ __all__ = [
     "match_intrinsics",
     "remove_padding",
     "ssi_helper",
-    "profile_method",
-    "ProfileMethod",
 ]
 
 
@@ -122,50 +115,3 @@ def ssi_helper(x: torch.Tensor, target: torch.Tensor):
     from unidepth_tpu_torch.training.losses import ssi_helper as _ssi
 
     return _ssi(x, target)
-
-
-class ProfileMethod:
-    """Context manager timing its body on the host clock: ``dt``, seconds."""
-
-    def __init__(self, model, name, verbose=False):
-        self.name = name
-        self.verbose = verbose
-
-    def __enter__(self):
-        self.t0 = time.perf_counter()
-        return self
-
-    def __exit__(self, *a):
-        self.dt = time.perf_counter() - self.t0
-
-
-_TIMINGS: dict[str, list[float]] = defaultdict(list)
-
-
-def profile_method(verbose: bool = False):
-    """Decorator timing each call on the host clock, up to the end of the
-    card's work when the result is a CUDA tensor; with ``verbose``, after
-    25 calls it prints the median and 90th percentile in ms of every call
-    past the first five."""
-
-    def deco(fn):
-        @functools.wraps(fn)
-        def wrapper(*args, **kwargs):
-            t0 = time.perf_counter()
-            out = fn(*args, **kwargs)
-            if torch.is_tensor(out) and out.is_cuda:
-                torch.cuda.synchronize(out.device)
-            dt = time.perf_counter() - t0
-            _TIMINGS[fn.__name__].append(dt)
-            times = _TIMINGS[fn.__name__]
-            if verbose and len(times) > 25:
-                arr = np.asarray(times[5:]) * 1000
-                print(
-                    f"{fn.__name__}: p50={np.percentile(arr, 50):.1f}ms "
-                    f"p90={np.percentile(arr, 90):.1f}ms n={len(arr)}"
-                )
-            return out
-
-        return wrapper
-
-    return deco
