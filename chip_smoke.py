@@ -32,7 +32,7 @@ fails (non-zero exit, no result line) without CUDA or outside a checkout.
    (16, 1369, 48) at B = 2 and (64, 1369, 48) at B = 8, ViT-S's (64, 1369,
    32), each held at the bf16 gates and timed in two turns against the
    mma.sync body of attention.cu (its C entry called directly) and SDPA.
-3. The kernels whose entry points are not a model path (K5-K7): K5
+3. K5, then the kernels whose entry points are not a model path (K6, K7): K5
    conv3x3_lowchannel at the V2 heads' hr conv shape, (8, 518, 518, 64 ->
    32) reflect, in bf16 (the Hopper body, conv3x3_wgmma.cu) and fp32 like
    the others, then ViT-B's and ViT-S's hr convs (48 -> 32, 32 -> 32), and
@@ -41,7 +41,11 @@ fails (non-zero exit, no result line) without CUDA or outside a checkout.
    the mma.sync body of conv3x3.cu at the hr shape, its C entry called
    directly, checked and timed in turns with the Hopper body
    (``mma_sync_ms``); then K5's entry alone (one call: 1 launch, on the
-   Hopper body). K6, the A/B harness of
+   Hopper body); then its fused head (``conv3x3_head``, the path of the V2
+   heads' hr tails: 64 -> 32, LeakyReLU, 1x1 to one channel) at the hr
+   shape, held to its plain version and to the bf16 modules, timed beside
+   the modules the model ran before it (F.pad reflect, cuDNN's conv,
+   LeakyReLU, the 1x1 conv: its ``library_ms``). K6, the A/B harness of
    scripts_torch/kernel_ab.py over ``base`` and one name per family M1-M9,
    and K7, the harness over ``bd`` and ``bd_lmxu``, at (8, 1370, 16 x 64)
    bf16, each variant held against its plain version in fp32 at the bf16
@@ -67,32 +71,32 @@ fails (non-zero exit, no result line) without CUDA or outside a checkout.
    weights (``init_params(seed=0)``), runs ``infer()`` on 8 seeded
    518x518 images, checks shapes, finiteness and depth > 0, checks
    that the forward launched K1 (flash_attention_qkv) 24 times, K2
-   (ln_dense) 24 times, K3 (flash_attention) 4 times, each of them on its
-   Hopper body, and K4 never, and
+   (ln_dense) 24 times, K3 (flash_attention) 4 times, K5 (the fused heads)
+   twice, each of them on its Hopper body, and K4 never, and
    holds depth against the same model run on the plain path in fp32 on the
    card (median relative error <= 1e-2). Then times depth-only ``infer()``
    in three rounds and prints each.
 5. The int8 serving path on the same model: ``set_serving_precision('int8')``
    quantizes the encoder from the fp32 masters that ``init_params`` kept,
    then ``infer()`` on the same images: shapes, finiteness and depth > 0;
-   launches K4 (flash_attention_packed) 24, K1 0, K2 0, K3 4, K3 and K4 on
-   the Hopper body; depth against
+   launches K4 (flash_attention_packed) 24, K1 0, K2 0, K3 4, K5 2, K3, K4
+   and K5 on the Hopper body; depth against
    the fp32 plain path at the JAX package's int8 bounds (mean relative
    error < 0.05, 99th percentile < 0.15, intrinsics relative error < 0.1,
    tests/test_quant.py). Then one forward under the stage mask (True, False,
-   True, False): launches K4 12, K1 12, K2 12, K3 4, every one on the
+   True, False): launches K4 12, K1 12, K2 12, K3 4, K5 2, every one on the
    Hopper body. Then times int8 depth-only ``infer()`` in three rounds.
 6. Builds UniDepthV2 ViT-B/14 from configs/config_v2_vitb14.json the same
    way (12 blocks, C = 768, 12 heads of 64; decoder hidden 384, 8 heads of
    48), runs ``infer()`` on the first 2 images: shapes, finiteness, depth
-   > 0; launches K1 12, K2 12, K3 4 (head dim 48), each on its Hopper
-   body, K4 never; depth against the fp32 plain path at the ViT-L gate
-   (median relative error <= 1e-2). Then times depth-only ``infer()`` at B
+   > 0; launches K1 12, K2 12, K3 4 (head dim 48), K5 2 (hr Cin 48), each
+   on its Hopper body, K4 never; depth against the fp32 plain path at the
+   ViT-L gate (median relative error <= 1e-2). Then times depth-only ``infer()`` at B
    = 8 in three rounds.
 7. UniDepthV2 ViT-S/14 from configs/config_v2_vits14.json the same way (12
    blocks, C = 384, 6 heads of 64; decoder hidden 256, 8 heads of 32):
-   launches K1 12, K2 12, K3 4 (head dim 32), each on its Hopper body, K4
-   never; the same checks and timing as ViT-B.
+   launches K1 12, K2 12, K3 4 (head dim 32), K5 2 (hr Cin 32), each on
+   its Hopper body, K4 never; the same checks and timing as ViT-B.
 8. UniDepthV1 from configs/config_v1_vitl14.json (DINOv2 ViT-L/14, max_cls
    stacking, the offset-0.1 pos-embed; decoder hidden 512, depths (3, 2,
    1)) and configs/config_v1_cnvnxtl.json (ConvNeXt-L, the same decoder),
@@ -164,9 +168,10 @@ fails (non-zero exit, no result line) without CUDA or outside a checkout.
    steps 3-5, host clock around a synchronize), images/s (16 a step) and
    the peak of ``torch.cuda.max_memory_allocated``, beside the card's name
    and power limit; (e) one validation under the EMA shadow after the steps
-   (``Trainer.validate``, 8 Dummy images at 476 x 630): K1 24, K2 24, K3 4
-   on the Hopper bodies, finite metrics, and the live bf16 weights and the
-   fp32 masters bitwise what they were before it. A ``{"train": ...}`` line
+   (``Trainer.validate``, 8 Dummy images at 476 x 630): K1 24, K2 24, K3 4,
+   K5 2 (the heads; none in the steps, under autograd) on the Hopper
+   bodies, finite metrics, and the live bf16 weights and the fp32 masters
+   bitwise what they were before it. A ``{"train": ...}`` line
    carries the figures.
 
 11. Evaluation (configs/config_v2_vitl14.json, random weights). (a) The six
@@ -176,13 +181,13 @@ fails (non-zero exit, no result line) without CUDA or outside a checkout.
    (atol ROUND_TRIP_ATOL pixels); a mixed ``BatchCamera`` of all 48 equals
    its members run one type at a time, bit for bit. (b) ``infer()`` of 8
    seeded 518 x 518 images prompted by a mixed ``BatchCamera`` (Pinhole,
-   Fisheye624, OpenCV, MEI, two each): K1 24, K2 24, K3 4 on the Hopper
-   bodies; depth against the fp32 plain path (median relative error <=
+   Fisheye624, OpenCV, MEI, two each): K1 24, K2 24, K3 4, K5 2 on the
+   Hopper bodies; depth against the fp32 plain path (median relative error <=
    1e-2); images/s. Then the 6-view surround, six pinhole cameras in one B =
    6 batch: the same launches, finite outputs, rays that differ between
    views. (c) ``validate()`` with the 3-D metrics on Dummy at 476 x 630, B =
    8, 4 batches: every key of DEPTH_METRICS plus chamfer and F1, finite; K1
-   24, K2 24, K3 4 a batch on the Hopper bodies; ms a batch (host clock,
+   24, K2 24, K3 4, K5 2 a batch on the Hopper bodies; ms a batch (host clock,
    second run); on one batch's depth maps the card's depth metrics against
    the CPU's (rtol EVAL_CPU_RTOL; the metrics that count pixels within one
    pixel a sample; the ssi-rescaled ones at SSI_CPU_TOL), and ``eval_3d`` on two samples' clouds
@@ -294,8 +299,8 @@ fails (non-zero exit, no result line) without CUDA or outside a checkout.
    ``main`` in this process on a folder of the demo image and two
    NuScenes-style frames of six seeded 900 x 1600 PNGs (13 images, 3
    batches of at most 8 in 2 size buckets, configs/config_v2_vitl14.json,
-   random weights): K1 24, K2 24, K3 4 a batch on the Hopper bodies; the 13
-   depth PNGs under the JAX CLI's names, each within SERVE_DEPTH_MM of
+   random weights): K1 24, K2 24, K3 4, K5 2 a batch on the Hopper bodies;
+   the 13 depth PNGs under the JAX CLI's names, each within SERVE_DEPTH_MM of
    ``clip(depth * 1000)`` of a direct ``infer()`` of the same batch;
    images/s. The command line on the demo image alone with ``--save-ply
    --save-panel`` as a subprocess: exit 0, a PLY of H * W vertices, an RGB
@@ -307,7 +312,7 @@ fails (non-zero exit, no result line) without CUDA or outside a checkout.
    V2 gate of the kernel path's; seconds, MiB and ms a call beside the
    kernel path's; a call of the program loaded here launches nothing. (c)
    V2 ViT-L/14 with 4 register tokens and softmax stacking, ``infer()`` at
-   B = 8, 518 x 518 (K1 at 1,374 tokens; K1 24, K2 24, K3 4), and ViT-S/14
+   B = 8, 518 x 518 (K1 at 1,374 tokens; K1 24, K2 24, K3 4, K5 2), and ViT-S/14
    under ``max``, ``mean`` and ``first`` at B = 2, each against the fp32
    plain path: ViT-L at the V2 gate, ViT-S at STACKING_DEPTH_GATE (set
    from the JAX package's own bf16 drift of each stacking,
@@ -412,6 +417,9 @@ HOPPER = ("flash_attention_qkv", "ln_dense", "flash_attention", "flash_attention
 # K3 at the decoders' narrower head dims, 8 heads an image: name -> (BH, N, D)
 K3_NARROW_SHAPES = {"d48_b2": (2 * 8, 1369, 48), "d48": (BATCH * 8, 1369, 48), "d32": (BATCH * 8, 1369, 32)}
 K5_HR_SHAPES = {64: (BATCH, SIDE, SIDE, 64, 32), 48: (BATCH, SIDE, SIDE, 48, 32), 32: (BATCH, SIDE, SIDE, 32, 32)}
+# K5's fused heads (conv3x3_head) in a bf16 V2 forward that needs no gradient:
+# one launch for each head's hr tail, depth and confidence
+K5_HEADS = {"conv3x3_lowchannel": 2}
 # K2 on the V1 paths at B = 8, 462 x 616: name -> (M, C, F, eps). ConvNeXt-L's
 # four stages (grids 115 x 154, 57 x 77, 28 x 38, 14 x 19), then the V1
 # decoder's CvnxtBlocks on ViT-L/14's 33 x 44 grid and its 2x and 4x
@@ -494,7 +502,7 @@ TRAIN_FAMILIES = {
     "V2 ViT-L/14": dict(config=CONFIG, per_micro={"flash_attention_qkv": 48, "ln_dense": 48, "flash_attention": 4},
                         gates={"loss": TRAIN_LOSS_GATE, "cosine": TRAIN_COSINE_GATE}, no_gradient=NO_GRADIENT,
                         shift_invariant=None, descends=True, int8_masters=True,
-                        validation={"flash_attention_qkv": 24, "ln_dense": 24, "flash_attention": 4}),
+                        validation={"flash_attention_qkv": 24, "ln_dense": 24, "flash_attention": 4, **K5_HEADS}),
     "V1 ViT-L/14": dict(config=CONFIG_V1["V1 ViT-L/14"],
                         per_micro={"flash_attention_qkv": 48, "ln_dense": 54, "flash_attention": 3},
                         gates=V1_TRAIN_GATES, no_gradient=(), shift_invariant=None, descends=False),
@@ -1539,7 +1547,7 @@ def eval_phase(config, kernels, none, smi, dev):
 
     figures = {}
     on_card, figures["camera_errors"] = cameras_phase(dev)
-    per_forward = {"flash_attention_qkv": 24, "ln_dense": 24, "flash_attention": 4}
+    per_forward = {"flash_attention_qkv": 24, "ln_dense": 24, "flash_attention": 4, **K5_HEADS}
     expected = {**none, **per_forward, **{f"{k}/wgmma": v for k, v in per_forward.items()}}
 
     # (b) camera-prompted infer() and the 6-view surround
@@ -2338,7 +2346,7 @@ def serve_cli_phase(kernels, none, smi, model_cls, config):
     rate, launches = run_path("scripts_torch/infer.py main()", kernels, lambda: cli.main(
         ["--input", str(src), "--output", str(tmp / "out"), "--batch", str(SERVE_BATCH)]))
     seconds = time.perf_counter() - t0
-    per_batch = {"flash_attention_qkv": 24, "ln_dense": 24, "flash_attention": 4}
+    per_batch = {"flash_attention_qkv": 24, "ln_dense": 24, "flash_attention": 4, **K5_HEADS}
     check_launches("scripts_torch/infer.py", launches,
                    {**none, **{k: SERVE_BATCHES * n for k, n in per_batch.items()},
                     **{f"{k}/wgmma": SERVE_BATCHES * n for k, n in per_batch.items()}})
@@ -2465,7 +2473,8 @@ def serve_export_phase(kernels, none, smi, model, dev):
                                      lambda: model.encode_decode(*args)["points"])
             check_launches(f"encode_decode {name}", launches,
                            {**none, "flash_attention_qkv": 24, "flash_attention_qkv/wgmma": 24, "ln_dense": 24,
-                            "ln_dense/wgmma": 24, "flash_attention": 4, "flash_attention/wgmma": 4})
+                            "ln_dense/wgmma": 24, "flash_attention": 4, "flash_attention/wgmma": 4,
+                            "conv3x3_lowchannel": 2, "conv3x3_lowchannel/wgmma": 2})
             model.set_kernels(False)
             plain = model.encode_decode(*args)["points"]
             model.set_kernels(True)
@@ -2520,8 +2529,8 @@ def serve_phase(kernels, none, smi, dev):
 
         # (c) registers and softmax stacking on ViT-L/14, then the other stackings at ViT-S
         rgb = np.random.default_rng(SEED).integers(0, 256, (BATCH, SIDE, SIDE, 3), dtype=np.uint8)
-        v2 = {"flash_attention_qkv": 24, "ln_dense": 24, "flash_attention": 4}
-        vits = {"flash_attention_qkv": 12, "ln_dense": 12, "flash_attention": 4}
+        v2 = {"flash_attention_qkv": 24, "ln_dense": 24, "flash_attention": 4, **K5_HEADS}
+        vits = {"flash_attention_qkv": 12, "ln_dense": 12, "flash_attention": 4, **K5_HEADS}
         cases = [("ViT-L/14 registers softmax", CONFIG, {"num_register_tokens": REGISTER_TOKENS,
                                                          "stacking_fn": "softmax"}, rgb, v2, 1e-2)]
         cases += [(f"ViT-S/14 {s}", CONFIG_S, {"stacking_fn": s}, rgb[:BATCH_B_CHECK], vits, STACKING_DEPTH_GATE)
@@ -2609,7 +2618,14 @@ def main():
     from unidepth_tpu_torch.models.unidepthv1.model import UniDepthV1
     from unidepth_tpu_torch.models.unidepthv2.model import UniDepthV2
     from unidepth_tpu_torch.ops import _cuda
-    from unidepth_tpu_torch.ops.conv_kernels import PAD_MODES, conv3x3_lowchannel, conv3x3_lowchannel_plain
+    from unidepth_tpu_torch.models.unidepthv2.decoder import DepthHead
+    from unidepth_tpu_torch.ops.conv_kernels import (
+        PAD_MODES,
+        conv3x3_head,
+        conv3x3_head_plain,
+        conv3x3_lowchannel,
+        conv3x3_lowchannel_plain,
+    )
     from unidepth_tpu_torch.ops.flash_attention import _launch as attention_launch
     from unidepth_tpu_torch.ops.flash_attention import (
         flash_attention,
@@ -2913,7 +2929,46 @@ def main():
     _, k5_launches = run_path("K5 conv3x3_lowchannel call", kernels, lambda: conv3x3_lowchannel(*k5_args))
     check_launches("K5 conv3x3_lowchannel call", k5_launches,
                    {**none, "conv3x3_lowchannel": 1, "conv3x3_lowchannel/wgmma": 1})
-    del k5_args, x5, w5, b5, out5
+    # the fused head (conv3x3_head: a V2 head's hr tail, 64 -> 32 -> 1) at the
+    # hr shape, beside the path the model ran before it: the modules on NCHW,
+    # F.pad reflect, cuDNN's conv, LeakyReLU and the 1x1 conv
+    gen.manual_seed(6)
+    head_args = (x5, w5, b5, randn(32, dtype=torch.bfloat16, std=32**-0.5), randn(1, dtype=torch.bfloat16, std=0.1),
+                 "reflect", 0.01)
+    hopper5 = conv3x3_lowchannel.hopper_launches
+    out = conv3x3_head(*head_args)
+    torch.cuda.synchronize()
+    if conv3x3_lowchannel.hopper_launches != hopper5 + 1:
+        raise RuntimeError("K5 head: the bf16 call did not run the Hopper body")
+    def check_head(name, out, ref):
+        # the bf16 gates with the atol scaled by max(1, max |ref|), as K6's: one of the 32 bf16
+        # conv outputs a pixel sums, rounded to the neighbouring value, moves it by |w1| x its ulp
+        err = check_close(f"{name} bf16", out, ref, rtol=TOL_BF16["rtol"],
+                          atol=TOL_BF16["atol"] * max(1.0, ref.abs().max().item()))
+        rel = ((out.float() - ref).norm() / ref.norm()).item()
+        if not rel <= REL_RMS_BF16:
+            raise RuntimeError(f"{name} bf16: relative RMS error {rel:.3e} > {REL_RMS_BF16}")
+        return err, rel
+
+    err, rel = check_head("K5 head", out, conv3x3_head_plain(*head_args).float())  # rounding where K5 rounds
+    hr = DepthHead._hr_head(64).to(dev, torch.bfloat16)
+    with torch.no_grad():
+        hr[0].weight.copy_(w5.permute(3, 2, 0, 1))
+        hr[0].bias.copy_(b5)
+        hr[2].weight.copy_(head_args[3].reshape(1, 32, 1, 1))
+        hr[2].bias.copy_(head_args[4])
+    x_nchw = x5.permute(0, 3, 1, 2).contiguous()
+    with torch.inference_mode():
+        err_modules, _ = check_head("K5 head against the modules", out.permute(0, 3, 1, 2), hr(x_nchw).float())
+        ms, lib = time_ms(lambda: conv3x3_head(*head_args)), time_ms(lambda: hr(x_nchw))
+    b, h, w, cin, cout = K5_HR_SHAPES[64]
+    bd = bound(conv_flops(K5_HR_SHAPES[64]) + 2 * b * h * w * cout, nbytes(x5, out))
+    m["conv3x3_lowchannel"]["head"] = {"ms": ms, "library_ms": lib, "max_abs_err": err, "rel_rms": rel,
+                                       "max_abs_err_modules": err_modules, **bd}
+    log(f"K5 head (8, 518, 518, 64->32->1) reflect: bf16 max_abs_err {err:.3e} rel_rms {rel:.3e} (against the bf16 "
+        f"modules {err_modules:.3e}); kernel {ms:.4f} ms, {bd['bound_ms'] / ms:.1%} of its {bd['bound_ms']:.4f} ms "
+        f"bound ({bd['bound_by']}); the modules (F.pad, cuDNN, LeakyReLU, 1x1) {lib:.4f} ms ({smi})")
+    del k5_args, x5, w5, b5, out5, head_args, out, hr, x_nchw
 
     # --- K6 and K7: the A/B harness (scripts_torch/kernel_ab.py) -------------
     harness = load_harness()
@@ -2965,7 +3020,8 @@ def main():
     out, launches = run_path("bf16 infer()", kernels, lambda: model.infer(rgb))
     check_launches("bf16 infer()", launches, {**none, "flash_attention_qkv": 24, "flash_attention_qkv/wgmma": 24,
                                               "ln_dense": 24, "ln_dense/wgmma": 24,
-                                              "flash_attention": 4, "flash_attention/wgmma": 4})
+                                              "flash_attention": 4, "flash_attention/wgmma": 4,
+                                              "conv3x3_lowchannel": 2, "conv3x3_lowchannel/wgmma": 2})
     check_outputs("bf16 infer()", out)
 
     ref = depth_against_plain("ViT-L/14", UniDepthV2, config, rgb, out["depth"], kernels, dev,
@@ -2981,7 +3037,8 @@ def main():
     log(f"int8 encoder quantized from the fp32 masters in {time.perf_counter() - t0:.2f} s")
     out_q, launches_q = run_path("int8 infer()", kernels, lambda: model.infer(rgb))
     check_launches("int8 infer()", launches_q, {**none, "flash_attention": 4, "flash_attention/wgmma": 4,
-                                                "flash_attention_packed": 24, "flash_attention_packed/wgmma": 24})
+                                                "flash_attention_packed": 24, "flash_attention_packed/wgmma": 24,
+                                                "conv3x3_lowchannel": 2, "conv3x3_lowchannel/wgmma": 2})
     check_outputs("int8 infer()", out_q)
     # the JAX package's int8 bounds against full precision (tests/test_quant.py)
     rel = ((out_q["depth"] - ref["depth"]).abs() / (ref["depth"].abs() + 1e-6)).flatten()
@@ -2998,7 +3055,8 @@ def main():
     check_launches("masked int8 infer()", launches_m,
                    {**none, "flash_attention_qkv": 12, "flash_attention_qkv/wgmma": 12, "ln_dense": 12,
                     "ln_dense/wgmma": 12, "flash_attention": 4, "flash_attention/wgmma": 4,
-                    "flash_attention_packed": 12, "flash_attention_packed/wgmma": 12})
+                    "flash_attention_packed": 12, "flash_attention_packed/wgmma": 12,
+                    "conv3x3_lowchannel": 2, "conv3x3_lowchannel/wgmma": 2})
     check_outputs("masked int8 infer()", out_m)
     del out_m
     model._int8_stages = None
@@ -3017,7 +3075,8 @@ def main():
         out_b, launches_b = run_path(f"{label} bf16 infer()", kernels, lambda: model_b.infer(rgb_b))
         check_launches(f"{label} bf16 infer()", launches_b,
                        {**none, "flash_attention_qkv": 12, "flash_attention_qkv/wgmma": 12, "ln_dense": 12,
-                        "ln_dense/wgmma": 12, "flash_attention": 4, "flash_attention/wgmma": 4})
+                        "ln_dense/wgmma": 12, "flash_attention": 4, "flash_attention/wgmma": 4,
+                        "conv3x3_lowchannel": 2, "conv3x3_lowchannel/wgmma": 2})
         check_outputs(f"{label} bf16 infer()", out_b, BATCH_B_CHECK)
         depth_against_plain(label, UniDepthV2, config_b, rgb_b, out_b["depth"], kernels, dev,
                             outputs=("depth", "intrinsics"))
@@ -3119,12 +3178,11 @@ def main():
     serve_launches, serve_figures = serve_phase(kernels, none, smi, dev)
     parallel_records, parallel_launches, parallel_figures = parallel_phase(kernels, none, smi, dev)
 
-    # each kernel's count from the path it serves: K1-K3 the bf16 ViT-L path,
-    # K4 the int8 one, K5 its own call, K6 and K7 the harness
+    # each kernel's count from the path it serves: K1-K3 and K5 (the heads)
+    # the bf16 ViT-L path, K4 the int8 one, K6 and K7 the harness
     path_launches = {
         **launches,
         "flash_attention_packed": launches_q["flash_attention_packed"],
-        "conv3x3_lowchannel": k5_launches["conv3x3_lowchannel"],
         "run_variant": k6_launches["run_variant"],
         "run_bd": k7_launches["run_bd"],
     }
@@ -3132,7 +3190,6 @@ def main():
     hopper_launches = {
         **{k: launches[f"{k}/wgmma"] for k in HOPPER},
         "flash_attention_packed": launches_q["flash_attention_packed/wgmma"],
-        "conv3x3_lowchannel": k5_launches["conv3x3_lowchannel/wgmma"],
         "run_variant": k6_launches["run_variant/wgmma"],
         "run_bd": k7_launches["run_bd/wgmma"],
     }
@@ -3166,7 +3223,7 @@ def main():
         m[name]["augment_train_launches"] = augment_figures["launches"][name]  # AUG_STEPS steps through the sixteen
     # the serving phase's paths: the CLI's three batches, a register-token V2
     # infer(), the SwiGLU ViT-g/14 encoder
-    for name in ("flash_attention_qkv", "ln_dense", "flash_attention", "flash_attention_packed"):
+    for name in ("flash_attention_qkv", "ln_dense", "flash_attention", "flash_attention_packed", "conv3x3_lowchannel"):
         m[name]["serve_launches"] = {path: counts[name] for path, counts in serve_launches.items()}
     # the parallel phase: the shapes tp=2 gives K1-K3, and a rank's launches in
     # PAR_STEPS train steps under each mode

@@ -25,7 +25,11 @@ product and its dequant against float64. K5 (conv3x3_lowchannel) is held
 like the others, in bf16 and fp32, at the V2 heads' hr conv shape and the
 JAX test's shapes in all three padding modes; its Hopper body at the hr
 shapes of ViT-L, ViT-B and ViT-S, ragged and exact strips, 1-5 rows and
-every padding mode at both borders; its mma.sync body through its C entry.
+every padding mode at both borders; its mma.sync body through its C entry;
+its fused head (``conv3x3_head``: the V2 heads' hr tail, 3x3 reflect,
+LeakyReLU, 1x1 to one channel) at the hr shape and the cameras' network
+shapes, against its plain version, and a V2 ViT-L/14 ``infer()`` that
+routes both heads to it, against the fp32 module path.
 K6 and K7 (the A/B attention
 variants, bf16 only on the card; the Hopper body at head dim 64, K6's
 mma.sync body at 32) are held against their plain versions at the bf16
@@ -55,7 +59,12 @@ from unidepth_tpu_torch.ops.flash_attention import (
     flash_attention_qkv_plain,
 )
 from unidepth_tpu_torch.ops.attention import attention
-from unidepth_tpu_torch.ops.conv_kernels import conv3x3_lowchannel, conv3x3_lowchannel_plain
+from unidepth_tpu_torch.ops.conv_kernels import (
+    conv3x3_head,
+    conv3x3_head_plain,
+    conv3x3_lowchannel,
+    conv3x3_lowchannel_plain,
+)
 from unidepth_tpu_torch.ops.kernel_ab import run_bd, run_variant, run_variant_plain
 from unidepth_tpu_torch.ops.fused_block import ln_dense, ln_dense_plain
 from unidepth_tpu_torch.ops.quant import QuantLinear, dynamic_quant, int8_matmul
@@ -391,6 +400,95 @@ def test_conv3x3_mma_sync_entry_matches_plain(dev, shape, mode):
     _cuda.check(err, "ud_conv3x3_fwd")
     torch.cuda.synchronize()
     _close(out, conv3x3_lowchannel_plain(x.float(), wk.float(), bias.float(), mode), torch.bfloat16, 0)
+
+
+# ---- K5's fused head (conv3x3_head: the V2 heads' hr tail on the Hopper body) ----
+
+K5_HEAD_CASES = [
+    (8, 518, 518, 64),  # ViT-L/14 at 518 x 518
+    (8, 490, 644, 64),  # the cameras' network inputs: 480x640, 375x1242, 768x1024, 1080x1920
+    (8, 490, 1232, 64),
+    (8, 672, 896, 64),
+    (8, 588, 1036, 64),
+    (2, 9, 70, 48),  # ViT-B/14's and ViT-S/14's Cin, ragged and exact strips
+    (2, 5, 64, 32),
+]
+
+
+def _head_close(out, ref):
+    """The bf16 gates, the elementwise atol scaled by max(1, max |ref|) as
+    K6's: the head sums Cout bf16 conv outputs, and where the kernel's fp32
+    sum and the reference's round one of them to neighbouring bf16 values (1
+    output in ~5e6 at the cameras' shapes) the head moves by |w1| times that
+    ulp, ~0.011 at a conv output of ~4."""
+    torch.testing.assert_close(out.float(), ref, rtol=1.6e-2, atol=1e-2 * max(1.0, ref.abs().max().item()))
+    assert ((out.float() - ref).norm() / ref.norm()).item() <= REL_RMS_BF16
+
+
+@pytest.mark.parametrize("b,h,w,cin", K5_HEAD_CASES, ids=["x".join(map(str, c)) for c in K5_HEAD_CASES])
+def test_conv3x3_head_hopper_body(dev, b, h, w, cin):
+    rng = np.random.default_rng(h + w + cin)
+    x = _t(rng.standard_normal((b, h, w, cin)), dev, torch.bfloat16)
+    wk = _t(rng.standard_normal((3, 3, cin, 32)) / np.sqrt(9 * cin), dev, torch.bfloat16)
+    bias = _t(rng.standard_normal(32) * 0.1, dev, torch.bfloat16)
+    w1 = _t(rng.standard_normal(32) / np.sqrt(32), dev, torch.bfloat16)
+    b1 = _t(rng.standard_normal(1) * 0.1, dev, torch.bfloat16)
+    before = conv3x3_lowchannel.launches, conv3x3_lowchannel.hopper_launches
+    out = conv3x3_head(x, wk, bias, w1, b1, "reflect", 0.01)
+    torch.cuda.synchronize()
+    assert (conv3x3_lowchannel.launches, conv3x3_lowchannel.hopper_launches) == (before[0] + 1, before[1] + 1)
+    assert out.shape == (b, h, w, 1) and out.dtype == torch.bfloat16
+    # the plain version on the same bf16 inputs rounds where the kernel rounds (the conv's output, the
+    # LeakyReLU, the 1x1's sum): against an fp32 composition the rounding of 32 conv outputs alone
+    # reaches the elementwise atol where the head's output is near 0
+    _head_close(out, conv3x3_head_plain(x, wk, bias, w1, b1, "reflect", 0.01).float())
+
+
+def test_conv3x3_head_hopper_body_without_biases(dev):
+    rng = np.random.default_rng(16)
+    x = _t(rng.standard_normal((2, 11, 100, 64)), dev, torch.bfloat16)
+    wk = _t(rng.standard_normal((3, 3, 64, 32)) / 24, dev, torch.bfloat16)
+    w1 = _t(rng.standard_normal(32) / np.sqrt(32), dev, torch.bfloat16)
+    out = conv3x3_head(x, wk, None, w1, None, "reflect", 0.2)
+    torch.cuda.synchronize()
+    _head_close(out, conv3x3_head_plain(x, wk, None, w1, None, "reflect", 0.2).float())
+
+
+def test_vitl14_v2_infer_routes_the_heads_to_k5(dev):
+    """UniDepthV2 ViT-L/14 at 518x518, B = 2: a bf16 ``infer()`` launches the
+    fused K5 once a head (once with the confidence left out), K1-K3 as
+    before, and its depth is the fp32 module path's within the ViT-L gate
+    (median relative error <= 1e-2); ``set_kernels(False)``, fp32 and a
+    forward under autograd launch no K5."""
+    from unidepth_tpu_torch.models.unidepthv2.model import UniDepthV2
+
+    cfg = json.loads((Path(__file__).resolve().parents[1] / "configs" / "config_v2_vitl14.json").read_text())
+    rgb = np.random.default_rng(0).integers(0, 256, (2, 518, 518, 3), dtype=np.uint8)
+    model = UniDepthV2.from_config(cfg).init_params(seed=0).eval()
+    counted = (flash_attention_qkv, ln_dense, flash_attention, flash_attention_packed, conv3x3_lowchannel)
+
+    def launches(call):
+        for fn in counted:
+            fn.launches = fn.hopper_launches = 0
+        out = call()
+        torch.cuda.synchronize()
+        return out, [(fn.launches, fn.hopper_launches) for fn in counted]
+
+    out, got = launches(lambda: model.infer(rgb))
+    assert got == [(24, 24), (24, 24), (4, 4), (0, 0), (2, 2)]
+    assert launches(lambda: model.infer(rgb, outputs=("depth",)))[1][-1] == (1, 1)
+    ref_model = UniDepthV2.from_config(cfg, device=dev, dtype=torch.float32).init_params(seed=0).eval()
+    assert launches(lambda: ref_model.infer(rgb[:1], outputs=("depth",)))[1][-1] == (0, 0)  # fp32
+    ref = ref_model.set_kernels(False).infer(rgb)
+    for key in ("depth", "confidence"):
+        assert out[key].shape == ref[key].shape == (2, 518, 518, 1)
+        assert torch.isfinite(out[key]).all()
+    rel = ((out["depth"] - ref["depth"]).abs() / ref["depth"].abs()).flatten()
+    assert rel.median().item() <= 1e-2
+    image = torch.zeros(1, 518, 518, 3, device=dev)
+    assert launches(lambda: model.encode_decode(image)["depth"].sum().backward())[1][-1] == (0, 0)  # autograd
+    model.zero_grad(set_to_none=True)
+    assert launches(lambda: model.set_kernels(False).infer(rgb, outputs=("depth",)))[1] == [(0, 0)] * 5
 
 
 AB_FAMILY_NAMES = ["tr_max", "bf16p", "nomax_guard", "tr_lmxu", "nomax", "noexp", "gemmonly", "qk_only", "pv_only"]
@@ -952,11 +1050,12 @@ def test_v2_train_step_on_the_card(dev):
     assert {(p.device.type, p.dtype) for p in trainer.model.parameters()} == {("cuda", torch.bfloat16)}
     batch = make_batch(Dummy(image_shape=(448, 448), length=8), 2, 2, np.random.default_rng(0))
     before = {n: p.clone() for n, p in trainer.state.params.items()}
-    counted = (flash_attention_qkv, ln_dense, flash_attention, flash_attention_packed)
+    counted = (flash_attention_qkv, ln_dense, flash_attention, flash_attention_packed, conv3x3_lowchannel)
     for fn in counted:
         fn.launches = fn.hopper_launches = 0
     metrics = trainer.step(batch, 0)
     torch.cuda.synchronize()
-    assert [(fn.launches, fn.hopper_launches) for fn in counted] == [(16, 16), (16, 16), (8, 8), (0, 0)]
+    # the heads' hr tails stay on cuDNN under autograd: no K5
+    assert [(fn.launches, fn.hopper_launches) for fn in counted] == [(16, 16), (16, 16), (8, 8), (0, 0), (0, 0)]
     assert all(torch.isfinite(v) for v in metrics.values())
     assert any(not torch.equal(p, before[n]) for n, p in trainer.state.params.items())

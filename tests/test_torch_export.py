@@ -101,6 +101,25 @@ def test_export_restores_the_kernel_flags_when_the_trace_raises(models, monkeypa
         pinned.use_kernels = True
 
 
+def test_export_keeps_the_hr_heads_on_the_modules(models, monkeypatch):
+    """The trace runs under ``set_kernels(False)``, which pins both heads'
+    hr tails to the modules: ``DepthHead``'s route is asked and says no."""
+    from unidepth_tpu_torch.models.unidepthv2.decoder import DepthHead
+
+    _, tm = models
+    route = DepthHead._hr_on_k5
+    seen = []
+
+    def spy(self, y, hr, out_hw):
+        seen.append((self.use_kernels, route(self, y, hr, out_hw)))
+        return seen[-1][1]
+
+    monkeypatch.setattr(DepthHead, "_hr_on_k5", spy)
+    export_forward(tm, (56, 70))
+    assert seen == [(False, False), (False, False)]
+    assert tm.pixel_decoder.depth_layer.use_kernels  # restored after the trace
+
+
 def test_exported_bytes_load_without_the_port(models, tmp_path):
     """A process that imports torch only (the repository is not on its
     path) loads the archive and runs it."""

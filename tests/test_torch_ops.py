@@ -57,6 +57,21 @@ def test_resize_channel_first_matches_jax():
     _close(out, ref)
 
 
+@pytest.mark.parametrize("dtype,size", [(torch.float32, (18, 22)), (torch.bfloat16, (18, 22)), (torch.bfloat16, (9, 11))],
+                         ids=["fp32", "bf16", "bf16-same-size"])
+def test_resize_nhwc_keeps_the_values_in_nhwc_memory(dtype, size):
+    """``nhwc``: the channel-first resize's values, held NHWC in memory (the
+    V2 heads' feed of K5); it takes channel-first bilinear maps only."""
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal((2, 16, 9, 11)).astype(np.float32)).to(dtype)
+    out = resize(x, size, align_corners=True, channel_last=False, nhwc=True)
+    assert torch.equal(out, resize(x, size, align_corners=True, channel_last=False))
+    assert out.dtype == dtype and out.permute(0, 2, 3, 1).is_contiguous()
+    with pytest.raises(ValueError, match="nhwc"):
+        resize(x.permute(0, 2, 3, 1), size, channel_last=True, nhwc=True)
+    with pytest.raises(ValueError, match="nhwc"):
+        resize(x, size, mode="bicubic", channel_last=False, nhwc=True)
+
+
 def test_flat_interpolate_matches_jax():
     x = np.random.default_rng(2).standard_normal((2, 20 * 30, 3)).astype(np.float32)
     out = flat_interpolate(torch.from_numpy(x), (20, 30), (5, 7))

@@ -5,13 +5,15 @@ Off, ``span`` is one shared no-op and nothing is recorded. On, one
 serving path's span tree under one request id, each child inside its
 parent; outputs are bitwise those of an untraced call; with the kernel
 library stubbed (as the route tests do) the kernel wrappers' spans count
-what their ``.launches`` counters count; annotated, the spans show in a
-``torch.profiler`` trace. Also ``scripts_torch/profile_serve.py``'s
+what their ``.launches`` counters count, and a bf16 request read as one on
+the card launches the heads' fused K5 once a head; annotated, the spans
+show in a ``torch.profiler`` trace. Also ``scripts_torch/profile_serve.py``'s
 reduction of an annotated trace, on a synthetic event list: each device
 operation put down to its span through its correlation and ``cpu_parent``
 chain, the host's waits, and the idle gaps' labels."""
 
 import collections
+import copy
 import importlib.util
 import json
 from pathlib import Path
@@ -26,6 +28,7 @@ from unidepth_tpu_torch.models.unidepthv2.model import UniDepthV2
 from unidepth_tpu_torch.nn import layers
 from unidepth_tpu_torch.ops import _cuda
 from unidepth_tpu_torch.ops import attention as attention_mod
+from unidepth_tpu_torch.ops import conv_kernels as ck
 from unidepth_tpu_torch.ops import flash_attention as fa
 from unidepth_tpu_torch.ops import fused_block as fb
 from unidepth_tpu_torch.utils import tracing
@@ -160,6 +163,28 @@ def test_kernel_spans_count_the_launches(model, kernel_routes):
             assert s["device_ms"] is None  # host only
             parent = by_id[s["parent"]]["name"]
             assert parent == ("unidepth.decoder.prompt" if s["name"].endswith("K3") else "unidepth.infer.encoder")
+
+
+@pytest.mark.parametrize("outputs,heads", [(None, 2), (("depth", "intrinsics"), 1)], ids=["all", "no-confidence"])
+def test_k5_spans_count_the_fused_heads(model, monkeypatch, outputs, heads):
+    """bf16 weights and CPU tensors read as CUDA ones (``is_cuda``): each
+    head's hr tail takes K5's fused launch (into the stubbed library) in the
+    heads span, twice a request, once with the confidence left out."""
+    monkeypatch.setattr(_cuda, "library", lambda: _StubLibrary())
+    monkeypatch.setattr(_cuda, "stream_handle", lambda t: 0)
+    monkeypatch.setattr(ck, "conv3x3_head_plain", ck._head_kernel)
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda t: True))
+    bf16 = copy.deepcopy(model).to(torch.bfloat16)
+    before = ck.conv3x3_lowchannel.launches, ck.conv3x3_lowchannel.hopper_launches
+    tracing.enable()
+    bf16.infer(RGB, outputs=outputs)
+    spans = tracing.collect()["spans"]
+    after = ck.conv3x3_lowchannel.launches, ck.conv3x3_lowchannel.hopper_launches
+    assert after == (before[0] + heads, before[1] + heads)
+    k5 = [s for s in spans if s["name"] == "unidepth.kernel.K5"]
+    assert len(k5) == heads
+    by_id = {s["id"]: s for s in spans}
+    assert {by_id[s["parent"]]["name"] for s in k5} == {"unidepth.decoder.heads"}
 
 
 @pytest.mark.parametrize("annotate", [True, False])

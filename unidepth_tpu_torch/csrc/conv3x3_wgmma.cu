@@ -53,6 +53,19 @@
 //    which clips the ragged last strip. The other consumer warpgroup's
 //    products run meanwhile. A row's slot is released once the products
 //    that read its fragments are done, as a CUTLASS pipeline releases it.
+//
+// The V2 heads' high-resolution tail (``DepthHead._hr_head``: this conv at
+// Cout 32, LeakyReLU, a 1x1 conv to one channel) runs as the same kernel
+// with a second epilogue (``ud_conv3x3_head_hopper_fwd``; no TPU kernel: the
+// JAX package leaves the head to XLA). A complete row's pixels are
+// bf16(bf16(acc) + bias) as above, then LeakyReLU rounded to bf16, then
+// their dot with the 1x1 weights in fp32 (a pixel's Cout columns lie in the
+// four lanes of a quad: Cout / 4 FMAs a lane and two shuffles), then
+// bf16(bf16(dot) + 1x1 bias): the rounding points of the bf16 modules. The
+// 64 bf16 values of the row go straight to global memory (a box of one
+// channel is too narrow for TMA), so the (B, H, W, Cout) map is never
+// written: at (8, 518, 518, 64 -> 32 -> 1) the kernel reads 274.8 MB and
+// writes 4.3 MB, a bound of 0.083 ms.
 
 #include <limits.h>
 
@@ -159,6 +172,15 @@ struct Segment {
   int b, x0, y0, y1;  // image, first pixel of the strip, output rows [y0, y1)
 };
 
+// the head's epilogue: LeakyReLU, then the 1x1 conv to one channel into o
+// (B, H, W); o null stores the conv's (B, H, W, Cout) map through TMA instead
+struct Head {
+  const bf16* w1;  // (Cout) 1x1 weights
+  const bf16* b1;  // (1) 1x1 bias, or null
+  bf16* o;
+  float slope;     // LeakyReLU's negative slope
+};
+
 // the first segment of the rows [lo, hi) in (image, strip, row) order
 __device__ __forceinline__ Segment segment_at(long long lo, long long hi, int h, int strips) {
   const long long col = lo / h;
@@ -181,7 +203,9 @@ struct Consumer {
   uint64_t wdesc[3];        // the dx tap blocks' first rows
   uint32_t off[3], key[3];  // this lane's A row for each dx: byte offset and swizzle phase in a slot
   float bz[CO / 4];         // the bias at this thread's columns
-  int ring, h;
+  float hw[CO / 4], hb;     // the head's 1x1 weights at this thread's columns, and its bias
+  Head head;
+  int ring, h, wd;
 
   // the slot pixel each dx reads for this lane (pixel x0 - 1 + p of the image),
   // redirected for the column pad of reflect and replicate
@@ -243,6 +267,10 @@ struct Consumer {
   }
 
   __device__ __forceinline__ void store(const float (&acc)[CO / 2], const Segment& sg, int y) {
+    if (head.o) {
+      store_head(acc, sg, y);
+      return;
+    }
     if (tid == 0) ud::tma_store_wait_read();  // the last store has read its buffer
     ud::named_barrier_sync(1 + wg, 128);
     bf16* ob = sm.out[wg];
@@ -263,13 +291,40 @@ struct Consumer {
       ud::tma_store_commit();
     }
   }
+
+  // output row y through the head: lane t of quad g holds columns 8j + 2t,
+  // + 1 of pixels 16 warp + g and + 8; the quad's sums meet by two shuffles,
+  // and lanes 0 and 1 of the quad store the two pixels
+  __device__ __forceinline__ void store_head(const float (&acc)[CO / 2], const Segment& sg, int y) {
+    const int warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+    float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < CO / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float v = ud::round_to<bf16>(ud::round_to<bf16>(acc[4 * j + i]) + bz[2 * j + (i & 1)]);
+        v = v > 0.f ? v : ud::round_to<bf16>(v * head.slope);
+        if (i < 2)
+          s0 = fmaf(v, hw[2 * j + (i & 1)], s0);
+        else
+          s1 = fmaf(v, hw[2 * j + (i & 1)], s1);
+      }
+    s0 += __shfl_xor_sync(0xffffffffu, s0, 1);
+    s1 += __shfl_xor_sync(0xffffffffu, s1, 1);
+    s0 += __shfl_xor_sync(0xffffffffu, s0, 2);
+    s1 += __shfl_xor_sync(0xffffffffu, s1, 2);
+    const int x = sg.x0 + 16 * warp + g + 8 * t;
+    if (t < 2 && x < wd)
+      head.o[(static_cast<long long>(sg.b) * h + y) * wd + x] =
+          __float2bfloat16_rn(ud::round_to<bf16>(t == 0 ? s0 : s1) + hb);
+  }
 };
 
 template <int CO, int KS>
 __global__ void __launch_bounds__(kThreads, 1)
     conv3x3_wgmma(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap to,
-                  const bf16* __restrict__ w, const bf16* __restrict__ bias, int batch, int h, int wd, int cin,
-                  int mode) {
+                  const bf16* __restrict__ w, const bf16* __restrict__ bias, Head head, int batch, int h, int wd,
+                  int cin, int mode) {
   extern __shared__ unsigned char smem_raw[];
   const uint32_t pad = (1024u - (ud::smem_u32(smem_raw) & 1023u)) & 1023u;
   Smem<CO>& sm = *reinterpret_cast<Smem<CO>*>(smem_raw + pad);
@@ -337,6 +392,9 @@ __global__ void __launch_bounds__(kThreads, 1)
   Consumer<CO, KS> cs{sm, &to, wg, static_cast<int>(threadIdx.x % 128)};
   cs.ring = 0;
   cs.h = h;
+  cs.wd = wd;
+  cs.head = head;
+  cs.hb = head.b1 ? __bfloat162float(head.b1[0]) : 0.f;
 #pragma unroll
   for (int dx = 0; dx < 3; ++dx) cs.wdesc[dx] = ud::wgmma_desc_sw128(sm.w[dx]);
   const int t = cs.tid % 4;
@@ -344,6 +402,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   for (int j = 0; j < CO / 8; ++j) {
     cs.bz[2 * j] = bias ? __bfloat162float(bias[8 * j + 2 * t]) : 0.f;
     cs.bz[2 * j + 1] = bias ? __bfloat162float(bias[8 * j + 2 * t + 1]) : 0.f;
+    cs.hw[2 * j] = head.o ? __bfloat162float(head.w1[8 * j + 2 * t]) : 0.f;
+    cs.hw[2 * j + 1] = head.o ? __bfloat162float(head.w1[8 * j + 2 * t + 1]) : 0.f;
   }
 
   // before row r: a0, a1, a2 hold output rows r + 1, r, r - 1 at shift 0;
@@ -368,12 +428,13 @@ __global__ void __launch_bounds__(kThreads, 1)
   if (cs.tid == 0) ud::tma_store_wait_read();  // shared memory stays valid until read
 }
 
+// o is the (B, H, W, Cout) map, or, with head.o set, unused
 template <int CO, int KS>
-cudaError_t launch(const void* x, const void* w, const void* bias, void* o, int batch, int h, int wd, int cin,
-                   int mode, cudaStream_t stream) {
+cudaError_t launch(const void* x, const void* w, const void* bias, void* o, const Head& head, int batch, int h,
+                   int wd, int cin, int mode, cudaStream_t stream) {
   constexpr int kSmem = sizeof(Smem<CO>) + 1024;  // + room to align the base to 1024
   static_assert(kSmem <= kMaxSmem, "the ring does not fit in shared memory");
-  CUtensorMap tx, to;
+  CUtensorMap tx, to{};
   const cuuint64_t xd[4] = {cuuint64_t(cin), cuuint64_t(wd), cuuint64_t(h), cuuint64_t(batch)};
   const cuuint64_t xs[3] = {cuuint64_t(cin) * 2, cuuint64_t(wd) * cin * 2, cuuint64_t(h) * wd * cin * 2};
   const cuuint32_t xb[4] = {64, kSlotPx, 1, 1};
@@ -381,7 +442,7 @@ cudaError_t launch(const void* x, const void* w, const void* bias, void* o, int 
   const cuuint64_t os[2] = {CO * 2, cuuint64_t(wd) * CO * 2};
   const cuuint32_t ob[3] = {CO, kPx, 1};
   if (!ud::make_map(&tx, x, 4, xd, xs, xb, CU_TENSOR_MAP_SWIZZLE_128B) ||
-      !ud::make_map(&to, o, 3, od, os, ob, CU_TENSOR_MAP_SWIZZLE_NONE))
+      (!head.o && !ud::make_map(&to, o, 3, od, os, ob, CU_TENSOR_MAP_SWIZZLE_NONE)))
     return cudaErrorInvalidValue;
   auto kernel = conv3x3_wgmma<CO, KS>;
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
@@ -393,18 +454,35 @@ cudaError_t launch(const void* x, const void* w, const void* bias, void* o, int 
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
   const int grid = sms * per_sm;  // rows past the last are empty shares
   kernel<<<grid, kThreads, kSmem, stream>>>(tx, to, static_cast<const bf16*>(w), static_cast<const bf16*>(bias),
-                                            batch, h, wd, cin, mode);
+                                            head, batch, h, wd, cin, mode);
   return cudaGetLastError();
 }
 
 template <int CO>
-cudaError_t launch_ks(const void* x, const void* w, const void* bias, void* o, int batch, int h, int wd, int cin,
-                      int mode, cudaStream_t s) {
+cudaError_t launch_ks(const void* x, const void* w, const void* bias, void* o, const Head& head, int batch, int h,
+                      int wd, int cin, int mode, cudaStream_t s) {
   switch ((cin + 15) / 16) {
-    case 1: return launch<CO, 1>(x, w, bias, o, batch, h, wd, cin, mode, s);
-    case 2: return launch<CO, 2>(x, w, bias, o, batch, h, wd, cin, mode, s);
-    case 3: return launch<CO, 3>(x, w, bias, o, batch, h, wd, cin, mode, s);
-    default: return launch<CO, 4>(x, w, bias, o, batch, h, wd, cin, mode, s);
+    case 1: return launch<CO, 1>(x, w, bias, o, head, batch, h, wd, cin, mode, s);
+    case 2: return launch<CO, 2>(x, w, bias, o, head, batch, h, wd, cin, mode, s);
+    case 3: return launch<CO, 3>(x, w, bias, o, head, batch, h, wd, cin, mode, s);
+    default: return launch<CO, 4>(x, w, bias, o, head, batch, h, wd, cin, mode, s);
+  }
+}
+
+// the checks and the Cout dispatch both entries share
+cudaError_t launch_co(const void* x, const void* w, const void* bias, void* o, const Head& head, int batch, int h,
+                      int w_, int cin, int cout, int mode, void* stream) {
+  if (batch < 1 || h < 1 || w_ < 1 || cin < 8 || cin > 64 || cin % 8 || cout < 8 || cout > 32 || cout % 8)
+    return cudaErrorInvalidValue;
+  if (mode < kZeros || mode > kReplicate || (mode == kReflect && (h < 2 || w_ < 2))) return cudaErrorInvalidValue;
+  if (reinterpret_cast<uintptr_t>(x) % 16) return cudaErrorInvalidValue;
+  if (static_cast<long long>(batch) * h > INT_MAX) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (cout) {
+    case 8: return launch_ks<8>(x, w, bias, o, head, batch, h, w_, cin, mode, s);
+    case 16: return launch_ks<16>(x, w, bias, o, head, batch, h, w_, cin, mode, s);
+    case 24: return launch_ks<24>(x, w, bias, o, head, batch, h, w_, cin, mode, s);
+    default: return launch_ks<32>(x, w, bias, o, head, batch, h, w_, cin, mode, s);
   }
 }
 
@@ -418,17 +496,20 @@ cudaError_t launch_ks(const void* x, const void* w, const void* bias, void* o, i
 // for every call.
 extern "C" int ud_conv3x3_hopper_fwd(const void* x, const void* w, const void* bias, void* o, int batch, int h,
                                      int w_, int cin, int cout, int mode, void* stream) {
-  using namespace conv;
-  if (batch < 1 || h < 1 || w_ < 1 || cin < 8 || cin > 64 || cin % 8 || cout < 8 || cout > 32 || cout % 8)
-    return cudaErrorInvalidValue;
-  if (mode < kZeros || mode > kReplicate || (mode == kReflect && (h < 2 || w_ < 2))) return cudaErrorInvalidValue;
-  if ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(o)) % 16) return cudaErrorInvalidValue;
-  if (static_cast<long long>(batch) * h > INT_MAX) return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (cout) {
-    case 8: return launch_ks<8>(x, w, bias, o, batch, h, w_, cin, mode, s);
-    case 16: return launch_ks<16>(x, w, bias, o, batch, h, w_, cin, mode, s);
-    case 24: return launch_ks<24>(x, w, bias, o, batch, h, w_, cin, mode, s);
-    default: return launch_ks<32>(x, w, bias, o, batch, h, w_, cin, mode, s);
-  }
+  if (reinterpret_cast<uintptr_t>(o) % 16) return cudaErrorInvalidValue;  // the TMA store's
+  return conv::launch_co(x, w, bias, o, conv::Head{nullptr, nullptr, nullptr, 0.f}, batch, h, w_, cin, cout, mode,
+                         stream);
+}
+
+// The V2 heads' hr tail on the same body: the conv as above, then
+// LeakyReLU(slope) and the 1x1 conv to one channel, w1 (Cout), b1 (1) or
+// null; o (B, H, W) bf16, with no alignment asked of it. The same shapes
+// as ud_conv3x3_hopper_fwd.
+extern "C" int ud_conv3x3_head_hopper_fwd(const void* x, const void* w, const void* bias, const void* w1,
+                                          const void* b1, void* o, int batch, int h, int w_, int cin, int cout,
+                                          int mode, float slope, void* stream) {
+  if (w1 == nullptr || o == nullptr) return cudaErrorInvalidValue;
+  const conv::Head head{static_cast<const __nv_bfloat16*>(w1), static_cast<const __nv_bfloat16*>(b1),
+                        static_cast<__nv_bfloat16*>(o), slope};
+  return conv::launch_co(x, w, bias, nullptr, head, batch, h, w_, cin, cout, mode, stream);
 }

@@ -9,6 +9,15 @@ log-depth and log-confidence.
 Layouts: tokens are (B, N, C) and the public outputs channel-last, as in the
 JAX package. Inside ``DepthHead`` the spatial maps are held NCHW for
 ``nn.Conv2d``. Submodule names are the reference checkpoint's.
+
+Each head's high-resolution tail (``_hr_head``: reflect 3x3 conv, LeakyReLU,
+1x1 conv to one channel) runs as one launch of kernel K5
+(``ops.conv_kernels.conv3x3_head``) where the map is a CUDA bf16 tensor that
+needs no gradient and its channels fit K5's Hopper body (``_hr_on_k5``):
+bf16 serving. The resize before it then casts its fp32 result to bf16 NHWC
+in memory, so K5 reads the full-resolution map in place. Everything else
+(the CPU, fp32, training under autograd, ``set_kernels(False)`` and so the
+exporter) runs the modules.
 """
 
 from __future__ import annotations
@@ -22,6 +31,7 @@ from unidepth_tpu_torch.geometry.coords import coords_grid
 from unidepth_tpu_torch.nn.conv import Conv2d, PatchConvTranspose
 from unidepth_tpu_torch.nn.layers import MLP, AttentionBlock, AttentionLayer, layer_norm
 from unidepth_tpu_torch.nn.upsample import ResUpsampleBil
+from unidepth_tpu_torch.ops.conv_kernels import MAX_CIN, MAX_COUT, conv3x3_head
 from unidepth_tpu_torch.ops.fourier import generate_fourier_features
 from unidepth_tpu_torch.ops.resize import flat_interpolate, resize
 from unidepth_tpu_torch.utils import tracing
@@ -101,6 +111,7 @@ class DepthHead(nn.Module):
         self.to_confidence_lr = Conv2d(final_dim, final_dim // 2, 3, padding_mode="reflect")
         self.to_depth_hr = self._hr_head(final_dim // 2)
         self.to_confidence_hr = self._hr_head(final_dim // 2)
+        self.use_kernels = True
 
     @staticmethod
     def _hr_head(in_dim: int) -> nn.Sequential:
@@ -121,11 +132,28 @@ class DepthHead(nn.Module):
         ang = torch.stack([polar, azimuth], dim=-1)
         return generate_fourier_features(ang, dim=self.hidden_dim, max_freq=max(shapes) // 2, use_log=True)
 
+    def _hr_on_k5(self, y: torch.Tensor, hr: nn.Sequential, out_hw) -> bool:
+        """Whether ``hr`` runs as K5's fused launch on the map ``y``: kernels
+        on, a CUDA bf16 map that needs no gradient, Cin and Cout multiples of
+        8 within K5's Hopper body, one output channel, H and W >= 2."""
+        conv, _, proj = hr
+        needs_grad = torch.is_grad_enabled() and (y.requires_grad or any(p.requires_grad for p in hr.parameters()))
+        cin, cout = conv.in_channels, conv.out_channels
+        return (self.use_kernels and y.is_cuda and y.dtype == torch.bfloat16 and not needs_grad
+                and cin <= MAX_CIN and cin % 8 == 0 and cout <= MAX_COUT and cout % 8 == 0
+                and proj.out_channels == 1 and min(out_hw) >= 2)
+
     def _head(self, final, mlp: nn.Sequential, lr: nn.Module, hr: nn.Sequential, out_hw):
         norm, linear = mlp
         y = linear(layer_norm(norm, final.permute(0, 2, 3, 1))).permute(0, 3, 1, 2)
-        y = resize(lr(y), out_hw, mode="bilinear", align_corners=True, channel_last=False)
-        return hr(y)
+        y = lr(y)
+        if not self._hr_on_k5(y, hr, out_hw):
+            return hr(resize(y, out_hw, mode="bilinear", align_corners=True, channel_last=False))
+        y = resize(y, out_hw, mode="bilinear", align_corners=True, channel_last=False, nhwc=True)
+        conv, act, proj = hr
+        out = conv3x3_head(y.permute(0, 2, 3, 1), conv.weight.permute(2, 3, 1, 0), conv.bias,
+                           proj.weight.reshape(-1), proj.bias, conv.padding_mode, act.negative_slope)
+        return out.view(out.shape[0], 1, *out.shape[1:3])  # (B, H, W, 1) is (B, 1, H, W) in memory
 
     def prompt(self, features, rays_hr, shapes, original_shapes):
         """features: 4 x (B, N, hidden); rays_hr (B, H*W, 3). The features

@@ -153,6 +153,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.ud_conv3x3_fwd.restype = i
     lib.ud_conv3x3_hopper_fwd.argtypes = [p, p, p, p] + [i] * 6 + [p]
     lib.ud_conv3x3_hopper_fwd.restype = i
+    lib.ud_conv3x3_head_hopper_fwd.argtypes = [p] * 6 + [i] * 6 + [f, p]
+    lib.ud_conv3x3_head_hopper_fwd.restype = i
     lib.ud_attention_ab_fwd.argtypes = [p, p, p, p] + [i] * 6 + [p]
     lib.ud_attention_ab_fwd.restype = i
     lib.ud_attention_bd_fwd.argtypes = [p, p, p, p] + [i] * 5 + [p]

@@ -66,6 +66,7 @@ def resize(
     antialias: bool = False,
     channel_last: bool = True,
     scale_factors: tuple[float, float] | None = None,
+    nhwc: bool = False,
 ) -> torch.Tensor:
     """Resize ``(..., H, W, C)`` (``channel_last``) or ``(..., H, W)`` maps
     to ``size`` with ``F.interpolate`` semantics. Modes: 'bilinear' (with or
@@ -73,10 +74,16 @@ def resize(
     'nearest-exact', which take neither flag.
     ``scale_factors`` (sh, sw), bicubic only: torch's explicit
     ``scale_factor`` semantics, the source grid at 1/scale; the output must
-    come out at ``size``."""
+    come out at ``size``.
+    ``nhwc`` (``channel_last=False``, bilinear, a (B, C, H, W) map): the
+    result is cast back to the input's dtype NHWC in memory
+    (``channels_last``), so ``.permute(0, 2, 3, 1)`` of it is a contiguous
+    (B, H, W, C); the interpolation itself is unchanged."""
     out_h, out_w = int(size[0]), int(size[1])
     y = x.movedim(-1, -3) if channel_last else x
     in_h, in_w = y.shape[-2:]
+    if nhwc and (channel_last or mode != "bilinear" or y.dim() != 4):
+        raise ValueError("resize: nhwc takes a (B, C, H, W) map, channel_last=False, bilinear")
     if scale_factors is not None:
         if mode != "bicubic" or align_corners or antialias:
             raise ValueError("resize: scale_factors take plain bicubic only")
@@ -88,8 +95,9 @@ def resize(
         )
         y = torch.einsum("oh,...hw,pw->...op", wh, y.float(), ww).to(x.dtype)
         return y.movedim(-3, -1) if channel_last else y
+    layout = torch.channels_last if nhwc else torch.preserve_format
     if (in_h, in_w) == (out_h, out_w):
-        return x
+        return x.contiguous(memory_format=torch.channels_last) if nhwc else x
     if mode in NEAREST_MODES:
         if align_corners or antialias:
             raise ValueError(f"resize: mode {mode!r} takes neither align_corners nor antialias")
@@ -106,7 +114,8 @@ def resize(
         align_corners=align_corners,
         antialias=antialias,
     )
-    y = y.reshape(*lead, out_h, out_w).to(x.dtype)
+    # one pass casts and, for nhwc, transposes: faster on the card than interpolating NHWC
+    y = y.reshape(*lead, out_h, out_w).to(x.dtype, memory_format=layout)
     return y.movedim(-3, -1) if channel_last else y
 
 
