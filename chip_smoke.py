@@ -28,7 +28,13 @@ fails (non-zero exit, no result line) without CUDA or outside a checkout.
    (attn_fwd_simt, ln_dense_simt), which the main path does not launch, at
    1e-4 (attention) and 2e-4 (ln_dense). It times kernel and plain version
    in bf16 (CUDA events around 10 back-to-back calls, median of 10 runs).
-   Then K3 at the decoders' narrower head dims, on the Hopper body: ViT-B's
+   After K2, its gated body (``ln_dense(..., 'swiglu')``, ViT-g/14's
+   LN2 -> w12 -> silu(a) * g) at the v2-vitg14 cell's shape (10960, 1536,
+   8192) on random x, w12, bias, gamma and beta: one gated launch, held
+   elementwise at the bf16 gates to its plain version on the same bf16
+   inputs and at the relative RMS gate to the plain version in fp32, timed
+   beside the plain version and the modules it replaces, with bound and
+   share (K2's record, ``gated``). Then K3 at the decoders' narrower head dims, on the Hopper body: ViT-B's
    (16, 1369, 48) at B = 2 and (64, 1369, 48) at B = 8, ViT-S's (64, 1369,
    32), each held at the bf16 gates and timed in two turns against the
    mma.sync body of attention.cu (its C entry called directly) and SDPA.
@@ -318,7 +324,8 @@ fails (non-zero exit, no result line) without CUDA or outside a checkout.
    from the JAX package's own bf16 drift of each stacking,
    tests/stacking_bf16_drift.py). (d) DINOv2 ViT-g/14 with registers
    (VITG_REG: SwiGLU, 40 blocks, 24 heads of 64) alone at B = 8, 518 x 518,
-   weights drawn on the card: K4 40 on the Hopper body, K1 and K2 0; the
+   weights drawn on the card: K1 40 on the Hopper body and K2's gated body
+   40 (``ln_dense.gated_launches``), K2 and K4 0; the
    features and cls tokens of the bf16 kernel path within VITG_FEATURE_GATE
    relative RMS of the fp32 plain path (the plain bf16 path's drift
    printed beside it). A ``{"serve": ...}`` line carries the figures; K1-K4's
@@ -1146,6 +1153,52 @@ def shape_phase(name, kernel, plain, make_args, flops, library, smi, hopper=True
     log(f"{name}: bf16 max_abs_err {err:.3e} rel_rms {rel_rms:.3e}; kernel {ms:.4f} ms, {bd['bound_ms'] / ms:.1%} of "
         f"its {bd['bound_ms']:.4f} ms bound ({bd['bound_by']}), library {library_ms:.4f} ms ({smi})")
     return {"ms": ms, "library_ms": library_ms, "max_abs_err": err, "rel_rms": rel_rms, **bd}
+
+
+def gated_phase(ln_dense, ln_dense_plain, randn, gen, smi):
+    """K2's gated body (``ln_dense(..., 'swiglu')``, ViT-g/14's LN2 -> w12 ->
+    silu(a) * g) at the v2-vitg14 cell's shape (8 x 1370, 1536, 8192) on
+    random x, w12, bias, gamma and beta: one gated launch and no other K2
+    launch; elementwise at the bf16 gates against the plain version on the
+    same bf16 inputs (which rounds the normalised activation, as the kernel
+    does, and the product to bf16), and at the relative RMS gate against the
+    plain version in fp32 (elementwise, a gate's product of two halves moves
+    by |g| x the halves' rounding: no fp32 match near silu's zero). A bias
+    read from the wrong half, or a LayerNorm without gamma or beta, moves
+    the halves by ~0.1 and fails both. Timed beside its plain version and
+    the modules it replaces on the serving path (the fp32 LayerNorm cast to
+    bf16, w12 on cuBLAS, chunk, silu and the gate product)."""
+    c, f = VITG_REG["embed_dim"], 8192  # w12: the value and the gate, 4096 each
+    gen.manual_seed(21)
+    x = randn(BATCH * 1370, c, dtype=torch.bfloat16, std=2.0, mean=0.5)
+    args = (x, randn(f, c, dtype=torch.bfloat16, std=c**-0.5), randn(f, dtype=torch.bfloat16, std=0.1),
+            randn(c, dtype=torch.bfloat16, std=0.1, mean=1.0), randn(c, dtype=torch.bfloat16, std=0.1), 1e-6, "swiglu")
+    before = ln_dense.launches, ln_dense.gated_launches
+    out = ln_dense(*args)
+    torch.cuda.synchronize()
+    if (ln_dense.launches, ln_dense.gated_launches) != (before[0], before[1] + 1):
+        raise RuntimeError("K2g: the 'swiglu' call did not launch the gated body once")
+    name = f"K2g ln_dense swiglu (M {x.shape[0]}, C {c}, 2H {f})"
+    err = check_close(f"{name} vs plain bf16", out, ln_dense_plain(*args), **TOL_BF16)
+    ref = ln_dense_plain(*[a.float() if torch.is_tensor(a) else a for a in args])
+    rel_rms = ((out.float() - ref).norm() / ref.norm()).item()
+    del ref
+    if not rel_rms <= REL_RMS_BF16:
+        raise RuntimeError(f"{name}: relative RMS error {rel_rms:.3e} against fp32 > {REL_RMS_BF16}")
+    x_, w, bias, gamma, beta, eps, _ = args
+
+    def modules():
+        y = F.layer_norm(x_.float(), (c,), gamma.float(), beta.float(), eps).to(torch.bfloat16)
+        a, g = F.linear(y, w, bias).chunk(2, dim=-1)
+        return F.silu(a) * g
+
+    ms, plain_ms, library_ms = time_ms(lambda: ln_dense(*args)), time_ms(lambda: ln_dense_plain(*args)), time_ms(modules)
+    bd = bound(2 * x.shape[0] * c * f, nbytes(*args, out))
+    log(f"{name}: bf16 max_abs_err {err:.3e} (vs plain bf16), rel_rms {rel_rms:.3e} (vs fp32); kernel {ms:.4f} ms, "
+        f"{bd['bound_ms'] / ms:.1%} of its {bd['bound_ms']:.4f} ms bound ({bd['bound_by']}), plain {plain_ms:.4f} ms, "
+        f"modules {library_ms:.4f} ms ({smi})")
+    return {"shape": [x.shape[0], c, f], "max_abs_err": err, "rel_rms": rel_rms, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "library": "fp32 F.layer_norm -> bf16, F.linear, chunk, F.silu, multiply", **bd}
 
 
 def sdpa(q, k, v, scale):
@@ -2575,11 +2628,16 @@ def serve_phase(kernels, none, smi, dev):
         n_params = sum(p.numel() for p in enc.parameters())
         image = torch.randn((BATCH, SIDE, SIDE, 3), generator=g, device=dev)
         with torch.no_grad():
+            gated = kernels["ln_dense"].gated_launches
             (feats, cls), counts = run_path("ViT-g/14 SwiGLU bf16 encoder", kernels,
                                             lambda: enc16(image.to(torch.bfloat16)))
-            expected = {"flash_attention_packed": VITG_REG["depth"], "flash_attention_packed/wgmma": VITG_REG["depth"]}
+            gated = kernels["ln_dense"].gated_launches - gated
+            # every block: K1 on the raw qkv, K2's gated body for LN2 -> w12 -> silu(a) * g
+            expected = {"flash_attention_qkv": VITG_REG["depth"], "flash_attention_qkv/wgmma": VITG_REG["depth"]}
             check_launches("ViT-g/14 SwiGLU bf16 encoder", counts, {**none, **expected})
-            launches["swiglu"] = counts
+            if gated != VITG_REG["depth"]:
+                raise RuntimeError(f"ViT-g/14 SwiGLU bf16 encoder: {gated} gated K2 launches != {VITG_REG['depth']}")
+            launches["swiglu"] = {**counts, "ln_dense/gated": gated}
             for blk in [*enc.blocks, *enc16.blocks]:
                 blk.use_kernels = False
             feats32, cls32 = enc(image)
@@ -2654,12 +2712,13 @@ def main():
     _cuda.library()
     log(f"build: {time.perf_counter() - t0:.1f} s (nvcc {_cuda.build_seconds} s)")
     reports = (_cuda.ptxas_reports("attn_fwd_wgmma") + _cuda.ptxas_reports("ln_dense_wgmma")
+               + _cuda.ptxas_reports("ln_row_stats") + _cuda.ptxas_reports("ln_swiglu_wgmma")
                + _cuda.ptxas_reports("conv3x3_wgmma"))
     if not any(HOPPER_KERNEL in r[0] for r in reports):
         raise RuntimeError(f"ptxas report for the main path's {HOPPER_KERNEL}: none in the build log")
     for report in reports:  # template arguments (<F, NH, Stages, D>, <Cout, Cin / 16>) stay in the mangled name
         text = "\n".join(report)
-        name = re.search(r"\d((?:attn_fwd_wgmma|conv3x3_wgmma)I(?:Li\d+E)+E|ln_dense_wgmma|ln_row_stats)",
+        name = re.search(r"\d((?:attn_fwd_wgmma|conv3x3_wgmma)I(?:Li\d+E)+E|ln_dense_wgmma|ln_swiglu_wgmma|ln_row_stats)",
                          report[0]).group(1)
         used = re.search(r"Used \d+ registers", text)
         spills = re.search(r"\d+ bytes spill stores, \d+ bytes spill loads", text)
@@ -2745,6 +2804,7 @@ def main():
         4 * BATCH * 1370 * 1370 * 1024, sdpa_qkv)
     m["ln_dense"] = kernel_phase("K2 ln_dense", ln_dense, ln_dense_plain, k2_inputs, 2e-4,
                                  2 * BATCH * 1370 * 1024 * 4096, ln_dense_library)
+    m["ln_dense"]["gated"] = gated_phase(ln_dense, ln_dense_plain, randn, gen, smi)
     m["flash_attention"] = kernel_phase(
         "K3 flash_attention", flash_attention, flash_attention_plain, k3_inputs, 1e-4,
         4 * BATCH * 8 * 1369 * 1369 * 64, lambda q, k, v, scale: sdpa(q[None], k[None], v[None], scale))

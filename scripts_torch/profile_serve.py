@@ -26,6 +26,10 @@ host buffers). Then:
    ``unidepth.infer``; the device's idle gaps labelled by the innermost span
    and the outermost operation the host was in at their middle.
 
+Beside them, ``kernel_launches``: each kernel wrapper's launch counter
+(K1-K5, and K2g, K2's gated SwiGLU body) over the traced requests, per
+request.
+
 Prints one JSON line, and writes it to ``--out`` if given. The four numbers
 the benchmark's per-layer metrics of these spans would read are under
 ``"metrics"``: ``encoder_host_ms`` and ``decoder_host_ms`` (item 2),
@@ -134,17 +138,21 @@ def reduce(events) -> dict:
     by innermost span; ``launches``, the device operations (kernels, copies,
     sets) under each span, inclusive; ``waits`` by "span: operation: call";
     ``busy_s`` and ``span_s``; ``idle`` seconds by "span: operation", what
-    the host was in at each gap's middle."""
+    the host was in at each gap's middle; ``ops``, the device operations by
+    "phase: name", the phase the ``unidepth.infer.*`` span they ran under
+    (what an encoder launches, its kernels' launches included)."""
     from benchmark.harness.trace import _Cover, busy_and_span_us, gaps
 
     host, device, runtime = _split(events)
     roots = [e for e in host if e.name == ROOT_SPAN]
     out = {"requests": len(roots), "device_s": defaultdict(float), "launches": Counter(), "waits": Counter(),
-           "busy_s": 0.0, "span_s": 0.0, "idle": defaultdict(float)}
+           "busy_s": 0.0, "span_s": 0.0, "idle": defaultdict(float), "ops": Counter()}
     for e in device:
         names = _spans_of(runtime.get(e.id))
         out["device_s"][names[0] if names else "outside the spans"] += (e.time_range.end - e.time_range.start) * 1e-6
         out["launches"].update(set(names))
+        phase = next((n for n in names if n.startswith(ROOT_SPAN + ".")), names[-1] if names else "outside the spans")
+        out["ops"][f"{phase}: {e.name[:100]}"] += 1
     for op, what in _waits(host, device, runtime):
         outer = _outer_op(op)
         out["waits"][": ".join([_spans_of(op)[0]] + ([outer.name] if outer else []) + [what])] += 1
@@ -175,6 +183,15 @@ def reduce(events) -> dict:
 # ----------------------------------------------------------------------------
 # the run
 # ----------------------------------------------------------------------------
+def launch_counts() -> dict:
+    """The kernel wrappers' forward launch counters, by kernel."""
+    from unidepth_tpu_torch.ops import conv_kernels, flash_attention as fa, fused_block as fb
+
+    return {"K1": fa.flash_attention_qkv.launches, "K2": fb.ln_dense.launches, "K2g": fb.ln_dense.gated_launches,
+            "K3": fa.flash_attention.launches, "K4": fa.flash_attention_packed.launches,
+            "K5": conv_kernels.conv3x3_lowchannel.launches}
+
+
 def _serve(session, state, seconds: float, min_requests: int = 0) -> tuple[int, float]:
     """Requests of the plan for ``seconds`` (and at least ``min_requests``):
     images served and seconds taken, to the end of the device's work."""
@@ -220,8 +237,10 @@ def profile(root: Path, workload: str, seed: int, seconds: float, device="cuda")
 
     activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if session.device.type == "cuda" else [])
     tracing.enable(annotate=True)
+    before = launch_counts()
     with torch_profile(activities=activities) as prof:
         _serve(session, state, session_mod.TRACE_SECONDS, block)
+    launched = {k: v - before[k] for k, v in launch_counts().items()}
     traced = reduce(prof.events())
     tracing.disable()
     tracing.collect()
@@ -238,8 +257,10 @@ def profile(root: Path, workload: str, seed: int, seconds: float, device="cuda")
             "decoder_launches": traced["launches"].get("unidepth.infer.decoder", 0) / n,
             "host_syncs": sum(traced["waits"].values()) / n,
         },
+        "kernel_launches": {k: v / n for k, v in launched.items()},
         "spans": table,
         "traced": {**traced, "launches": {k: v / n for k, v in traced["launches"].items()},
+                   "ops": {k: v / n for k, v in sorted(traced["ops"].items(), key=lambda x: -x[1])},
                    "waits": {k: v / n for k, v in traced["waits"].items()},
                    "idle": dict(sorted(traced["idle"].items(), key=lambda x: -x[1])[:20])},
     }

@@ -294,6 +294,9 @@ def test_reduce_attributes_by_correlation_counts_waits_and_labels_gaps():
     assert got["requests"] == 1
     assert got["launches"] == {"unidepth.infer": 4, "unidepth.infer.decoder": 3, "unidepth.decoder.prompt": 3,
                                "unidepth.kernel.K3": 1, "unidepth.infer.postprocess": 1}
+    assert got["ops"] == {"unidepth.infer.decoder: Memcpy HtoD (Pageable -> Device)": 1,
+                          "unidepth.infer.decoder: gemm": 1, "unidepth.infer.decoder: attn_fwd_wgmma": 1,
+                          "unidepth.infer.postprocess: Memcpy DtoH (Device -> Pageable)": 1}
     assert got["device_s"] == pytest.approx({"unidepth.decoder.prompt": 11e-6, "unidepth.kernel.K3": 10e-6,
                                              "unidepth.infer.postprocess": 2e-6})
     assert got["waits"] == {"unidepth.decoder.prompt: aten::to: cudaStreamSynchronize": 1,
@@ -316,3 +319,4 @@ def test_profile_serve_runs_a_tiny_cell_on_the_cpu(tmp_path):
     assert got["metrics"]["decoder_host_ms"] > 0 and got["metrics"]["encoder_host_ms"] > 0
     assert got["metrics"]["decoder_launches"] == 0 and got["metrics"]["host_syncs"] == 0
     assert got["traced"]["requests"] > 0 and got["traced"]["busy_s"] == 0.0
+    assert got["kernel_launches"] == {k: 0.0 for k in ("K1", "K2", "K2g", "K3", "K4", "K5")}  # plain on the CPU

@@ -87,26 +87,57 @@ def test_swiglu_matches_jax(params, reg):
     _compare(params(reg, "swiglu"), "last", reg, "swiglu")
 
 
-def test_swiglu_block_runs_unfused(params, monkeypatch):
-    """The JAX ``_use_fused`` rule: a SwiGLU block takes the head-packed
-    attention (K4 on the card) and neither K1 nor K2."""
+def test_swiglu_block_runs_unfused(monkeypatch):
+    """The JAX ``_use_fused`` rule split in two: a SwiGLU block that is not
+    int8 takes K1 for its attention and, where it reads as a CUDA bf16
+    block that needs no gradient, K2's gated body for LN2 -> w12 -> silu(a)
+    * g, then w3 (here CPU tensors read as CUDA ones, and each route runs its
+    plain version); fp32 and autograd keep the SwiGLU modules; an int8
+    block (``DinoViT.quantize``) takes K4 and the modules. The gated route
+    computes the modules' function, within bf16 rounding."""
     calls = []
 
-    def refuse(*args, **kwargs):
-        raise AssertionError("a SwiGLU block reached a fused kernel")
+    def recorded(name, plain):
+        def fn(*args, **kwargs):
+            calls.append(name)
+            return plain(*args, **kwargs)
+        return fn
 
-    def packed(*args, **kwargs):
-        calls.append(args[3])
-        return tdinov2.flash_attention_packed_plain(*args, **kwargs)
+    def gated(x, w, b, gamma, beta, eps, activation):
+        assert activation == "swiglu" and w.shape == (256, 64)
+        calls.append("K2g")
+        return tdinov2.ln_dense_plain(x, w, b, gamma, beta, eps, activation)
 
-    monkeypatch.setattr(tdinov2, "flash_attention_qkv", refuse)
-    monkeypatch.setattr(tdinov2, "ln_dense", refuse)
-    monkeypatch.setattr(tdinov2, "flash_attention_packed", packed)
-    tenc = DinoViT(ViTConfig(**_kw(4, "swiglu")))
-    tenc.load_state_dict(encoder_state_dict(params(4, "swiglu")))
-    with torch.no_grad():
-        tenc(torch.from_numpy(_image()))
-    assert calls == [HEADS] * DEPTH
+    monkeypatch.setattr(tdinov2, "flash_attention_qkv", recorded("K1", tdinov2.flash_attention_qkv_plain))
+    monkeypatch.setattr(tdinov2, "flash_attention_packed", recorded("K4", tdinov2.flash_attention_packed_plain))
+    monkeypatch.setattr(tdinov2, "ln_dense", gated)
+    torch.manual_seed(0)
+    # C = 64 and w12 2 x 128 rows: within K2's Hopper body
+    cfg = ViTConfig(embed_dim=64, depth=2, num_heads=2, mlp_ratio=3.0, pos_embed_size=4, output_idx=(1, 2),
+                    ffn_layer="swiglu")
+    enc = DinoViT(cfg)
+    image = torch.randn(1, 28, 42, 3)
+
+    def run(encoder, dtype, grad=False):
+        calls.clear()
+        with torch.set_grad_enabled(grad):
+            feats, _ = encoder(image.to(dtype))
+        return feats, list(calls)
+
+    assert run(enc.quantize(True), torch.float32)[1] == ["K4"] * cfg.depth
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda t: True))
+    assert run(enc, torch.float32)[1] == ["K1"] * cfg.depth
+    assert run(enc, torch.float32, grad=True)[1] == ["K1"] * cfg.depth
+    enc16 = enc.to(torch.bfloat16)
+    assert run(enc16, torch.bfloat16, grad=True)[1] == ["K1"] * cfg.depth
+    feats, seen = run(enc16, torch.bfloat16)
+    assert seen == ["K1", "K2g"] * cfg.depth
+    for blk in enc16.blocks:
+        blk.use_kernels = False
+    ref, seen = run(enc16, torch.bfloat16)
+    assert seen == []
+    for a, b in zip(feats, ref):
+        torch.testing.assert_close(a.float(), b.float(), rtol=1.6e-2, atol=1.6e-2)
 
 
 def test_swiglu_int8_codes_match_jax(params):

@@ -48,6 +48,20 @@
 //     >= M. x rows >= M load as zeros, and no statistics past M are read.
 // At the serving shape: 86 x 16 = 1376 tiles on 132 blocks (10.4 each);
 // 384 threads, one block an SM.
+//
+// The gated body, ln_swiglu_wgmma (DINOv2 ViT-g/14's SwiGLU FFN; no TPU
+// kernel: the JAX package runs that block unfused):
+//   out = silu(a) * g,  (a, g) = the halves of LayerNorm(x) @ W12^T + b12
+// with W12 (2H, C) and out (M, H). The same body and ring; a tile's 256 W
+// rows are loaded as two 128-row boxes, rows n .. n + 127 of a and H + n ..
+// of g, so accumulator columns 8j + 2t and 8(j + 16) + 2t of one thread are
+// the value and the gate of output column n + 8j + 2t. The epilogue adds
+// both biases and writes silu(a) * g in fp32, rounded once to bf16, as a 64
+// x 128 tile (two 64 x 64 TMA stores): the (M, 2H) product and the chunk,
+// silu and multiply passes over it never reach device memory. At ViT-g's
+// shape (M = 10960, C = 1536, 2H = 8192) a call is 276 GFLOP against ~140 MB
+// moved: 0.279 ms at the bf16 peak, bound by operations as GELU's is. The
+// GELU kernel is the body's other instantiation, compiled as before.
 
 #include <math.h>
 
@@ -210,11 +224,22 @@ __device__ __forceinline__ void slice_step(Smem& sm, const float4* gb, float (&a
   ++ring;
 }
 
-__global__ void __launch_bounds__(kThreads, 1)
-    ln_dense_wgmma(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tw,
-                   const __grid_constant__ CUtensorMap to, const float2* __restrict__ stats,
-                   const void* __restrict__ bias, const void* __restrict__ gamma, const void* __restrict__ beta,
-                   int params_bf16, int m, int c, int f, int gelu) {
+__device__ __forceinline__ float swiglu(float a, float g) { return a / (1.f + expf(-a)) * g; }
+
+// bias[i], bias[i + 1] of a bf16 or fp32 vector (i even), as fp32
+__device__ __forceinline__ float2 param_pair(const void* p, int i, int is_bf16) {
+  return is_bf16 ? __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(static_cast<const bf16*>(p) + i))
+                 : *reinterpret_cast<const float2*>(static_cast<const float*>(p) + i);
+}
+
+// The body of both kernels (see the top of the file): kGated false is
+// ln_dense_wgmma, true ln_swiglu_wgmma, whose tensor maps of W and out take
+// 128-row boxes and whose f is W12's 2H rows.
+template <bool kGated>
+__device__ __forceinline__ void ln_dense_body(const CUtensorMap* tx, const CUtensorMap* tw, const CUtensorMap* to,
+                                              const float2* __restrict__ stats, const void* __restrict__ bias,
+                                              const void* __restrict__ gamma, const void* __restrict__ beta,
+                                              int params_bf16, int m, int c, int f, int gelu) {
   extern __shared__ unsigned char smem_raw[];
   // the 128-byte swizzle repeats every 1024 bytes: tiles start on that grid
   const uint32_t pad = (1024u - (ud::smem_u32(smem_raw) & 1023u)) & 1023u;
@@ -250,8 +275,13 @@ __global__ void __launch_bounds__(kThreads, 1)
           const int st = ring % kStages;
           ud::mbar_wait(&sm.empty[st], ((ring / kStages) & 1) ^ 1);  // the first round passes at once
           ud::mbar_arrive_expect_tx(&sm.full[st], kSliceBytes);
-          ud::tma_load_3d(sm.x[st], &tx, &sm.full[st], s * kBK, m0, 0);
-          ud::tma_load_3d(sm.w[st], &tw, &sm.full[st], s * kBK, n0, 0);
+          ud::tma_load_3d(sm.x[st], tx, &sm.full[st], s * kBK, m0, 0);
+          if constexpr (kGated) {  // rows n0 / 2 .. of a, then the same rows of g
+            ud::tma_load_3d(sm.w[st], tw, &sm.full[st], s * kBK, n0 / 2, 0);
+            ud::tma_load_3d(sm.w[st] + (kBN / 2) * kBK, tw, &sm.full[st], s * kBK, f / 2 + n0 / 2, 0);
+          } else {
+            ud::tma_load_3d(sm.w[st], tw, &sm.full[st], s * kBK, n0, 0);
+          }
         }
       }
     }
@@ -290,11 +320,35 @@ __global__ void __launch_bounds__(kThreads, 1)
         }
       ud::mbar_arrive(&sm.empty[(ring + kStages - 1) % kStages]);  // the tile's last stage
 
-      // bias (+ GELU) -> bf16 into this warpgroup's staging chunks, in the
-      // swizzle the output map's TMA store reads, once the previous tile's
-      // stores from them have read them
+      // bias (+ GELU, or the gate) -> bf16 into this warpgroup's staging
+      // chunks, in the swizzle the output map's TMA store reads, once the
+      // previous tile's stores from them have read them
       if (tid == 0) ud::tma_store_wait_read();
       ud::named_barrier_sync(1 + wg, 128);
+      if constexpr (kGated) {
+        // output columns n0 / 2 + 8j + 2t, + 1: a in acc[4j ..], g in acc[4(j + 16) ..]
+#pragma unroll
+        for (int j = 0; j < kBN / 16; ++j) {
+          const int col = n0 / 2 + 8 * j + 2 * ln.t;
+          const float2 ba = param_pair(bias, col, params_bf16), bg = param_pair(bias, f / 2 + col, params_bf16);
+          const int ga = 4 * j, gg = 4 * (j + kBN / 16);  // constant once unrolled: acc stays in registers
+          unsigned char* chunk = ob + (j / 8) * (64 * 64 * 2);
+          const int off = (((j % 8) ^ g) << 4) + 4 * ln.t;
+          *reinterpret_cast<uint32_t*>(chunk + orow * 128 + off) = ud::pack_bf16(
+              swiglu(acc[ga] + ba.x, acc[gg] + bg.x), swiglu(acc[ga + 1] + ba.y, acc[gg + 1] + bg.y));
+          *reinterpret_cast<uint32_t*>(chunk + (orow + 8) * 128 + off) = ud::pack_bf16(
+              swiglu(acc[ga + 2] + ba.x, acc[gg + 2] + bg.x), swiglu(acc[ga + 3] + ba.y, acc[gg + 3] + bg.y));
+        }
+        ud::fence_proxy_async();
+        ud::named_barrier_sync(1 + wg, 128);
+        if (tid == 0 && m0 + 64 * wg < m) {
+#pragma unroll
+          for (int q = 0; q < kBN / 128; ++q)
+            ud::tma_store_3d(to, ob + q * (64 * 64 * 2), n0 / 2 + 64 * q, m0 + 64 * wg, 0);
+          ud::tma_store_commit();
+        }
+        continue;
+      }
 #pragma unroll
       for (int j = 0; j < kBN / 8; ++j) {
         const int col = n0 + 8 * j + 2 * ln.t;
@@ -318,12 +372,65 @@ __global__ void __launch_bounds__(kThreads, 1)
       ud::named_barrier_sync(1 + wg, 128);
       if (tid == 0 && m0 + 64 * wg < m) {
 #pragma unroll
-        for (int q = 0; q < kBN / 64; ++q) ud::tma_store_3d(&to, ob + q * (64 * 64 * 2), n0 + 64 * q, m0 + 64 * wg, 0);
+        for (int q = 0; q < kBN / 64; ++q) ud::tma_store_3d(to, ob + q * (64 * 64 * 2), n0 + 64 * q, m0 + 64 * wg, 0);
         ud::tma_store_commit();
       }
     }
     if (tid == 0) ud::tma_store_wait_read();  // shared memory stays valid until read
   }
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+    ln_dense_wgmma(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tw,
+                   const __grid_constant__ CUtensorMap to, const float2* __restrict__ stats,
+                   const void* __restrict__ bias, const void* __restrict__ gamma, const void* __restrict__ beta,
+                   int params_bf16, int m, int c, int f, int gelu) {
+  ln_dense_body<false>(&tx, &tw, &to, stats, bias, gamma, beta, params_bf16, m, c, f, gelu);
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+    ln_swiglu_wgmma(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tw,
+                    const __grid_constant__ CUtensorMap to, const float2* __restrict__ stats,
+                    const void* __restrict__ bias, const void* __restrict__ gamma, const void* __restrict__ beta,
+                    int params_bf16, int m, int c, int f) {
+  ln_dense_body<true>(&tx, &tw, &to, stats, bias, gamma, beta, params_bf16, m, c, f, 0);
+}
+
+// The shared launch of both GEMM entries (arguments as they document).
+template <bool kGated>
+int launch_hopper(const void* x, const void* w, const void* bias, const void* gamma, const void* beta,
+                  const void* stats, void* out, int m, int c, int f, int gelu, int params_bf16, void* stream) {
+  if (m <= 0 || c <= 0 || c % kBK || c > kMaxC || f <= 0 || f % kBN) return cudaErrorInvalidValue;
+  if ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w) | reinterpret_cast<uintptr_t>(out) |
+       reinterpret_cast<uintptr_t>(stats) | reinterpret_cast<uintptr_t>(bias)) % 16)
+    return cudaErrorInvalidValue;
+  const long long tiles = static_cast<long long>((m + kBM - 1) / kBM) * (f / kBN);
+  if (tiles > 0x7fffffff) return cudaErrorInvalidValue;
+  const int n_out = kGated ? f / 2 : f;  // out's columns
+  CUtensorMap tx, tw, to;
+  if (!ud::make_map_sw128(&tx, x, c, m, 1, c, static_cast<long long>(m) * c, kBM) ||
+      !ud::make_map_sw128(&tw, w, c, f, 1, c, static_cast<long long>(f) * c, kGated ? kBN / 2 : kBN) ||
+      !ud::make_map_sw128(&to, out, n_out, m, 1, n_out, static_cast<long long>(m) * n_out, 64))
+    return cudaErrorInvalidValue;
+  int device = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&device);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (e == cudaSuccess) {
+    if constexpr (kGated)
+      e = cudaFuncSetAttribute(ln_swiglu_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes(c));
+    else
+      e = cudaFuncSetAttribute(ln_dense_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes(c));
+  }
+  if (e != cudaSuccess) return e;
+  const int grid = static_cast<int>(tiles < sms ? tiles : sms);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if constexpr (kGated)
+    ln_swiglu_wgmma<<<grid, kThreads, smem_bytes(c), st>>>(tx, tw, to, static_cast<const float2*>(stats), bias, gamma,
+                                                           beta, params_bf16, m, c, f);
+  else
+    ln_dense_wgmma<<<grid, kThreads, smem_bytes(c), st>>>(tx, tw, to, static_cast<const float2*>(stats), bias, gamma,
+                                                          beta, params_bf16, m, c, f, gelu);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -346,25 +453,14 @@ extern "C" int ud_ln_row_stats(const void* x, void* stats, int m, int c, float e
 extern "C" int ud_ln_dense_hopper_fwd(const void* x, const void* w, const void* bias, const void* gamma,
                                       const void* beta, const void* stats, void* out, int m, int c, int f,
                                       int gelu, int params_bf16, void* stream) {
-  if (m <= 0 || c <= 0 || c % kBK || c > kMaxC || f <= 0 || f % kBN) return cudaErrorInvalidValue;
-  if ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w) | reinterpret_cast<uintptr_t>(out) |
-       reinterpret_cast<uintptr_t>(stats) | reinterpret_cast<uintptr_t>(bias)) % 16)
-    return cudaErrorInvalidValue;
-  const long long tiles = static_cast<long long>((m + kBM - 1) / kBM) * (f / kBN);
-  if (tiles > 0x7fffffff) return cudaErrorInvalidValue;
-  CUtensorMap tx, tw, to;
-  if (!ud::make_map_sw128(&tx, x, c, m, 1, c, static_cast<long long>(m) * c, kBM) ||
-      !ud::make_map_sw128(&tw, w, c, f, 1, c, static_cast<long long>(f) * c, kBN) ||
-      !ud::make_map_sw128(&to, out, f, m, 1, f, static_cast<long long>(m) * f, 64))
-    return cudaErrorInvalidValue;
-  int device = 0, sms = 0;
-  cudaError_t e = cudaGetDevice(&device);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(ln_dense_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes(c));
-  if (e != cudaSuccess) return e;
-  const int grid = static_cast<int>(tiles < sms ? tiles : sms);
-  ln_dense_wgmma<<<grid, kThreads, smem_bytes(c), static_cast<cudaStream_t>(stream)>>>(
-      tx, tw, to, static_cast<const float2*>(stats), bias, gamma, beta, params_bf16, m, c, f, gelu);
-  return cudaGetLastError();
+  return launch_hopper<false>(x, w, bias, gamma, beta, stats, out, m, c, f, gelu, params_bf16, stream);
+}
+
+// K2's gated GEMM on the statistics of ud_ln_row_stats: as
+// ud_ln_dense_hopper_fwd with W = W12 (F = 2H, C) and bias (2H,), whose first
+// H rows give the value a and last H the gate g; out (M, H) = silu(a) * g.
+extern "C" int ud_ln_swiglu_hopper_fwd(const void* x, const void* w, const void* bias, const void* gamma,
+                                       const void* beta, const void* stats, void* out, int m, int c, int f,
+                                       int params_bf16, void* stream) {
+  return launch_hopper<true>(x, w, bias, gamma, beta, stats, out, m, c, f, 0, params_bf16, stream);
 }

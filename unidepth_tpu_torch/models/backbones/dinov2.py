@@ -20,19 +20,27 @@ position embedding, and every feature map skips them (``1 + R:``).
 the position embedding with torch's explicit ``scale_factor`` semantics,
 (grid + offset) / pos_embed_size.
 
-``ViTBlock`` has the JAX block's two branches, chosen by the JAX rule
-``_use_fused``: int8 GEMMs and a SwiGLU MLP (``ffn_layer='swiglu'``) turn
-fusion off.
+``ViTBlock`` splits the JAX rule ``_use_fused`` (int8 GEMMs and a SwiGLU
+MLP turn fusion off) in two: int8 alone decides the attention, and the MLP
+goes by its kind and by what the block observes.
 
-* fused (bf16 serving): LN1 -> qkv stays plain (``F.layer_norm`` + a GEMM);
-  attention is kernel K1 reading the raw (B, N, 3C) projection with the
-  softmax scale applied inside the kernel; LN2 -> fc1 -> GELU is kernel K2;
-  fc2, LayerScale and the residuals stay plain.
-* unfused (int8 serving, ``DinoViT.quantize``, and SwiGLU): fp32 LN1 cast
-  to the compute dtype -> qkv -> kernel K4 on the three channel slices of
-  the projection, read in place -> proj; fp32 LN2 cast -> fc1 -> exact
-  GELU -> fc2, or SwiGLU's ``w3(silu(a) * g)`` with ``(a, g)`` the halves
-  of ``w12``. The linears are int8 where the block is quantized.
+* attention: fp32 LN1 cast to the compute dtype -> qkv (a GEMM); then, in
+  every block that is not int8 (SwiGLU too), kernel K1 reading the raw
+  (B, N, 3C) projection with the softmax scale applied inside the kernel;
+  in an int8 block (``DinoViT.quantize``) kernel K4 on the three channel
+  slices of the projection, read in place. Then proj.
+* GELU MLP: LN2 -> fc1 -> GELU is kernel K2, fc2 a GEMM; int8 blocks run
+  fp32 LN2 cast -> fc1 -> exact GELU -> fc2 as int8 linears.
+* SwiGLU MLP (``ffn_layer='swiglu'``, DINOv2 ViT-g/14): where
+  ``_mlp_on_k2g`` holds (kernels on, a CUDA bf16 block that is not int8
+  and needs no gradient, widths within K2's Hopper body), LN2 -> w12 ->
+  ``silu(a) * g`` over the two halves of the product is one launch of K2's
+  gated body, then w3 a GEMM: the (M, 2H) product never reaches device
+  memory. Everywhere else (the CPU, fp32, int8, training,
+  ``set_kernels(False)`` and so the exporter) the modules: fp32 LN2 cast ->
+  ``w3(silu(a) * g)`` with ``(a, g)`` the halves of ``w12``.
+
+LayerScale and the residuals stay plain.
 
 On CPU tensors the kernels' plain versions run; ``use_kernels=False`` pins
 the plain versions on any device. Every LayerNorm here uses eps 1e-6
@@ -72,7 +80,7 @@ from unidepth_tpu_torch.ops.flash_attention import (
     flash_attention_qkv,
     flash_attention_qkv_plain,
 )
-from unidepth_tpu_torch.ops.fused_block import ln_dense, ln_dense_plain
+from unidepth_tpu_torch.ops.fused_block import fits_hopper_body, ln_dense, ln_dense_plain
 from unidepth_tpu_torch.ops.quant import QuantLinear, quantize_linear_tree
 from unidepth_tpu_torch.ops.resize import resize
 from unidepth_tpu_torch.parallel.mesh import tp_inputs
@@ -104,6 +112,10 @@ VIT_PRESETS: dict[str, ViTConfig] = {
     "vits14": ViTConfig(embed_dim=384, depth=12, num_heads=6, output_idx=(3, 6, 9, 12)),
     "vitb14": ViTConfig(embed_dim=768, depth=12, num_heads=12, output_idx=(3, 6, 9, 12)),
     "vitl14": ViTConfig(embed_dim=1024, depth=24, num_heads=16, output_idx=(6, 12, 18, 24)),
+    # DINOv2 ViT-g/14 (arXiv:2304.07193): SwiGLU of hidden 4096; the outputs
+    # at its quarter points, as ViT-L's (no UniDepth checkpoint ships one)
+    "vitg14": ViTConfig(embed_dim=1536, depth=40, num_heads=24, mlp_ratio=4.0, ffn_layer="swiglu",
+                        output_idx=(10, 20, 30, 40)),
 }
 
 
@@ -162,6 +174,20 @@ class ViTBlock(nn.Module):
         """int8 GEMMs: the block's linears are QuantLinears (``DinoViT.quantize``)."""
         return isinstance(self.attn.qkv, QuantLinear)
 
+    def _mlp_on_k2g(self, x: torch.Tensor) -> bool:
+        """Whether the SwiGLU MLP's LN2 -> w12 -> ``silu(a) * g`` runs as K2's
+        gated launch on ``x``: kernels on, a block that is not int8, a CUDA
+        bf16 ``x`` where nothing needs a gradient, and widths K2's Hopper
+        body takes (``fits_hopper_body``)."""
+        mlp, n2 = self.mlp, self.norm2
+        if not (self.use_kernels and isinstance(mlp, _SwiGLU) and not self.quant):
+            return False
+        w12 = mlp.w12
+        needs_grad = torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, n2.weight, n2.bias, w12.weight, w12.bias))
+        return (x.is_cuda and x.dtype == w12.weight.dtype and not needs_grad
+                and fits_hopper_body(w12.in_features, w12.out_features, x.dtype))
+
     def forward(self, x, keep_masks=None, keep: float = 1.0):
         """``keep_masks``: None, or (2, B) bools, the stochastic-depth draw
         of the attention and MLP branches at keep probability ``keep``."""
@@ -169,12 +195,12 @@ class ViTBlock(nn.Module):
         # heads: the widths come from the heads, never from x
         c = self.num_heads * self.head_dim
         scale = self.head_dim**-0.5
-        # the JAX rule _use_fused (dinov2.py:113-135): int8 GEMMs and a
-        # SwiGLU MLP turn the fused LN -> GEMM and QKV-direct attention
-        # kernels off
-        fused = not self.quant and isinstance(self.mlp, _Mlp)
+        # int8 GEMMs turn the QKV-direct attention and K2 off (the JAX rule
+        # _use_fused, dinov2.py:113-135); a SwiGLU MLP keeps K1 and takes
+        # K2's gated body where _mlp_on_k2g holds
+        quant = self.quant
         qkv = self.attn.qkv(layer_norm(self.norm1, x))
-        if fused:
+        if not quant:
             attn_fn = flash_attention_qkv if self.use_kernels else flash_attention_qkv_plain
             attn = attn_fn(qkv, self.num_heads, scale)
         else:
@@ -187,11 +213,14 @@ class ViTBlock(nn.Module):
             attn = drop_path(attn, keep_masks[0], keep)
         x = x + attn
         n2 = self.norm2
-        if fused:
+        if not quant and isinstance(self.mlp, _Mlp):
             fc1 = self.mlp.fc1
             ln_dense_fn = ln_dense if self.use_kernels else ln_dense_plain
             xt, gamma, beta = tp_inputs(fc1, x, n2.weight, n2.bias)
             y = self.mlp.fc2(ln_dense_fn(xt, fc1.weight, fc1.bias, gamma, beta, n2.eps, "gelu"))
+        elif self._mlp_on_k2g(x):
+            w12 = self.mlp.w12
+            y = self.mlp.w3(ln_dense(x, w12.weight, w12.bias, n2.weight, n2.bias, n2.eps, "swiglu"))
         else:
             y = self.mlp(layer_norm(n2, x))
         if self.ls2 is not None:

@@ -149,16 +149,29 @@ class UniDepthV2(ServingPrecisionMixin, nn.Module):
         """Build from a reference-schema JSON config dict, placed on
         ``device`` (default ``cuda``; without a card pass ``device="cpu"``)
         in ``dtype`` (default ``compute_dtype``: bf16 on the card, fp32 on
-        the CPU)."""
+        the CPU). The encoder's sizes come from the preset its
+        ``pixel_encoder.name`` names (``VIT_PRESETS``), each overridable by
+        a ``pixel_encoder`` key; a name no preset knows must give
+        ``embed_dim``, ``depth`` and ``num_heads`` itself, or this raises
+        ValueError."""
         device = resolve_device(device)
         pe = config["model"]["pixel_encoder"]
         vit = VIT_PRESETS.get(pe["name"].replace("dinov2_", ""))
+        if vit is None:
+            missing = [k for k in ("embed_dim", "depth", "num_heads") if k not in pe]
+            if missing:
+                raise ValueError(f"pixel_encoder {pe['name']!r} names no preset (dinov2_ + one of "
+                                 f"{sorted(VIT_PRESETS)}) and its config lacks {missing}")
+            vit = ViTConfig(embed_dim=pe["embed_dim"], depth=pe["depth"], num_heads=pe["num_heads"],
+                            output_idx=(3, 6, 9, 12))
         enc_cfg = ViTConfig(
-            embed_dim=pe.get("embed_dim", vit.embed_dim if vit else 384),
-            depth=pe.get("depth", vit.depth if vit else 12),
-            num_heads=pe.get("num_heads", vit.num_heads if vit else 6),
+            embed_dim=pe.get("embed_dim", vit.embed_dim),
+            depth=pe.get("depth", vit.depth),
+            num_heads=pe.get("num_heads", vit.num_heads),
+            mlp_ratio=pe.get("mlp_ratio", vit.mlp_ratio),
+            ffn_layer=pe.get("ffn_layer", vit.ffn_layer),
             pos_embed_size=pe.get("pos_embed_size", 37),
-            output_idx=tuple(pe.get("output_idx", vit.output_idx if vit else (3, 6, 9, 12))),
+            output_idx=tuple(pe.get("output_idx", vit.output_idx)),
             num_register_tokens=pe.get("num_register_tokens", 0),
             use_norm=pe.get("use_norm", False),
             # the reference merges the training section into the encoder's

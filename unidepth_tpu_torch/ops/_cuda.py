@@ -20,6 +20,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -113,13 +114,16 @@ def build() -> Path:
 
 def ptxas_reports(kernel: str) -> list[list[str]]:
     """What ptxas said about each entry function whose mangled name holds
-    ``kernel`` when this source hash was built, in build order: registers,
-    spills, shared memory. Empty when the build's log holds no such entry."""
+    ``kernel`` as its identifier (after the identifier's length, so not the
+    source file's name in an anonymous namespace's) when this source hash
+    was built, in build order: registers, spills, shared memory. Empty when
+    the build's log holds no such entry."""
     log = BUILD_ROOT / _build_key() / "nvcc.log"
     lines = log.read_text().splitlines() if log.is_file() else []
+    named = re.compile(rf"\d{re.escape(kernel)}")
     reports = []
     for i, line in enumerate(lines):
-        if "Compiling entry function" in line and kernel in line:
+        if "Compiling entry function" in line and named.search(line):
             out = [line]
             for nxt in lines[i + 1 :]:
                 if "Compiling entry function" in nxt or not nxt.startswith(("ptxas", " ")):
@@ -149,6 +153,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.ud_ln_row_stats.restype = i
     lib.ud_ln_dense_hopper_fwd.argtypes = [p] * 7 + [i] * 5 + [p]
     lib.ud_ln_dense_hopper_fwd.restype = i
+    lib.ud_ln_swiglu_hopper_fwd.argtypes = [p] * 7 + [i] * 4 + [p]
+    lib.ud_ln_swiglu_hopper_fwd.restype = i
     lib.ud_conv3x3_fwd.argtypes = [p, p, p, p] + [i] * 7 + [p]
     lib.ud_conv3x3_fwd.restype = i
     lib.ud_conv3x3_hopper_fwd.argtypes = [p, p, p, p] + [i] * 6 + [p]

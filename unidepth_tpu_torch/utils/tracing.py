@@ -33,7 +33,7 @@ the span that launched it (``scripts_torch/profile_serve.py``).
 The serving path's spans: ``unidepth.infer`` (root) with
 ``unidepth.infer.{prepare,encoder,decoder,postprocess}``; under the decoder
 ``unidepth.decoder.{camera,prompt,pyramid,heads}``; the kernel wrappers'
-``unidepth.kernel.{K1,K2,K3,K4,K5}``.
+``unidepth.kernel.{K1,K2,K2g,K3,K4,K5}`` (K2g: K2's gated SwiGLU body).
 """
 
 from __future__ import annotations
