@@ -26,9 +26,14 @@ host buffers). Then:
    ``unidepth.infer``; the device's idle gaps labelled by the innermost span
    and the outermost operation the host was in at their middle.
 
-Beside them, ``kernel_launches``: each kernel wrapper's launch counter
-(K1-K5, and K2g, K2's gated SwiGLU body) over the traced requests, per
-request.
+Beside them, per traced request: ``kernel_launches``, each kernel wrapper's
+launch counter (K1-K5, and K2g, K2's gated SwiGLU body), which ticks only
+where the wrapper runs on the host, so not in a replayed stage graph
+(``unidepth_tpu_torch/models/stage_graphs.py``); ``kernel_ops``, the same
+kernels counted by their device operations' names in the trace, which a
+replay launches as well; and ``graphs``, the stage graphs' counters:
+replays, eager calls by reason, the share of stage calls replayed, and the
+captures made since the process started (warm-up included).
 
 Prints one JSON line, and writes it to ``--out`` if given. The four numbers
 the benchmark's per-layer metrics of these spans would read are under
@@ -192,6 +197,39 @@ def launch_counts() -> dict:
             "K5": conv_kernels.conv3x3_lowchannel.launches}
 
 
+#: the names of each kernel's device operations (the attention kernels K1,
+#: K3 and K4 share theirs: the phase and the serving precision tell them apart)
+ATTENTION_OPS = ("attn_fwd_wgmma", "attn_fwd_bf16", "attn_fwd_simt")
+KERNEL_OPS = {"K2": ("ln_dense_wgmma", "ln_dense_bf16", "ln_dense_simt"), "K2g": ("ln_swiglu_wgmma",),
+              "K5": ("conv3x3_wgmma", "conv3x3_bf16", "conv3x3_simt")}
+
+
+def kernel_ops(ops: dict, int8: bool = False) -> dict:
+    """Launches of K1-K5 from a trace's device operations by "phase: name"
+    (``reduce``'s ``ops``): attention under the encoder is K1 (K4 when
+    the encoder serves int8), under the decoder K3."""
+    out = dict.fromkeys(("K1", "K2", "K2g", "K3", "K4", "K5"), 0.0)
+    for key, n in ops.items():
+        phase, _, name = key.partition(": ")
+        if any(k in name for k in ATTENTION_OPS):
+            if phase == ROOT_SPAN + ".encoder":
+                out["K4" if int8 else "K1"] += n
+            elif phase == ROOT_SPAN + ".decoder":
+                out["K3"] += n
+        for kernel, names in KERNEL_OPS.items():
+            if any(k in name for k in names):
+                out[kernel] += n
+    return out
+
+
+def graph_counts() -> dict:
+    """The stage graphs' counters: captures, replays, eager calls by reason."""
+    from unidepth_tpu_torch.models import stage_graphs
+
+    c = stage_graphs.call
+    return {"captures": c.captures, "replays": c.replays, "eager": dict(c.eager)}
+
+
 def _serve(session, state, seconds: float, min_requests: int = 0) -> tuple[int, float]:
     """Requests of the plan for ``seconds`` (and at least ``min_requests``):
     images served and seconds taken, to the end of the device's work."""
@@ -237,15 +275,20 @@ def profile(root: Path, workload: str, seed: int, seconds: float, device="cuda")
 
     activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if session.device.type == "cuda" else [])
     tracing.enable(annotate=True)
-    before = launch_counts()
+    before, graphs_before = launch_counts(), graph_counts()
     with torch_profile(activities=activities) as prof:
         _serve(session, state, session_mod.TRACE_SECONDS, block)
     launched = {k: v - before[k] for k, v in launch_counts().items()}
+    graphs = graph_counts()
     traced = reduce(prof.events())
     tracing.disable()
     tracing.collect()
 
     n = max(traced["requests"], 1)
+    replays = graphs["replays"] - graphs_before["replays"]
+    eager = {k: v - graphs_before["eager"].get(k, 0) for k, v in graphs["eager"].items()}
+    eager = {k: v for k, v in eager.items() if v}
+    stage_calls = replays + sum(eager.values())
     return {
         "workload": workload, "seed": seed, "seconds": seconds,
         "device": torch.cuda.get_device_name(session.device) if session.device.type == "cuda" else "cpu",
@@ -258,6 +301,11 @@ def profile(root: Path, workload: str, seed: int, seconds: float, device="cuda")
             "host_syncs": sum(traced["waits"].values()) / n,
         },
         "kernel_launches": {k: v / n for k, v in launched.items()},
+        "kernel_ops": {k: v / n for k, v in
+                       kernel_ops(traced["ops"], session.model.serving_precision == "int8").items()},
+        "graphs": {"replays": replays / n, "eager": {k: v / n for k, v in eager.items()},
+                   "replay_share": replays / stage_calls if stage_calls else 0.0,
+                   "captures_since_start": graphs["captures"]},
         "spans": table,
         "traced": {**traced, "launches": {k: v / n for k, v in traced["launches"].items()},
                    "ops": {k: v / n for k, v in sorted(traced["ops"].items(), key=lambda x: -x[1])},

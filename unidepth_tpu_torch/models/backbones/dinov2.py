@@ -73,6 +73,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from unidepth_tpu_torch.models import stage_graphs
 from unidepth_tpu_torch.nn.layers import LayerScale, drop_path, layer_norm, uniform_rows
 from unidepth_tpu_torch.ops.flash_attention import (
     flash_attention_packed,
@@ -294,7 +295,11 @@ class DinoViT(nn.Module):
     def forward(self, image: torch.Tensor, generator: torch.Generator | None = None):
         """image: (B, H, W, 3), H and W multiples of the patch size.
         ``generator`` turns stochastic depth on (training) when the
-        config's ``drop_path_rate`` is positive."""
+        config's ``drop_path_rate`` is positive. Inside V2's ``infer()`` a
+        CUDA graph of this body may run instead (``models/stage_graphs.py``)."""
+        return stage_graphs.call(self, self._forward, image, generator)
+
+    def _forward(self, image: torch.Tensor, generator: torch.Generator | None):
         cfg = self.cfg
         b, h, w, _ = image.shape
         gh, gw = h // cfg.patch_size, w // cfg.patch_size

@@ -28,6 +28,7 @@ import torch
 import torch.nn as nn
 
 from unidepth_tpu_torch.geometry.coords import coords_grid
+from unidepth_tpu_torch.models import stage_graphs
 from unidepth_tpu_torch.nn.conv import Conv2d, PatchConvTranspose
 from unidepth_tpu_torch.nn.layers import MLP, AttentionBlock, AttentionLayer, layer_norm
 from unidepth_tpu_torch.nn.upsample import ResUpsampleBil
@@ -232,7 +233,12 @@ class Decoder(nn.Module):
     def forward(self, features, cls_tokens, image_shape, rays_gt=None, confidence: bool = True):
         """features: 4 x (B, h, w, C); cls_tokens: 4 x (B, 1, C); image_shape
         (H, W); rays_gt optional (B, H*W, 3) replacing the predicted rays.
-        ``confidence=False`` skips the confidence head."""
+        ``confidence=False`` skips the confidence head. Inside V2's
+        ``infer()`` a CUDA graph of this body may run instead
+        (``models/stage_graphs.py``)."""
+        return stage_graphs.call(self, self._forward, features, cls_tokens, tuple(image_shape), rays_gt, confidence)
+
+    def _forward(self, features, cls_tokens, image_shape, rays_gt, confidence: bool):
         H, W = image_shape
         b, gh, gw, _ = features[0].shape
         device = features[0].device

@@ -1,10 +1,12 @@
 """UniDepthV2 (counterpart of unidepth_tpu/models/unidepthv2/model.py).
 
-``infer(rgb, camera)`` runs eagerly: ImageNet normalisation, aspect-ratio
-padding and a bilinear resize into the pixel budget, the DINOv2 encoder, the
-V2 decoder, then the maps resized back to the input, pads stripped and the
-intrinsics de-scaled. Outputs are channel-last float32, as in the JAX
-package.
+``infer(rgb, camera)``: ImageNet normalisation, aspect-ratio padding and a
+bilinear resize into the pixel budget, the DINOv2 encoder, the V2 decoder,
+then the maps resized back to the input, pads stripped and the intrinsics
+de-scaled. Outputs are channel-last float32, as in the JAX package. On a
+card the encoder and the decoder replay CUDA graphs captured per input
+shape (``models/stage_graphs.py``); pre- and postprocessing run eagerly, and
+nothing in a call makes the host wait for the device.
 
 Compute dtype is the parameters' dtype: ``from_config`` puts the model in
 bf16 on CUDA and float32 on the CPU (the JAX package's rule), and the JAX
@@ -29,6 +31,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from unidepth_tpu_torch.geometry.cameras import CameraBase, Pinhole
+from unidepth_tpu_torch.models import stage_graphs
 from unidepth_tpu_torch.models.backbones.dinov2 import VIT_PRESETS, DinoViT, ViTConfig
 from unidepth_tpu_torch.models.serving import ServingPrecisionMixin
 from unidepth_tpu_torch.models.unidepthv2.decoder import Decoder
@@ -37,6 +40,7 @@ from unidepth_tpu_torch.nn.upsample import ResidualConvUnit
 from unidepth_tpu_torch.ops.quant import quantizable_linears
 from unidepth_tpu_torch.ops.resize import resize
 from unidepth_tpu_torch.utils import tracing
+from unidepth_tpu_torch.utils.built_once import built_once
 from unidepth_tpu_torch.utils.constants import IMAGENET_DATASET_MEAN, IMAGENET_DATASET_STD
 
 
@@ -73,6 +77,22 @@ DEFAULT_SHAPE_CONSTRAINTS = {
     "pixels_max": 600_000,
     "shape_mult": 14,
 }
+
+
+@built_once()
+def _imagenet_scale(device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """ImageNet's mean and std times 255 on ``device``."""
+    mean = torch.tensor(IMAGENET_DATASET_MEAN, device=device) * 255.0
+    std = torch.tensor(IMAGENET_DATASET_STD, device=device) * 255.0
+    return mean, std
+
+
+@built_once(maxsize=256)
+def _descale(factor: float, device: torch.device) -> torch.Tensor:
+    """The (3, 3) factors that undo the resize ``factor`` on fx, fy, cx and
+    cy, on ``device``."""
+    inv = 1.0 / factor
+    return torch.tensor([[inv, 1.0, inv], [1.0, inv, inv], [1.0, 1.0, 1.0]], device=device)
 
 
 def compute_dtype(device) -> torch.dtype:
@@ -139,6 +159,7 @@ class UniDepthV2(ServingPrecisionMixin, nn.Module):
         self.resolution_level: int | None = None
         self.interpolation_mode = "bilinear"
         self.attention_logit_bound = None
+        self._stage_graphs = stage_graphs.StageGraphs()
         self._init_serving()
 
     # ------------------------------------------------------------------
@@ -334,9 +355,16 @@ class UniDepthV2(ServingPrecisionMixin, nn.Module):
         / (B,3,3) K matrix; a one-camera batch is broadcast to B. Returns
         channel-last float32 outputs at the input resolution; ``outputs``
         selects a subset of INFER_OUTPUTS (leaving out 'confidence' skips
-        the confidence head)."""
+        the confidence head).
+
+        On a card the encoder and the decoder replay CUDA graphs captured per
+        input shape (``models/stage_graphs.py``), and nothing in the call
+        makes the host wait for the device: the outputs are still being
+        computed when it returns. A pinned ``rgb`` is uploaded
+        asynchronously, so it must not change until the outputs are read."""
         device = next(self.parameters()).device
-        with tracing.span("unidepth.infer", device):
+        graphs = self._stage_graphs
+        with tracing.span("unidepth.infer", device), stage_graphs.serving(graphs):
             with tracing.span("unidepth.infer.prepare", device):
                 x, rays_gt, key = self._prepare(rgb, camera, normalize, outputs)
             _, _, pads, padded, (new_h, new_w), factor, _, _, out_key = key
@@ -354,7 +382,11 @@ class UniDepthV2(ServingPrecisionMixin, nn.Module):
                     "intrinsics": out["intrinsics"],
                     "depth_features": out["depth_features"],
                 }
-                return self._postprocess(core, pads, padded, factor, out_key)
+                return graphs.detach(self._postprocess(core, pads, padded, factor, out_key))
+
+    def _reset_serving_caches(self):
+        super()._reset_serving_caches()
+        self._stage_graphs.clear()  # captured over the weights, kernels and encoder these change
 
     def _prepare(self, rgb, camera, normalize, outputs):
         """``infer``'s input on the model's device: the image uploaded,
@@ -368,7 +400,8 @@ class UniDepthV2(ServingPrecisionMixin, nn.Module):
             rgb = rgb[None]
         if rgb.shape[1] == 3 and rgb.shape[-1] != 3:
             rgb = rgb.permute(0, 2, 3, 1)
-        rgb = rgb.to(device).float()  # convert after the copy: uint8 moves 4x fewer bytes
+        # convert after the copy: uint8 moves 4x fewer bytes
+        rgb = rgb.to(device, non_blocking=rgb.device.type == "cpu" and rgb.is_pinned()).float()
         B, H, W, _ = rgb.shape
         if camera is not None:
             if not isinstance(camera, CameraBase):
@@ -382,8 +415,7 @@ class UniDepthV2(ServingPrecisionMixin, nn.Module):
         pl, pr, pt, pb = pads
         x = rgb
         if normalize:
-            mean = torch.tensor(IMAGENET_DATASET_MEAN, device=device) * 255.0
-            std = torch.tensor(IMAGENET_DATASET_STD, device=device) * 255.0
+            mean, std = _imagenet_scale(device)
             x = (x - mean) / std
         x = F.pad(x, (0, 0, pl, pr, pt, pb))
         x = resize(x, (new_h, new_w), mode="bilinear", align_corners=False)
@@ -425,11 +457,7 @@ class UniDepthV2(ServingPrecisionMixin, nn.Module):
         points = post(core["points"])
         rays = post(core["rays"])
         rays = rays / torch.linalg.norm(rays, dim=-1, keepdim=True).clamp_min(1e-5)
-        inv = 1.0 / factor
-        scale_mat = torch.tensor(
-            [[inv, 1.0, inv], [1.0, inv, inv], [1.0, 1.0, 1.0]], device=core["intrinsics"].device
-        )
-        K = core["intrinsics"] * scale_mat  # fx, fy, cx, cy de-scaled
+        K = core["intrinsics"] * _descale(factor, core["intrinsics"].device)  # fx, fy, cx, cy de-scaled
         K[:, 0, 2] -= pl
         K[:, 1, 2] -= pt
         res = {

@@ -7,6 +7,8 @@ import math
 import numpy as np
 import torch
 
+from unidepth_tpu_torch.utils.built_once import built_once
+
 __all__ = ["generate_fourier_features", "position_embedding_sine"]
 
 
@@ -21,11 +23,7 @@ def generate_fourier_features(
     """Sin(/cos) features of ``x`` (..., D) -> (..., dim[(+D)])."""
     input_dim = x.shape[-1]
     num_bands = dim // (2 * input_dim) if use_cos else dim // input_dim
-    if use_log:
-        scales = 2.0 ** np.linspace(0.0, math.log2(max_freq), num=num_bands)
-    else:
-        scales = np.linspace(1.0, max_freq / 2, num=num_bands)
-    scales = torch.as_tensor(scales * math.pi, dtype=x.dtype, device=x.device)
+    scales = _scales(num_bands, max_freq, use_log, x.dtype, x.device)
     # the arguments reach max_freq * pi * |x| (~28 rad in the tests, ~180 on
     # the V2 decoder's rays): sin and cos run in float64 and round once to
     # x's dtype, since torch's float32 sin on the CPU was seen 1.5e-4 off at
@@ -39,6 +37,16 @@ def generate_fourier_features(
     if cat_orig:
         out = torch.cat([out, x], dim=-1)
     return out
+
+
+@built_once()
+def _scales(num_bands: int, max_freq: int, use_log: bool, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """The bands' frequencies times pi on ``device``."""
+    if use_log:
+        scales = 2.0 ** np.linspace(0.0, math.log2(max_freq), num=num_bands)
+    else:
+        scales = np.linspace(1.0, max_freq / 2, num=num_bands)
+    return torch.as_tensor(scales * math.pi, dtype=dtype, device=device)
 
 
 def position_embedding_sine(h: int, w: int, num_pos_feats: int = 64, normalize: bool = False, device=None) -> torch.Tensor:

@@ -25,6 +25,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from unidepth_tpu_torch.utils.built_once import built_once
+
 __all__ = ["resize", "flat_interpolate"]
 
 NEAREST_MODES = ("nearest", "nearest-exact")
@@ -58,6 +60,12 @@ def _bicubic_matrix(in_size: int, out_size: int, scale_factor: float) -> np.ndar
     return w
 
 
+@built_once()
+def _on(table, *args, dtype: torch.dtype | None = None, device: torch.device) -> torch.Tensor:
+    """``table(*args)`` on ``device``."""
+    return torch.as_tensor(table(*args), dtype=dtype, device=device)
+
+
 def resize(
     x: torch.Tensor,
     size: tuple[int, int],
@@ -89,10 +97,8 @@ def resize(
             raise ValueError("resize: scale_factors take plain bicubic only")
         if (int(in_h * scale_factors[0]), int(in_w * scale_factors[1])) != (out_h, out_w):
             raise ValueError(f"resize: scale factors {scale_factors} do not give {(out_h, out_w)} from {(in_h, in_w)}")
-        wh, ww = (
-            torch.as_tensor(_bicubic_matrix(n, m, f), dtype=torch.float32, device=x.device)
-            for n, m, f in ((in_h, out_h, scale_factors[0]), (in_w, out_w, scale_factors[1]))
-        )
+        wh, ww = (_on(_bicubic_matrix, n, m, f, dtype=torch.float32, device=x.device)
+                  for n, m, f in ((in_h, out_h, scale_factors[0]), (in_w, out_w, scale_factors[1])))
         y = torch.einsum("oh,...hw,pw->...op", wh, y.float(), ww).to(x.dtype)
         return y.movedim(-3, -1) if channel_last else y
     layout = torch.channels_last if nhwc else torch.preserve_format
@@ -102,7 +108,7 @@ def resize(
         if align_corners or antialias:
             raise ValueError(f"resize: mode {mode!r} takes neither align_corners nor antialias")
         exact = mode == "nearest-exact"
-        ih, iw = (torch.as_tensor(_nearest_index(n, m, exact), device=x.device) for n, m in ((in_h, out_h), (in_w, out_w)))
+        ih, iw = (_on(_nearest_index, n, m, exact, device=x.device) for n, m in ((in_h, out_h), (in_w, out_w)))
         y = y.index_select(-2, ih).index_select(-1, iw)
         return y.movedim(-3, -1) if channel_last else y
     lead = y.shape[:-2]
