@@ -23,7 +23,6 @@ same shape, each by CUDA events (median of 3 rounds of 20 calls).
 """
 
 import json
-import statistics
 import subprocess
 import sys
 import warnings
@@ -33,41 +32,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from profile_v1 import busy_and_span_us, device_us, event_ms
+
 ROOT = Path(__file__).resolve().parents[1]
 BATCH, SIDE, SEED, TOKENS = 8, 518, 0, 8 * 1370
-
-
-def event_ms(fn, reps=5, rounds=3):
-    """Median milliseconds per call: CUDA events around ``reps`` calls."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(rounds):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / reps)
-    return statistics.median(times)
-
-
-def device_us(evt):
-    return getattr(evt, "device_time_total", None) or getattr(evt, "cuda_time_total", 0)
-
-
-def busy_and_span_us(kernels):
-    """Union of the kernels' [start, end) intervals, and the whole span."""
-    intervals = sorted((k.time_range.start, k.time_range.end) for k in kernels)
-    busy, cur_s, cur_e = 0, *intervals[0]
-    for s, e in intervals[1:]:
-        if s > cur_e:
-            busy += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    return busy + cur_e - cur_s, intervals[-1][1] - intervals[0][0]
 
 
 def profile_mode(model, mode, rgb, calls=3, top=28):

@@ -26,14 +26,13 @@ host buffers). Then:
    ``unidepth.infer``; the device's idle gaps labelled by the innermost span
    and the outermost operation the host was in at their middle.
 
-Beside them, per traced request: ``kernel_launches``, each kernel wrapper's
-launch counter (K1-K5, and K2g, K2's gated SwiGLU body), which ticks only
-where the wrapper runs on the host, so not in a replayed stage graph
-(``unidepth_tpu_torch/models/stage_graphs.py``); ``kernel_ops``, the same
-kernels counted by their device operations' names in the trace, which a
-replay launches as well; and ``graphs``, the stage graphs' counters:
-replays, eager calls by reason, the share of stage calls replayed, and the
-captures made since the process started (warm-up included).
+Beside them, per traced request: ``kernel_ops``, the launches of K1-K5 (and
+K2g, K2's gated SwiGLU body) counted by their device operations' names in
+the trace, so that a replayed stage graph
+(``unidepth_tpu_torch/models/stage_graphs.py``) counts as well; and
+``graphs``, the stage graphs' counters: replays, eager calls by reason, the
+share of stage calls replayed, and the captures made since the process
+started (warm-up included).
 
 Prints one JSON line, and writes it to ``--out`` if given. The four numbers
 the benchmark's per-layer metrics of these spans would read are under
@@ -188,15 +187,6 @@ def reduce(events) -> dict:
 # ----------------------------------------------------------------------------
 # the run
 # ----------------------------------------------------------------------------
-def launch_counts() -> dict:
-    """The kernel wrappers' forward launch counters, by kernel."""
-    from unidepth_tpu_torch.ops import conv_kernels, flash_attention as fa, fused_block as fb
-
-    return {"K1": fa.flash_attention_qkv.launches, "K2": fb.ln_dense.launches, "K2g": fb.ln_dense.gated_launches,
-            "K3": fa.flash_attention.launches, "K4": fa.flash_attention_packed.launches,
-            "K5": conv_kernels.conv3x3_lowchannel.launches}
-
-
 #: the names of each kernel's device operations (the attention kernels K1,
 #: K3 and K4 share theirs: the phase and the serving precision tell them apart)
 ATTENTION_OPS = ("attn_fwd_wgmma", "attn_fwd_bf16", "attn_fwd_simt")
@@ -275,10 +265,9 @@ def profile(root: Path, workload: str, seed: int, seconds: float, device="cuda")
 
     activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if session.device.type == "cuda" else [])
     tracing.enable(annotate=True)
-    before, graphs_before = launch_counts(), graph_counts()
+    graphs_before = graph_counts()
     with torch_profile(activities=activities) as prof:
         _serve(session, state, session_mod.TRACE_SECONDS, block)
-    launched = {k: v - before[k] for k, v in launch_counts().items()}
     graphs = graph_counts()
     traced = reduce(prof.events())
     tracing.disable()
@@ -300,7 +289,6 @@ def profile(root: Path, workload: str, seed: int, seconds: float, device="cuda")
             "decoder_launches": traced["launches"].get("unidepth.infer.decoder", 0) / n,
             "host_syncs": sum(traced["waits"].values()) / n,
         },
-        "kernel_launches": {k: v / n for k, v in launched.items()},
         "kernel_ops": {k: v / n for k, v in
                        kernel_ops(traced["ops"], session.model.serving_precision == "int8").items()},
         "graphs": {"replays": replays / n, "eager": {k: v / n for k, v in eager.items()},

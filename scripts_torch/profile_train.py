@@ -41,25 +41,10 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from profile_v1 import busy_and_span_us, device_us
+
 ROOT = Path(__file__).resolve().parents[1]
 SEED = 0
-
-
-def device_us(evt):
-    return getattr(evt, "device_time_total", None) or getattr(evt, "cuda_time_total", 0)
-
-
-def busy_and_span_us(kernels):
-    """Union of the kernels' [start, end) intervals, and the whole span."""
-    intervals = sorted((k.time_range.start, k.time_range.end) for k in kernels)
-    busy, cur_s, cur_e = 0, *intervals[0]
-    for s, e in intervals[1:]:
-        if s > cur_e:
-            busy += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    return busy + cur_e - cur_s, intervals[-1][1] - intervals[0][0]
 
 
 def labelled(fn, name):

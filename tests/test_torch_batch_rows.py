@@ -15,6 +15,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch_threads  # noqa: F401  (sets this process's torch thread count)
 
 from unidepth_tpu_torch.models.unidepthv2.model import UniDepthV2
 

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
+import torch_threads  # noqa: F401  (sets this process's torch thread count)
 
 from unidepth_tpu.ops.conv_kernels import conv3x3_lowchannel as j_conv3x3
 from unidepth_tpu_torch.models.unidepthv2 import decoder as decoder_mod

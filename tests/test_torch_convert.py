@@ -9,6 +9,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (sets this process's torch thread count)
 
 from unidepth_tpu.io.convert import convert_v2_state_dict
 from unidepth_tpu_torch.io.convert import from_jax_params

@@ -16,6 +16,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (sets this process's torch thread count)
 
 from unidepth_tpu.io.convert import convert_convnext, convert_v1_decoder
 from unidepth_tpu.models.backbones.convnext import ConvNeXt as JConvNeXt

@@ -32,6 +32,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (sets this process's torch thread count)
 
 from unidepth_tpu_torch.models import stage_graphs
 from unidepth_tpu_torch.models.unidepthv2 import model as v2_model

@@ -49,6 +49,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (sets this process's torch thread count)
 
 from unidepth_tpu_torch.ops.flash_attention import (
     flash_attention,

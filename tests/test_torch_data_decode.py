@@ -13,6 +13,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch_threads  # noqa: F401  (sets this process's torch thread count)
 from PIL import Image
 
 from unidepth_tpu import native as j_native

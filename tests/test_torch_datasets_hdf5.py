@@ -12,6 +12,7 @@ import json
 import h5py
 import numpy as np
 import pytest
+import torch_threads  # noqa: F401  (sets this process's torch thread count)
 from PIL import Image
 
 from unidepth_tpu.datasets import base as j_base

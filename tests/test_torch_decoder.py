@@ -7,6 +7,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (sets this process's torch thread count)
 
 from unidepth_tpu.models.unidepthv2.decoder import Decoder as JDecoder
 from unidepth_tpu_torch.io.convert import decoder_state_dict

@@ -5,6 +5,7 @@ import json
 
 import pytest
 import torch
+import torch_threads  # noqa: F401  (sets this process's torch thread count)
 
 from unidepth_tpu_torch.models.unidepthv2 import model as model_module
 from unidepth_tpu_torch.models.unidepthv2.model import UniDepthV2

@@ -17,6 +17,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (sets this process's torch thread count)
 
 from unidepth_tpu.models.unidepthv2.model import UniDepthV2 as JUniDepthV2
 from unidepth_tpu_torch.io.convert import from_jax_params
@@ -50,6 +51,14 @@ def models():
     return jm, tm
 
 
+@pytest.fixture(scope="module")
+def blobs(models):
+    """The shared model's archive at SHAPE without and with the rays input,
+    each exported once."""
+    _, tm = models
+    return {with_camera: export_forward(tm, SHAPE, with_camera=with_camera) for with_camera in (False, True)}
+
+
 def _inputs(with_camera):
     rng = np.random.default_rng(3)
     img = rng.standard_normal((1, *SHAPE, 3)).astype(np.float32)
@@ -59,9 +68,9 @@ def _inputs(with_camera):
 
 
 @pytest.mark.parametrize("with_camera", [False, True], ids=["image", "image-rays"])
-def test_export_matches_jax_forward(models, with_camera):
-    jm, tm = models
-    blob = export_forward(tm, SHAPE, with_camera=with_camera)
+def test_export_matches_jax_forward(models, blobs, with_camera):
+    jm, _ = models
+    blob = blobs[with_camera]
     assert isinstance(blob, bytes) and len(blob) > 1000
     program = torch.export.load(io.BytesIO(blob))
     targets = {n.target for n in program.graph.nodes if n.op == "call_function"}
@@ -120,11 +129,11 @@ def test_export_keeps_the_hr_heads_on_the_modules(models, monkeypatch):
     assert tm.pixel_decoder.depth_layer.use_kernels  # restored after the trace
 
 
-def test_exported_bytes_load_without_the_port(models, tmp_path):
+def test_exported_bytes_load_without_the_port(models, blobs, tmp_path):
     """A process that imports torch only (the repository is not on its
     path) loads the archive and runs it."""
     _, tm = models
-    (tmp_path / "m.pt2").write_bytes(export_forward(tm, SHAPE))
+    (tmp_path / "m.pt2").write_bytes(blobs[False])
     img = _inputs(False)[0]
     np.save(tmp_path / "img.npy", img)
     code = (
@@ -161,18 +170,18 @@ def test_export_cli(tmp_path, monkeypatch):
 
 
 @pytest.mark.slow
-def test_export_matches_the_jax_blob(models):
+def test_export_matches_the_jax_blob(models, blobs):
     """The loaded program against the deserialised JAX StableHLO export of
     the same weights."""
     from jax import export as jax_export
 
     from unidepth_tpu.models.unidepthv2.export import export_forward as jax_export_forward
 
-    jm, tm = models
+    jm, _ = models
     restored = jax_export.deserialize(jax_export_forward(jm, jm.params, SHAPE, batch=1))
     img = _inputs(False)[0]
     want = restored.call(jm.params, jnp.asarray(img))
-    program = torch.export.load(io.BytesIO(export_forward(tm, SHAPE)))
+    program = torch.export.load(io.BytesIO(blobs[False]))
     with torch.no_grad():
         got = program.module()(torch.from_numpy(img))
     for g, w in zip(got, want):

@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
+import torch_threads  # noqa: F401  (sets this process's torch thread count)
 
 from unidepth_tpu.ops.flash_attention import flash_attention as j_flash_attention
 from unidepth_tpu.ops.flash_attention import _packed_supported, _xla_attention_packed

@@ -8,6 +8,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (sets this process's torch thread count)
 
 from unidepth_tpu.ops.fused_block import _xla_ln_dense
 from unidepth_tpu.ops.fused_block import ln_dense as j_ln_dense

@@ -16,6 +16,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (sets this process's torch thread count)
 
 from unidepth_tpu.io.convert import _flatten_chunked_blocks as j_flatten_chunked_blocks
 from unidepth_tpu.io.convert import normalize_convnext_state_dict as j_normalize_convnext

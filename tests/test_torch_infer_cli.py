@@ -14,6 +14,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (sets this process's torch thread count)
 from PIL import Image
 
 from unidepth_tpu.utils.visualization import save_point_cloud as jax_save_point_cloud

@@ -11,6 +11,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (sets this process's torch thread count)
 
 from unidepth_tpu_torch.ops import kernel_ab as ab
 from unidepth_tpu_torch.ops.kernel_ab import family, run_bd, run_variant

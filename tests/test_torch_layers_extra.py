@@ -13,6 +13,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (sets this process's torch thread count)
 
 from unidepth_tpu.geometry.coords import coords_grid as j_coords_grid
 from unidepth_tpu.geometry.coords import normalize_coords as j_normalize_coords

@@ -20,6 +20,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (sets this process's torch thread count)
 
 from unidepth_tpu.datasets import base as j_base
 from unidepth_tpu.datasets import loader as j_loader

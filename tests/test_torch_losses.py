@@ -11,6 +11,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (sets this process's torch thread count)
 
 from unidepth_tpu.ops.patches import bilinear_sample as j_bilinear_sample
 from unidepth_tpu.ops.patches import extract_patches as j_extract_patches

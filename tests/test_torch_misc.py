@@ -17,6 +17,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (sets this process's torch thread count)
 
 from unidepth_tpu.nn import positional as jpos
 from unidepth_tpu.utils import misc as jmisc

@@ -9,6 +9,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (sets this process's torch thread count)
 
 from unidepth_tpu.geometry.cameras import Pinhole as JPinhole
 from unidepth_tpu.geometry.coords import coords_grid as j_coords_grid

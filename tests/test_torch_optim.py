@@ -10,6 +10,7 @@ import numpy as np
 import optax
 import pytest
 import torch
+import torch_threads  # noqa: F401  (sets this process's torch thread count)
 
 from unidepth_tpu.io.convert import convert_v2_state_dict
 from unidepth_tpu.training.ema import ema_init as j_ema_init

@@ -11,13 +11,13 @@ prints and writes. The step-2 checkpoint, written at fsdp=2, resumes in one
 process as well."""
 
 import json
-import os
 import subprocess
 import sys
 from pathlib import Path
 
 import numpy as np
 import torch
+import torch_threads  # noqa: F401  (sets this process's torch thread count)
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -39,8 +39,7 @@ def _torchrun(tmp_path, ckpt, *extra) -> str:
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "2",
            str(ROOT / "scripts_torch" / "train.py"), "--config-file", str(_config(tmp_path)), "--dummy-data",
            "--device", "cpu", "--fsdp", "2", "--image-shape", "28", "56", "--checkpoint-dir", str(ckpt), *extra]
-    env = {**os.environ, "OMP_NUM_THREADS": "1"}
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300, env=env, cwd=tmp_path)
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300, cwd=tmp_path)
     assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
     return proc.stdout
 

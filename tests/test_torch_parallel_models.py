@@ -30,6 +30,7 @@ import numpy as np
 import pytest
 import torch
 from torch_parallel_worker import forwards_and_serving, spawn
+import torch_threads  # noqa: F401  (sets this process's torch thread count)
 
 from unidepth_tpu.geometry.rays import generate_rays as j_generate_rays
 from unidepth_tpu.io.convert import convert_convnext, convert_v1_decoder, convert_v1_state_dict

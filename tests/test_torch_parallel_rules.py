@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 import torch.distributed as dist
+import torch_threads  # noqa: F401  (sets this process's torch thread count)
 
 import unidepth_tpu.parallel.mesh as j_mesh
 from unidepth_tpu_torch.datasets.dummy import Dummy

@@ -35,6 +35,7 @@ import numpy as np
 import pytest
 import torch
 from torch_parallel_worker import FSDP_MIN_SIZE, MODES, spawn, train_modes
+import torch_threads  # noqa: F401  (sets this process's torch thread count)
 
 import unidepth_tpu.nn.layers as j_layers
 from unidepth_tpu.io.convert import convert_v2_state_dict

@@ -10,6 +10,7 @@ import copy
 
 import numpy as np
 import pytest
+import torch_threads  # noqa: F401  (sets this process's torch thread count)
 
 from unidepth_tpu.datasets import pipelines as J
 from unidepth_tpu_torch.datasets import pipelines as P

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 import torch.nn as nn
+import torch_threads  # noqa: F401  (sets this process's torch thread count)
 
 from unidepth_tpu.models.backbones.dinov2 import DinoViT as JDinoViT
 from unidepth_tpu.models.backbones.dinov2 import ViTConfig as JViTConfig

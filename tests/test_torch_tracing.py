@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 from torch.autograd import DeviceType
+import torch_threads  # noqa: F401  (sets this process's torch thread count)
 
 from unidepth_tpu_torch.models.unidepthv2.model import UniDepthV2
 from unidepth_tpu_torch.nn import layers
@@ -319,7 +320,6 @@ def test_profile_serve_runs_a_tiny_cell_on_the_cpu(tmp_path):
     assert got["metrics"]["decoder_host_ms"] > 0 and got["metrics"]["encoder_host_ms"] > 0
     assert got["metrics"]["decoder_launches"] == 0 and got["metrics"]["host_syncs"] == 0
     assert got["traced"]["requests"] > 0 and got["traced"]["busy_s"] == 0.0
-    assert got["kernel_launches"] == {k: 0.0 for k in ("K1", "K2", "K2g", "K3", "K4", "K5")}  # plain on the CPU
-    assert got["kernel_ops"] == got["kernel_launches"]  # no device operation
+    assert got["kernel_ops"] == {k: 0.0 for k in ("K1", "K2", "K2g", "K3", "K4", "K5")}  # no device operation
     assert got["graphs"]["replays"] == 0 and got["graphs"]["eager"] == {"cpu": 2.0}  # the two stages, eagerly
     assert got["graphs"]["replay_share"] == 0.0

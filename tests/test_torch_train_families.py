@@ -47,6 +47,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (sets this process's torch thread count)
 
 from unidepth_tpu.models.backbones.convnext import ConvNeXt as JConvNeXt
 from unidepth_tpu.models.backbones.convnext import ConvNeXtConfig as JConvNeXtConfig
@@ -85,16 +86,6 @@ LOSS_RTOL, GRAD_GATE, STEP_GATE = 1e-4, 1e-3, 1e-5
 NOISE_TENSOR, NOISE_ELEMENT = 1e-6, 1e-7  # of the global gradient norm: see above
 VIT = dict(embed_dim=64, depth=4, num_heads=2, pos_embed_size=4, output_idx=(1, 2, 3, 4))
 CNX_DEPTHS, CNX_DIMS = (1, 1, 2, 1), (32, 64, 128, 256)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """These tiny models run fastest on one intra-op thread, and the suite
-    runs several test processes on the same cores."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _config(shipped: str, encoder: dict, shape, decoder_depths=(1, 1, 1)) -> dict:
@@ -455,7 +446,8 @@ def test_lr_scale_tree_numbers_convnext_blocks_across_stages(shared_convnext_par
 def shared_convnext_params():
     cfg = FAMILIES["v1-convnext"]
     jm = _jax_model("v1-convnext", cfg)
-    params = _jit_init("v1-convnext", jm, tuple(cfg["data"]["image_shape"]))
+    # the scales follow the tree's paths and shapes only: no init to compile
+    params = jax.eval_shape(lambda: _jit_init("v1-convnext", jm, tuple(cfg["data"]["image_shape"])))
     names = [n for n, _ in UniDepthV1.from_config(cfg, device="cpu").named_parameters()]
     return params, names, cfg
 

@@ -26,6 +26,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (sets this process's torch thread count)
 
 from unidepth_tpu.io.convert import convert_v2_state_dict
 from unidepth_tpu.models.unidepthv2.model import UniDepthV2 as JUniDepthV2

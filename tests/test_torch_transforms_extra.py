@@ -18,6 +18,7 @@ import copy
 
 import numpy as np
 import pytest
+import torch_threads  # noqa: F401  (sets this process's torch thread count)
 from PIL import Image
 
 from unidepth_tpu.datasets import pipelines as J

@@ -24,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 import torch.nn.functional as F
+import torch_threads  # noqa: F401  (sets this process's torch thread count)
 
 from unidepth_tpu.geometry.rays import generate_rays as j_generate_rays
 from unidepth_tpu.geometry.rays import spherical_zbuffer_to_euclidean as j_spherical_zbuffer

@@ -20,6 +20,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (sets this process's torch thread count)
 
 from unidepth_tpu.models.backbones.convnext import ConvNeXt as JConvNeXt
 from unidepth_tpu.models.backbones.convnext import ConvNeXtConfig as JConvNeXtConfig

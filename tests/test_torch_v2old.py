@@ -31,6 +31,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (sets this process's torch thread count)
 
 from unidepth_tpu.io.convert import convert_v2old_state_dict
 from unidepth_tpu.models.backbones.dinov2 import ViTConfig as JViTConfig

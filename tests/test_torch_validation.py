@@ -27,6 +27,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (sets this process's torch thread count)
 
 from unidepth_tpu.geometry import cameras as jcam
 from unidepth_tpu.io.convert import convert_v1_state_dict, convert_v2_state_dict

@@ -8,6 +8,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (sets this process's torch thread count)
 
 from unidepth_tpu.models.backbones.dinov2 import DinoViT as JDinoViT
 from unidepth_tpu.models.backbones.dinov2 import ViTBlock as JViTBlock

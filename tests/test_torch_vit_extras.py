@@ -11,6 +11,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (sets this process's torch thread count)
 
 from unidepth_tpu.io.convert import convert_encoder
 from unidepth_tpu.models.backbones.dinov2 import DinoViT as JDinoViT

@@ -22,6 +22,7 @@ import torch.nn as nn
 from benchmark.families import unidepth_v2_swiglu as family
 from benchmark.harness import weights
 from benchmark.reference.ops import Numerics
+import torch_threads  # noqa: F401  (sets this process's torch thread count)
 from unidepth_tpu_torch.models.backbones.dinov2 import VIT_PRESETS, DinoViT, _SwiGLU
 from unidepth_tpu_torch.models.unidepthv2.model import UniDepthV2
 from unidepth_tpu_torch.ops.fused_block import ln_dense, ln_dense_plain

@@ -38,7 +38,6 @@ def spawn(worker, tmp_path: Path, *args) -> list[dict]:
 def _entry(rank, worker, store, out, args):
     from unidepth_tpu_torch.parallel.mesh import initialize_distributed
 
-    torch.set_num_threads(1)
     initialize_distributed(backend="gloo", init_method=f"file://{store}", world_size=WORLD, rank=rank)
     try:
         result = worker(rank, *args)
