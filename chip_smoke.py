@@ -51,7 +51,14 @@ fails (non-zero exit, no result line) without CUDA or outside a checkout.
    heads' hr tails: 64 -> 32, LeakyReLU, 1x1 to one channel) at the hr
    shape, held to its plain version and to the bf16 modules, timed beside
    the modules the model ran before it (F.pad reflect, cuDNN's conv,
-   LeakyReLU, the 1x1 conv: its ``library_ms``). K6, the A/B harness of
+   LeakyReLU, the 1x1 conv: its ``library_ms``). Then K2h (``head_mlp``,
+   the V2 heads' LayerNorm -> Linear pair, both heads in one launch) at the
+   518x518 latents (8, 128, 296, 296) NCHW -> 2 x (8, 296, 296, 128), each
+   head held to ``ln_dense_plain`` at the bf16 gates, its device operation
+   read from a profiler trace (one ``head_mlp_wgmma``, a name none of the
+   benchmark's roofline readers counts), timed beside its plain version and
+   the modules it replaces (per head: fp32 LayerNorm, bf16 cast, cuBLAS
+   linear), with bound and share (record ``head_mlp``). K6, the A/B harness of
    scripts_torch/kernel_ab.py over ``base`` and one name per family M1-M9,
    and K7, the harness over ``bd`` and ``bd_lmxu``, at (8, 1370, 16 x 64)
    bf16, each variant held against its plain version in fp32 at the bf16
@@ -78,7 +85,8 @@ fails (non-zero exit, no result line) without CUDA or outside a checkout.
    518x518 images, checks shapes, finiteness and depth > 0, checks
    that the forward launched K1 (flash_attention_qkv) 24 times, K2
    (ln_dense) 24 times, K3 (flash_attention) 4 times, K5 (the fused heads)
-   twice, each of them on its Hopper body, and K4 never, and
+   twice, each of them on its Hopper body, K2h (both heads' MLPs) once,
+   and K4 never, and
    holds depth against the same model run on the plain path in fp32 on the
    card (median relative error <= 1e-2). Then times depth-only ``infer()``
    in three rounds and prints each.
@@ -427,6 +435,10 @@ K5_HR_SHAPES = {64: (BATCH, SIDE, SIDE, 64, 32), 48: (BATCH, SIDE, SIDE, 48, 32)
 # K5's fused heads (conv3x3_head) in a bf16 V2 forward that needs no gradient:
 # one launch for each head's hr tail, depth and confidence
 K5_HEADS = {"conv3x3_lowchannel": 2}
+# K2h (head_mlp): the V2 heads' LayerNorm -> Linear pair at the 518x518
+# latents, (B, C, H, W) NCHW, the grid 8x the 37 x 37 tokens; one launch a
+# bf16 V2 forward that needs no gradient
+K2H_SHAPE = (BATCH, 128, 296, 296)
 # K2 on the V1 paths at B = 8, 462 x 616: name -> (M, C, F, eps). ConvNeXt-L's
 # four stages (grids 115 x 154, 57 x 77, 28 x 38, 14 x 19), then the V1
 # decoder's CvnxtBlocks on ViT-L/14's 33 x 44 grid and its 2x and 4x
@@ -1199,6 +1211,70 @@ def gated_phase(ln_dense, ln_dense_plain, randn, gen, smi):
         f"modules {library_ms:.4f} ms ({smi})")
     return {"shape": [x.shape[0], c, f], "max_abs_err": err, "rel_rms": rel_rms, "ms": ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "library": "fp32 F.layer_norm -> bf16, F.linear, chunk, F.silu, multiply", **bd}
+
+
+def head_mlp_phase(head_mlp, head_mlp_plain, ln_dense_plain, randn, gen, smi):
+    """K2h (``head_mlp``: the V2 heads' LayerNorm -> Linear pair, both heads
+    in one launch) at the 518x518 latents, (8, 128, 296, 296) NCHW bf16 -> 2
+    x (8, 296, 296, 128), on random parameters: one launch; each head held
+    elementwise at the bf16 gates to ``ln_dense_plain`` on the same bf16
+    inputs and at the relative RMS gate to the plain version in fp32; timed
+    beside the plain version and the modules it replaces (per head: the
+    fp32 LayerNorm of the permuted latents cast to bf16, then the bf16
+    nn.Linear on cuBLAS), with bound and share. The kernel's device name, read
+    from a profiler trace, must hold none of the kernel names the benchmark's
+    roofline readers count (K1/K3, K2, K2g), so no reader counts its time."""
+    from benchmark.harness.readers import ATTENTION_KERNELS, LN_DENSE_KERNELS
+
+    b, c, h, w = K2H_SHAPE
+    gen.manual_seed(24)
+    x = randn(b, c, h, w, dtype=torch.bfloat16, std=2.0, mean=0.5)
+    heads = [(randn(c, c, dtype=torch.bfloat16, std=c**-0.5), randn(c, dtype=torch.bfloat16, std=0.1),
+              randn(c, dtype=torch.bfloat16, std=0.1, mean=1.0), randn(c, dtype=torch.bfloat16, std=0.1), 1e-5)
+             for _ in range(2)]
+    args = (x, *(list(t) for t in zip(*heads)))
+    before = head_mlp.launches
+    outs = head_mlp(*args)
+    torch.cuda.synchronize()
+    if head_mlp.launches != before + 1:
+        raise RuntimeError("K2h: the call did not launch the kernel once")
+    name = f"K2h head_mlp {K2H_SHAPE} -> 2 x {(b, h, w, c)}"
+    xh = x.permute(0, 2, 3, 1)
+    errs, rels = [], []
+    for i, (out, head) in enumerate(zip(outs, heads)):
+        errs.append(check_close(f"{name} head {i} vs plain bf16", out, ln_dense_plain(xh, *head), **TOL_BF16))
+        ref = ln_dense_plain(xh.float(), *(t.float() for t in head[:4]), head[4])
+        rels.append(((out.float() - ref).norm() / ref.norm()).item())
+        del ref
+        if not rels[-1] <= REL_RMS_BF16:
+            raise RuntimeError(f"{name} head {i}: relative RMS error {rels[-1]:.3e} against fp32 > {REL_RMS_BF16}")
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        head_mlp(*args)
+        torch.cuda.synchronize()
+    ops = sorted({e.key for e in prof.key_averages()})
+    k2h_ops = [op for op in ops if "head_mlp_wgmma" in op]
+    counted = [op for op in ops if any(k in op for k in (*ATTENTION_KERNELS, *LN_DENSE_KERNELS, "ln_swiglu_wgmma"))]
+    if len(k2h_ops) != 1 or counted:
+        raise RuntimeError(f"{name}: operations {ops}; one head_mlp_wgmma expected, none that a reader counts")
+    norms = [torch.nn.LayerNorm(c, eps=e).to(x.device, torch.bfloat16) for *_, e in heads]
+    linears = [torch.nn.Linear(c, c).to(x.device, torch.bfloat16) for _ in heads]
+    with torch.no_grad():
+        for (wt, bias, gamma, beta, _), norm, linear in zip(heads, norms, linears):
+            norm.weight.copy_(gamma), norm.bias.copy_(beta), linear.weight.copy_(wt), linear.bias.copy_(bias)
+
+    def modules():  # the decoder's path before K2h (nn/layers.py layer_norm, then nn.Linear), both heads
+        return [linear(F.layer_norm(xh.float(), (c,), norm.weight.float(), norm.bias.float(), norm.eps)
+                       .to(torch.bfloat16)) for norm, linear in zip(norms, linears)]
+
+    with torch.inference_mode():
+        ms, plain_ms, library_ms = (time_ms(lambda: head_mlp(*args)), time_ms(lambda: head_mlp_plain(*args)),
+                                    time_ms(modules))
+    bd = bound(2 * 2 * b * h * w * c * c, nbytes(x, *outs))
+    log(f"{name}: bf16 max_abs_err {max(errs):.3e} (vs plain bf16), rel_rms {max(rels):.3e} (vs fp32); device op "
+        f"{k2h_ops[0]!r}; kernel {ms:.4f} ms, {bd['bound_ms'] / ms:.1%} of its {bd['bound_ms']:.4f} ms bound "
+        f"({bd['bound_by']}), plain {plain_ms:.4f} ms, the modules {library_ms:.4f} ms ({smi})")
+    return {"shape": list(K2H_SHAPE), "max_abs_err": max(errs), "rel_rms": max(rels), "device_op": k2h_ops[0], "ms": ms,
+            "plain_ms": plain_ms, "library_ms": library_ms, **bd}
 
 
 def sdpa(q, k, v, scale):
@@ -2694,6 +2770,7 @@ def main():
         flash_attention_qkv_plain,
     )
     from unidepth_tpu_torch.ops.fused_block import ln_dense, ln_dense_plain
+    from unidepth_tpu_torch.ops.head_mlp import head_mlp, head_mlp_plain
     from unidepth_tpu_torch.ops.kernel_ab import family, run_bd, run_variant, run_variant_plain
     from unidepth_tpu_torch.ops.flash_attention import HOPPER_KERNEL
 
@@ -2713,13 +2790,13 @@ def main():
     log(f"build: {time.perf_counter() - t0:.1f} s (nvcc {_cuda.build_seconds} s)")
     reports = (_cuda.ptxas_reports("attn_fwd_wgmma") + _cuda.ptxas_reports("ln_dense_wgmma")
                + _cuda.ptxas_reports("ln_row_stats") + _cuda.ptxas_reports("ln_swiglu_wgmma")
-               + _cuda.ptxas_reports("conv3x3_wgmma"))
+               + _cuda.ptxas_reports("conv3x3_wgmma") + _cuda.ptxas_reports("head_mlp_wgmma"))
     if not any(HOPPER_KERNEL in r[0] for r in reports):
         raise RuntimeError(f"ptxas report for the main path's {HOPPER_KERNEL}: none in the build log")
     for report in reports:  # template arguments (<F, NH, Stages, D>, <Cout, Cin / 16>) stay in the mangled name
         text = "\n".join(report)
-        name = re.search(r"\d((?:attn_fwd_wgmma|conv3x3_wgmma)I(?:Li\d+E)+E|ln_dense_wgmma|ln_swiglu_wgmma|ln_row_stats)",
-                         report[0]).group(1)
+        name = re.search(r"\d((?:attn_fwd_wgmma|conv3x3_wgmma|head_mlp_wgmma)I(?:Li\d+E)+E|ln_dense_wgmma|ln_swiglu_wgmma"
+                         r"|ln_row_stats)", report[0]).group(1)
         used = re.search(r"Used \d+ registers", text)
         spills = re.search(r"\d+ bytes spill stores, \d+ bytes spill loads", text)
         main = " (the main path's: K1, K3, K4)" if HOPPER_KERNEL in report[0] else ""
@@ -3030,6 +3107,9 @@ def main():
         f"bound ({bd['bound_by']}); the modules (F.pad, cuDNN, LeakyReLU, 1x1) {lib:.4f} ms ({smi})")
     del k5_args, x5, w5, b5, out5, head_args, out, hr, x_nchw
 
+    # --- K2h: the V2 heads' LayerNorm -> Linear pair, its entry the decoder --
+    k2h = head_mlp_phase(head_mlp, head_mlp_plain, ln_dense_plain, randn, gen, smi)
+
     # --- K6 and K7: the A/B harness (scripts_torch/kernel_ab.py) -------------
     harness = load_harness()
     calls = 2 + 3 * AB_ITERS  # each variant: the checked call, the warm-up, 3 timed runs
@@ -3077,11 +3157,15 @@ def main():
         f"{next(model.parameters()).dtype} on {next(model.parameters()).device}, built in {time.perf_counter() - t0:.1f} s")
     rgb = np.random.default_rng(SEED).integers(0, 256, (BATCH, SIDE, SIDE, 3), dtype=np.uint8)
 
+    head_mlp.launches = 0
     out, launches = run_path("bf16 infer()", kernels, lambda: model.infer(rgb))
     check_launches("bf16 infer()", launches, {**none, "flash_attention_qkv": 24, "flash_attention_qkv/wgmma": 24,
                                               "ln_dense": 24, "ln_dense/wgmma": 24,
                                               "flash_attention": 4, "flash_attention/wgmma": 4,
                                               "conv3x3_lowchannel": 2, "conv3x3_lowchannel/wgmma": 2})
+    if head_mlp.launches != 1:
+        raise RuntimeError(f"bf16 infer(): K2h launched {head_mlp.launches} times, expected 1 (both heads)")
+    k2h["launches"] = head_mlp.launches
     check_outputs("bf16 infer()", out)
 
     ref = depth_against_plain("ViT-L/14", UniDepthV2, config, rgb, out["depth"], kernels, dev,
@@ -3297,6 +3381,9 @@ def main():
          "library": library}
         for name, (src, rep, body, library) in sources.items()
     ]
+    record.append({"name": "head_mlp", "route": "cuda", "source": "unidepth_tpu_torch/csrc/head_mlp_wgmma.cu",
+                   "replaces": None, "body": "wgmma", **k2h,
+                   "library": "per head: fp32 F.layer_norm of the permuted latents -> bf16, nn.Linear"})
     log(json.dumps({"train": train_figures}))
     log(json.dumps({"v1_int8": v1_int8_figures, "train_cli": train_cli}))
     log(json.dumps({"eval": eval_figures}))

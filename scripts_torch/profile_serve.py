@@ -27,7 +27,8 @@ host buffers). Then:
    and the outermost operation the host was in at their middle.
 
 Beside them, per traced request: ``kernel_ops``, the launches of K1-K5 (and
-K2g, K2's gated SwiGLU body) counted by their device operations' names in
+K2g, K2's gated SwiGLU body, and K2h, the V2 heads' LayerNorm -> Linear
+pair) counted by their device operations' names in
 the trace, so that a replayed stage graph
 (``unidepth_tpu_torch/models/stage_graphs.py``) counts as well; and
 ``graphs``, the stage graphs' counters: replays, eager calls by reason, the
@@ -191,14 +192,14 @@ def reduce(events) -> dict:
 #: K3 and K4 share theirs: the phase and the serving precision tell them apart)
 ATTENTION_OPS = ("attn_fwd_wgmma", "attn_fwd_bf16", "attn_fwd_simt")
 KERNEL_OPS = {"K2": ("ln_dense_wgmma", "ln_dense_bf16", "ln_dense_simt"), "K2g": ("ln_swiglu_wgmma",),
-              "K5": ("conv3x3_wgmma", "conv3x3_bf16", "conv3x3_simt")}
+              "K2h": ("head_mlp_wgmma",), "K5": ("conv3x3_wgmma", "conv3x3_bf16", "conv3x3_simt")}
 
 
 def kernel_ops(ops: dict, int8: bool = False) -> dict:
-    """Launches of K1-K5 from a trace's device operations by "phase: name"
-    (``reduce``'s ``ops``): attention under the encoder is K1 (K4 when
-    the encoder serves int8), under the decoder K3."""
-    out = dict.fromkeys(("K1", "K2", "K2g", "K3", "K4", "K5"), 0.0)
+    """Launches of K1-K5, K2g and K2h from a trace's device operations by
+    "phase: name" (``reduce``'s ``ops``): attention under the encoder is K1
+    (K4 when the encoder serves int8), under the decoder K3."""
+    out = dict.fromkeys(("K1", "K2", "K2g", "K2h", "K3", "K4", "K5"), 0.0)
     for key, n in ops.items():
         phase, _, name = key.partition(": ")
         if any(k in name for k in ATTENTION_OPS):

@@ -163,8 +163,9 @@ def test_profile_serve_counts_kernels_by_their_device_operations():
            "unidepth.infer.encoder: ln_swiglu_wgmma(CUtensorMap, CUtensorMap, CUtensorMap)": 3,
            "unidepth.infer.decoder: void attn_fwd_wgmma<0, 8, 2, 64>(CUtensorMap, CUtensorMap)": 4,
            "unidepth.infer.decoder: void conv3x3_wgmma<32, 3>(CUtensorMap, CUtensorMap)": 2,
+           "unidepth.infer.decoder: void (anonymous namespace)::head_mlp_wgmma<128>(CUtensorMap, CUtensorMap)": 1,
            "unidepth.infer.decoder: void cutlass::Kernel2<cutlass_80_wmma_tensorop_bf16>(Params)": 40}
-    assert profile_serve.kernel_ops(ops) == {"K1": 24, "K2": 24, "K2g": 3, "K3": 4, "K4": 0, "K5": 2}
+    assert profile_serve.kernel_ops(ops) == {"K1": 24, "K2": 24, "K2g": 3, "K2h": 1, "K3": 4, "K4": 0, "K5": 2}
     assert profile_serve.kernel_ops(ops, int8=True)["K4"] == 24
 
 

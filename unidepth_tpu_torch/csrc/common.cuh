@@ -35,6 +35,16 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// (x * rstd - mean * rstd) * gamma + beta of a bf16 pair, in fp32, back to
+// bf16 (a LayerNorm applied to a wgmma A fragment in registers); gb =
+// {gamma of the pair, beta of the pair}, st = {rstd, -mean * rstd} of the
+// row (x * rstd is exact inside the FMA, so the one rounding of mean * rstd
+// costs ~|mean| * rstd * 2^-24, far below bf16's 2^-9)
+__device__ __forceinline__ uint32_t normalize_pair(uint32_t packed, float4 gb, float2 st) {
+  const float2 v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&packed));
+  return pack_bf16(fmaf(fmaf(v.x, st.x, st.y), gb.x, gb.z), fmaf(fmaf(v.y, st.x, st.y), gb.y, gb.w));
+}
+
 // D(16x8, f32) += A(16x16, bf16, row) * B(16x8, bf16, col).
 // Fragment layout (lane = 4*g + t): a0 = A[g][2t..2t+1], a1 = A[g+8][2t..],
 // a2 = A[g][2t+8..], a3 = A[g+8][2t+8..]; b0 = B[2t..2t+1][g],

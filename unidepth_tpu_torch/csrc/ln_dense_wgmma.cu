@@ -162,15 +162,6 @@ __device__ __forceinline__ void wgmma_m64n256k16_rs(float (&d)[128], const uint3
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
-// (x * rstd - mean * rstd) * gamma + beta of a bf16 pair, in fp32, back to
-// bf16; gb = {gamma of the pair, beta of the pair}, st = {rstd, -mean * rstd}
-// of the row (x * rstd is exact inside the FMA, so the one rounding of
-// mean * rstd costs ~|mean| * rstd * 2^-24, far below bf16's 2^-9)
-__device__ __forceinline__ uint32_t normalize_pair(uint32_t packed, float4 gb, float2 st) {
-  const float2 v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&packed));
-  return ud::pack_bf16(fmaf(fmaf(v.x, st.x, st.y), gb.x, gb.z), fmaf(fmaf(v.y, st.x, st.y), gb.y, gb.w));
-}
-
 // element i of a bf16 or fp32 parameter vector, as fp32
 __device__ __forceinline__ float param(const void* p, int i, int is_bf16) {
   return is_bf16 ? __bfloat162float(static_cast<const bf16*>(p)[i]) : static_cast<const float*>(p)[i];
@@ -205,10 +196,10 @@ __device__ __forceinline__ void slice_step(Smem& sm, const float4* gb, float (&a
     ud::ldmatrix_x4(cur[kk], xs + (((2 * kk + ln.half) ^ ln.swz) << 4));
     const float4 lo = g[8 * kk + ln.t];      // columns 16kk + 2t, + 1
     const float4 hi = g[8 * kk + 4 + ln.t];  // columns 16kk + 8 + 2t, + 1
-    cur[kk][0] = normalize_pair(cur[kk][0], lo, ln.st0);
-    cur[kk][1] = normalize_pair(cur[kk][1], lo, ln.st1);
-    cur[kk][2] = normalize_pair(cur[kk][2], hi, ln.st0);
-    cur[kk][3] = normalize_pair(cur[kk][3], hi, ln.st1);
+    cur[kk][0] = ud::normalize_pair(cur[kk][0], lo, ln.st0);
+    cur[kk][1] = ud::normalize_pair(cur[kk][1], lo, ln.st1);
+    cur[kk][2] = ud::normalize_pair(cur[kk][2], hi, ln.st0);
+    cur[kk][3] = ud::normalize_pair(cur[kk][3], hi, ln.st1);
   }
   ud::wgmma_fence();
   const uint64_t wdesc = ud::wgmma_desc_sw128(sm.w[st]);

@@ -18,6 +18,15 @@ bf16 serving. The resize before it then casts its fp32 result to bf16 NHWC
 in memory, so K5 reads the full-resolution map in place. Everything else
 (the CPU, fp32, training under autograd, ``set_kernels(False)`` and so the
 exporter) runs the modules.
+
+Both heads' ``Linear(LayerNorm(latents))`` (``depth_mlp``, ``confidence_mlp``)
+run as one launch of kernel K2h (``ops.head_mlp``) where the latents are a
+CUDA bf16 map that needs no gradient, both pairs are plain bf16
+``nn.LayerNorm`` / ``nn.Linear`` of the latents' width and the shape fits the
+kernel (``_mlps_on_k2h``): the kernel reads the NCHW latents in place and
+writes each head's NHWC map, the layout ``nn.Linear`` gives them. Everything
+else (the CPU, fp32, autograd, ``set_kernels(False)``, an int8 linear, other
+widths) runs the modules.
 """
 
 from __future__ import annotations
@@ -34,6 +43,8 @@ from unidepth_tpu_torch.nn.layers import MLP, AttentionBlock, AttentionLayer, la
 from unidepth_tpu_torch.nn.upsample import ResUpsampleBil
 from unidepth_tpu_torch.ops.conv_kernels import MAX_CIN, MAX_COUT, conv3x3_head
 from unidepth_tpu_torch.ops.fourier import generate_fourier_features
+from unidepth_tpu_torch.ops.head_mlp import fits as k2h_fits
+from unidepth_tpu_torch.ops.head_mlp import head_mlp
 from unidepth_tpu_torch.ops.resize import flat_interpolate, resize
 from unidepth_tpu_torch.utils import tracing
 
@@ -144,10 +155,26 @@ class DepthHead(nn.Module):
                 and cin <= MAX_CIN and cin % 8 == 0 and cout <= MAX_COUT and cout % 8 == 0
                 and proj.out_channels == 1 and min(out_hw) >= 2)
 
-    def _head(self, final, mlp: nn.Sequential, lr: nn.Module, hr: nn.Sequential, out_hw):
-        norm, linear = mlp
-        y = linear(layer_norm(norm, final.permute(0, 2, 3, 1))).permute(0, 3, 1, 2)
-        y = lr(y)
+    def _mlps_on_k2h(self, latents: torch.Tensor, mlps: list) -> bool:
+        """Whether the heads' ``(LayerNorm, Linear)`` pairs ``mlps`` run as
+        one K2h launch on ``latents``: kernels on, a CUDA bf16 map that needs
+        no gradient, every pair a plain ``nn.LayerNorm`` and ``nn.Linear``
+        of the latents' width C with bf16 weights and biases (not an int8 or
+        a tensor-parallel linear), and C and the grid within the kernel's
+        envelope."""
+        _, c, h, w = latents.shape
+        params = [p for mlp in mlps for p in mlp.parameters()]
+        needs_grad = torch.is_grad_enabled() and (latents.requires_grad or any(p.requires_grad for p in params))
+        plain = all(type(norm) is nn.LayerNorm and type(linear) is nn.Linear and norm.weight is not None
+                    and norm.bias is not None and linear.bias is not None and norm.normalized_shape == (c,)
+                    and linear.weight.shape == (c, c) for norm, linear in mlps)
+        return (self.use_kernels and latents.is_cuda and latents.dtype == torch.bfloat16 and not needs_grad
+                and plain and all(p.dtype == torch.bfloat16 for p in params) and k2h_fits(c, h, w))
+
+    def _head(self, y, lr: nn.Module, hr: nn.Sequential, out_hw):
+        """One head from its MLP's (B, H, W, C) output ``y`` (when the caller
+        holds no other reference, it is freed once the lr conv has read it)."""
+        y = lr(y.permute(0, 3, 1, 2))
         if not self._hr_on_k5(y, hr, out_hw):
             return hr(resize(y, out_hw, mode="bilinear", align_corners=True, channel_last=False))
         y = resize(y, out_hw, mode="bilinear", align_corners=True, channel_last=False, nhwc=True)
@@ -175,15 +202,28 @@ class DepthHead(nn.Module):
 
     def heads(self, latents, original_shapes, confidence: bool = True):
         """NCHW log-depth and log-confidence (None unless ``confidence``) at
-        ``original_shapes``."""
+        ``original_shapes`` from the NCHW latents. Where both heads' MLPs run
+        as one K2h launch, nothing reads the latents after it: when the
+        caller hands over its only reference (``Decoder._forward``), they are
+        freed there, and the second head's MLP output takes their place in
+        memory while the first head runs at full resolution."""
         (depth_mlp,) = self.depth_mlp.values()
-        logdepth = self._head(latents, depth_mlp, self.to_depth_lr, self.to_depth_hr, original_shapes)
-        logconf = None
+        tails = [(depth_mlp, self.to_depth_lr, self.to_depth_hr)]
         if confidence:
-            logconf = self._head(
-                latents, self.confidence_mlp, self.to_confidence_lr, self.to_confidence_hr, original_shapes
-            )
-        return logdepth, logconf
+            tails.append((self.confidence_mlp, self.to_confidence_lr, self.to_confidence_hr))
+        ys = None
+        if self._mlps_on_k2h(latents, [mlp for mlp, _, _ in tails]):
+            norms, linears = zip(*(mlp for mlp, _, _ in tails))
+            ys = list(head_mlp(latents, [m.weight for m in linears], [m.bias for m in linears],
+                               [n.weight for n in norms], [n.bias for n in norms], [n.eps for n in norms]))
+            del latents
+        outs = []
+        for (norm, linear), lr, hr in tails:  # each MLP output goes to _head as its only reference
+            if ys is None:
+                outs.append(self._head(linear(layer_norm(norm, latents.permute(0, 2, 3, 1))), lr, hr, original_shapes))
+            else:
+                outs.append(self._head(ys.pop(0), lr, hr, original_shapes))
+        return outs[0], outs[1] if confidence else None
 
 
 class _Adapters(nn.Module):
@@ -252,9 +292,10 @@ class Decoder(nn.Module):
             feats = [a(f.reshape(b, gh * gw, -1)) for a, f in zip(self.input_adapter.input_adapters, features)]
             conditioned, depth_features = head.prompt(feats, rays, (gh, gw), (H, W))
         with tracing.span("unidepth.decoder.pyramid", device):
-            latents = head.pyramid(conditioned, depth_features, (gh, gw))
+            latents = [head.pyramid(conditioned, depth_features, (gh, gw))]
         with tracing.span("unidepth.decoder.heads", device):
-            logdepth, logconf = head.heads(latents, (H, W), confidence)
+            # handed over as heads()'s only reference: K2h's route frees the latents once read
+            logdepth, logconf = head.heads(latents.pop(), (H, W), confidence)
             radius = torch.exp(logdepth.float().clamp(-8.0, 8.0) + 2.0).permute(0, 2, 3, 1)
             out = {
                 "radius": radius,  # (B, H, W, 1)

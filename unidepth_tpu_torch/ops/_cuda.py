@@ -155,6 +155,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.ud_ln_dense_hopper_fwd.restype = i
     lib.ud_ln_swiglu_hopper_fwd.argtypes = [p] * 7 + [i] * 4 + [p]
     lib.ud_ln_swiglu_hopper_fwd.restype = i
+    lib.ud_head_mlp_hopper_fwd.argtypes = [p] * 11 + [i] * 4 + [f, f, p]
+    lib.ud_head_mlp_hopper_fwd.restype = i
     lib.ud_conv3x3_fwd.argtypes = [p, p, p, p] + [i] * 7 + [p]
     lib.ud_conv3x3_fwd.restype = i
     lib.ud_conv3x3_hopper_fwd.argtypes = [p, p, p, p] + [i] * 6 + [p]

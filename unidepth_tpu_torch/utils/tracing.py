@@ -33,7 +33,8 @@ the span that launched it (``scripts_torch/profile_serve.py``).
 The serving path's spans: ``unidepth.infer`` (root) with
 ``unidepth.infer.{prepare,encoder,decoder,postprocess}``; under the decoder
 ``unidepth.decoder.{camera,prompt,pyramid,heads}``; the kernel wrappers'
-``unidepth.kernel.{K1,K2,K2g,K3,K4,K5}`` (K2g: K2's gated SwiGLU body).
+``unidepth.kernel.{K1,K2,K2g,K2h,K3,K4,K5}`` (K2g: K2's gated SwiGLU body;
+K2h: the V2 heads' LayerNorm -> Linear pair).
 """
 
 from __future__ import annotations
