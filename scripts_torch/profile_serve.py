@@ -28,7 +28,8 @@ host buffers). Then:
 
 Beside them, per traced request: ``kernel_ops``, the launches of K1-K5 (and
 K2g, K2's gated SwiGLU body, and K2h, the V2 heads' LayerNorm -> Linear
-pair) counted by their device operations' names in
+pair) and of cuDNN's depthwise 7x7 conv (``dwconv``: ConvNeXt's blocks and
+V1's decoder upsamplers) counted by their device operations' names in
 the trace, so that a replayed stage graph
 (``unidepth_tpu_torch/models/stage_graphs.py``) counts as well; and
 ``graphs``, the stage graphs' counters: replays, eager calls by reason, the
@@ -189,17 +190,21 @@ def reduce(events) -> dict:
 # the run
 # ----------------------------------------------------------------------------
 #: the names of each kernel's device operations (the attention kernels K1,
-#: K3 and K4 share theirs: the phase and the serving precision tell them apart)
+#: K3 and K4 share theirs: the phase and the serving precision tell them
+#: apart); ``dwconv``: cuDNN's depthwise conv on the channels-last bf16 maps
+#: of ConvNeXt's and the V1 decoder's 7x7 convs (one launch a conv on the H100)
 ATTENTION_OPS = ("attn_fwd_wgmma", "attn_fwd_bf16", "attn_fwd_simt")
 KERNEL_OPS = {"K2": ("ln_dense_wgmma", "ln_dense_bf16", "ln_dense_simt"), "K2g": ("ln_swiglu_wgmma",),
-              "K2h": ("head_mlp_wgmma",), "K5": ("conv3x3_wgmma", "conv3x3_bf16", "conv3x3_simt")}
+              "K2h": ("head_mlp_wgmma",), "K5": ("conv3x3_wgmma", "conv3x3_bf16", "conv3x3_simt"),
+              "dwconv": ("conv2d_c1_k1_nhwc",)}
 
 
 def kernel_ops(ops: dict, int8: bool = False) -> dict:
-    """Launches of K1-K5, K2g and K2h from a trace's device operations by
-    "phase: name" (``reduce``'s ``ops``): attention under the encoder is K1
-    (K4 when the encoder serves int8), under the decoder K3."""
-    out = dict.fromkeys(("K1", "K2", "K2g", "K2h", "K3", "K4", "K5"), 0.0)
+    """Launches of K1-K5, K2g, K2h and the depthwise 7x7 convs from a
+    trace's device operations by "phase: name" (``reduce``'s ``ops``):
+    attention under the encoder is K1 (K4 when the encoder serves int8),
+    under the decoder K3."""
+    out = dict.fromkeys(("K1", "K2", "K2g", "K2h", "K3", "K4", "K5", "dwconv"), 0.0)
     for key, n in ops.items():
         phase, _, name = key.partition(": ")
         if any(k in name for k in ATTENTION_OPS):

@@ -11,7 +11,10 @@ the config's network shape (462x616):
 
 * the encoder alone, the decoder alone (on the encoder's outputs) and the
   whole ``infer()``, timed with CUDA events (median of 3 rounds of 5);
-* ``torch.profiler`` over 3 ``infer()`` calls: the device's busy time (the
+* ``torch.profiler`` over 3 eager ``infer()`` calls (the stage graphs
+  cleared before each, so the encoder and decoder run op by op and the
+  labelled parts' hooks fire; the CUDA-event ``infer()`` time above is of
+  the replayed graphs, the served path): the device's busy time (the
   union of the kernels' intervals), the span, the idle share 1 - busy /
   span and the kernels a call; for each labelled part (a
   ``record_function`` range opened by forward hooks around the encoder's
@@ -134,6 +137,7 @@ def main():
         handles = label_parts(model)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
+                model._stage_graphs.clear()  # eager: a replay runs no hook
                 model.infer(rgb)
             torch.cuda.synchronize()
         for handle in handles:

@@ -1,9 +1,9 @@
 """The port's spans (``unidepth_tpu_torch/utils/tracing.py``) on the CPU.
 
 Off, ``span`` is one shared no-op and nothing is recorded. On, one
-``infer()`` of a full-width V2 ViT-S/14 (pixel budget shrunk) records the
-serving path's span tree under one request id, each child inside its
-parent; outputs are bitwise those of an untraced call; with the kernel
+``infer()`` of a full-width V2 ViT-S/14 (pixel budget shrunk), and of a tiny
+V1 ConvNeXt, records the serving path's span tree under one request id, each
+child inside its parent; outputs are bitwise those of an untraced call; with the kernel
 library stubbed (as the route tests do) the kernel wrappers' spans count
 what their ``.launches`` counters count, and a bf16 request read as one on
 the card launches the heads' fused K5 once a head; annotated, the spans
@@ -25,6 +25,7 @@ import torch
 from torch.autograd import DeviceType
 import torch_threads  # noqa: F401  (sets this process's torch thread count)
 
+from unidepth_tpu_torch.models.unidepthv1.model import UniDepthV1
 from unidepth_tpu_torch.models.unidepthv2.model import UniDepthV2
 from unidepth_tpu_torch.nn import layers
 from unidepth_tpu_torch.ops import _cuda
@@ -37,6 +38,7 @@ from unidepth_tpu_torch.utils import tracing
 ROOT = Path(__file__).resolve().parents[1]
 PHASES = ["unidepth.infer.prepare", "unidepth.infer.encoder", "unidepth.infer.decoder", "unidepth.infer.postprocess"]
 DECODER = ["unidepth.decoder.camera", "unidepth.decoder.prompt", "unidepth.decoder.pyramid", "unidepth.decoder.heads"]
+DECODER_V1 = ["unidepth.decoder.camera", "unidepth.decoder.depth"]
 KERNELS = ["unidepth.kernel.K1", "unidepth.kernel.K2", "unidepth.kernel.K3"]
 RGB = np.random.default_rng(0).integers(0, 256, (2, 60, 90, 3), dtype=np.uint8)
 K = np.array([[80.0, 0, 45.0], [0, 85.0, 30.0], [0, 0, 1]], np.float32)
@@ -55,6 +57,25 @@ def model():
     cfg["data"]["augmentations"]["shape_constraints"].update(pixels_min=4000, pixels_max=10000)
     torch.manual_seed(0)
     return UniDepthV2.from_config(cfg, device="cpu").eval()
+
+
+@pytest.fixture(scope="module")
+def v1():
+    cfg = {
+        "model": {
+            "name": "UniDepthV1", "num_heads": 4, "expansion": 4,
+            "pixel_decoder": {"hidden_dim": 32, "depths": [1, 1, 1]},
+            "pixel_encoder": {"name": "convnext_large", "depths": [1, 1, 2, 1], "dims": [32, 64, 128, 256]},
+        },
+        "data": {"image_shape": [64, 96]},
+    }
+    return UniDepthV1.from_config(cfg, device="cpu").init_params(seed=0).eval()
+
+
+@pytest.fixture(params=["v2", "v1"])
+def served(request, model, v1):
+    """The model and the decoder's span names it should record."""
+    return (model, DECODER) if request.param == "v2" else (v1, DECODER_V1)
 
 
 @pytest.fixture(autouse=True)
@@ -98,7 +119,8 @@ def _children(spans, parent):
     return [s["name"] for s in kids]
 
 
-def test_off_span_is_one_shared_noop(model, monkeypatch):
+def test_off_span_is_one_shared_noop(served, monkeypatch):
+    model, _ = served
     assert tracing.span("unidepth.infer") is tracing.NO_SPAN
     assert tracing.span("unidepth.infer", torch.device("cuda")) is tracing.NO_SPAN
 
@@ -113,7 +135,8 @@ def test_off_span_is_one_shared_noop(model, monkeypatch):
     assert tracing.collect() == {"spans": [], "dropped": 0}
 
 
-def test_infer_records_the_span_tree(model):
+def test_infer_records_the_span_tree(served):
+    model, decoder_spans = served
     tracing.enable()
     model.infer(RGB)
     spans = tracing.collect()["spans"]
@@ -123,8 +146,8 @@ def test_infer_records_the_span_tree(model):
     assert {s["request"] for s in spans} == {root["request"]}
     assert _children(spans, root) == PHASES
     (decoder,) = [s for s in spans if s["name"] == "unidepth.infer.decoder"]
-    assert _children(spans, decoder) == DECODER
-    assert len(spans) == 1 + len(PHASES) + len(DECODER)  # CPU tensors run the plain versions: no kernel spans
+    assert _children(spans, decoder) == decoder_spans
+    assert len(spans) == 1 + len(PHASES) + len(decoder_spans)  # CPU tensors run the plain versions: no kernel spans
     for s in spans:
         assert s["device_ms"] is None  # no CUDA device
         assert s["host_start_ns"] <= s["host_end_ns"]
@@ -307,19 +330,22 @@ def test_reduce_attributes_by_correlation_counts_waits_and_labels_gaps():
                                          "unidepth.infer.decoder": 23e-6})
 
 
-def test_profile_serve_runs_a_tiny_cell_on_the_cpu(tmp_path):
-    """The script's run over a benchmark cell (a ViT of width 32, B = 2, the
-    benchmark's own CPU test cells): spans per request, on and off blocks,
-    and an annotated profile, which on the CPU holds no device operation."""
+@pytest.mark.parametrize("cell,decoder_spans", [("tiny-v2.serve", DECODER), ("tiny-v1.serve", DECODER_V1)],
+                         ids=["v2", "v1"])
+def test_profile_serve_runs_a_tiny_cell_on_the_cpu(tmp_path, cell, decoder_spans):
+    """The script's run over a benchmark cell (the benchmark's own CPU test
+    cells: a ViT of width 32 and a tiny V1 ConvNeXt): spans per request, on
+    and off blocks, and an annotated profile, which on the CPU holds no
+    device operation."""
     from benchmark.tests.conftest import make_root
 
-    got = profile_serve.profile(make_root(tmp_path), "tiny-v2.serve", 3000000019, 0.2, device="cpu")
+    got = profile_serve.profile(make_root(tmp_path), cell, 3000000019, 0.2, device="cpu")
     assert got["device"] == "cpu" and set(got["images_per_s"]) == {"off", "on"}
-    assert {"unidepth.infer", *PHASES, *DECODER} <= set(got["spans"])
+    assert {"unidepth.infer", *PHASES, *decoder_spans} <= set(got["spans"])
     assert got["spans"]["unidepth.infer"]["count"] == 1
     assert got["metrics"]["decoder_host_ms"] > 0 and got["metrics"]["encoder_host_ms"] > 0
     assert got["metrics"]["decoder_launches"] == 0 and got["metrics"]["host_syncs"] == 0
     assert got["traced"]["requests"] > 0 and got["traced"]["busy_s"] == 0.0
-    assert got["kernel_ops"] == {k: 0.0 for k in ("K1", "K2", "K2g", "K2h", "K3", "K4", "K5")}  # no device operation
+    assert got["kernel_ops"] == {k: 0.0 for k in ("K1", "K2", "K2g", "K2h", "K3", "K4", "K5", "dwconv")}  # no device op
     assert got["graphs"]["replays"] == 0 and got["graphs"]["eager"] == {"cpu": 2.0}  # the two stages, eagerly
     assert got["graphs"]["replay_share"] == 0.0

@@ -23,6 +23,10 @@ twice a block per micro-batch. ``forward(image, generator)`` with
 branch at the JAX ramp ``linspace(0, rate, sum(depths))``: one per-sample
 keep mask a block, drawn from ``generator`` before the block runs, so the
 recompute sees the same draw.
+
+Inside V1's ``infer()`` the forward's body may run as a CUDA graph replay
+(``models/stage_graphs.py``): the graph's static outputs are the four
+stage maps and the four tokens, each in its own buffer.
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ import torch
 import torch.nn as nn
 from torch.utils.checkpoint import checkpoint
 
+from unidepth_tpu_torch.models import stage_graphs
 from unidepth_tpu_torch.nn.layers import drop_path, layer_norm, ln_linear_gelu, uniform_rows
 
 LAYER_SCALE_INIT = 1e-6
@@ -136,7 +141,12 @@ class ConvNeXt(nn.Module):
 
     def forward(self, image: torch.Tensor, generator: torch.Generator | None = None):
         """image: (B, H, W, 3). ``generator`` turns stochastic depth on
-        (training) when the config's ``drop_path_rate`` is positive."""
+        (training) when the config's ``drop_path_rate`` is positive. Inside
+        V1's ``infer()`` a CUDA graph of this body may run instead
+        (``models/stage_graphs.py``)."""
+        return stage_graphs.call(self, self._forward, image, generator)
+
+    def _forward(self, image: torch.Tensor, generator: torch.Generator | None):
         rates = iter(np.linspace(0.0, self.cfg.drop_path_rate, sum(self.cfg.depths)))
         use_dp = generator is not None and self.cfg.drop_path_rate > 0.0
         x = self.stem[0](image.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)

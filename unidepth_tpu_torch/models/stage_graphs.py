@@ -1,7 +1,8 @@
 """CUDA graphs of a model's serving stages, one per input signature.
 
-``UniDepthV2.infer()`` opens ``serving(store)`` around its two stages; the
-stages' forwards (``DinoViT`` and the V2 ``Decoder``) run their bodies
+``UniDepthV2.infer()`` and ``UniDepthV1.infer()`` open ``serving(store)``
+around their two stages; the stages' forwards (the encoders ``DinoViT`` and
+``ConvNeXt``, the V2 ``Decoder`` and ``DecoderV1``) run their bodies
 through ``call(module, fn, *args)``:
 
     with stage_graphs.serving(model._stage_graphs):
@@ -9,7 +10,7 @@ through ``call(module, fn, *args)``:
         out = decoder(feats, cls_tokens, (h, w))  # forward -> call(...)
 
 Outside ``serving`` (``encode_decode``, training, ``validate()``, the
-exporter, V1, V2old) ``call`` is ``fn(*args)``. The replay happens inside
+exporter, V2old) ``call`` is ``fn(*args)``. The replay happens inside
 the module's forward, so forward hooks still fire around it, and a stage's
 device time is its replay's.
 
@@ -31,15 +32,20 @@ device: a constant built from host data is built once, before any capture.
 Memory. Every capture shares one private pool, and nothing the store keeps
 lives in it: after a capture the pool holds only that capture's transient
 working set, which the next capture reuses. A graph reads its inputs from,
-and copies its outputs into, static buffers outside the pool, one per role
-(the encoder's image; each storage its outputs lie in, as the four stage
-outputs that hold a feature map and a cls token each), shared by every key
-and grown to the largest. When a buffer grows, every graph of the store is
+and copies its outputs into, static buffers outside the pool, one per role,
+shared by every key and grown to the largest. A role is an input or output
+storage in the order the stage takes or gives it: the encoder's image; its
+outputs, which for DINOv2 are the four stage outputs that hold a feature map
+and a cls token each, and for ConvNeXt the four stage maps and the four
+tokens, eight storages; V2's decoder's rays; V1's decoder's rays and K at
+the network shape (with a given K) and its outputs, K, the three depth maps
+and the 1/16 latents. When a buffer grows, every graph of the store is
 captured again over the new buffers, at once, so no later call captures.
 An input that already lies in a static buffer (the encoder's features, read
 by the decoder) is read where it lies; any other is copied in before the
 replay. An output that lies in an input's storage (the decoder's ``rays``,
-given as ``rays_gt``) stays a view of that input's buffer.
+given as ``rays_gt``; V1's K, given as ``K_gt`` with ``skip_camera``) stays
+a view of that input's buffer.
 
 The outputs a replayed call returns are views of the static buffers, which
 the next replay of any graph may overwrite: the caller consumes them or

@@ -10,6 +10,12 @@ and returns three exp-clipped log-depth maps (out8/4/2).
 
 Tokens are (B, N, C), maps channel-last, as in the JAX package. Module
 names are the reference checkpoint's.
+
+Inside V1's ``infer()`` the decoder's forward may run as a CUDA graph
+replay (``models/stage_graphs.py``), so nothing in its body makes the host
+wait on the device: the sine position embedding is built once per grid and
+device. Its spans: ``unidepth.decoder.camera`` (the adapters, the level and
+position embeddings and the camera head) and ``unidepth.decoder.depth``.
 """
 
 from __future__ import annotations
@@ -19,6 +25,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from unidepth_tpu_torch.geometry.rays import generate_rays
+from unidepth_tpu_torch.models import stage_graphs
 from unidepth_tpu_torch.nn.conv import Conv2d
 from unidepth_tpu_torch.nn.layers import MLP, AttentionBlock, layer_norm
 from unidepth_tpu_torch.nn.nystrom import NystromBlock
@@ -26,6 +33,15 @@ from unidepth_tpu_torch.nn.upsample import ConvUpsample
 from unidepth_tpu_torch.ops.fourier import position_embedding_sine
 from unidepth_tpu_torch.ops.resize import flat_interpolate
 from unidepth_tpu_torch.ops.sht import rsh_cart_8
+from unidepth_tpu_torch.utils import tracing
+from unidepth_tpu_torch.utils.built_once import built_once
+
+
+@built_once()
+def _sine_grid(h: int, w: int, hidden: int, device: torch.device) -> torch.Tensor:
+    """The normalised sine position embedding of an (h, w) grid as (h*w,
+    hidden) float32 tokens on ``device``."""
+    return position_embedding_sine(h, w, num_pos_feats=hidden // 2, normalize=True, device=device).reshape(h * w, hidden)
 
 
 class AdapterItem(nn.Sequential):
@@ -166,31 +182,39 @@ class DecoderV1(nn.Module):
         """features: per level (B, h, w, C); cls_tokens: (B, 1, C) in the
         encoder's order; image_shape (H, W); rays_gt (B, H*W, 3) and K_gt
         (B, 3, 3) optional. Returns K, the three depth maps (B, 2^i h, 2^i
-        w, 1) and the 1/16 latents."""
+        w, 1) and the 1/16 latents. Inside V1's ``infer()`` a CUDA graph of
+        this body may run instead (``models/stage_graphs.py``)."""
+        return stage_graphs.call(self, self._forward, features, cls_tokens, tuple(image_shape), rays_gt,
+                                 skip_camera, K_gt)
+
+    def _forward(self, features, cls_tokens, image_shape, rays_gt, skip_camera, K_gt):
         H, W = image_shape
         b = features[0].shape[0]
-        # the common grid: the second-smallest level shape (1/16 for a
-        # ConvNeXt pyramid, every level's for a ViT)
-        level_shapes = sorted({tuple(f.shape[1:3]) for f in features}, reverse=True)
-        gh, gw = level_shapes[-2] if len(level_shapes) > 1 else level_shapes[0]
-        feats = [
-            adapter(flat_interpolate(f.reshape(b, -1, f.shape[-1]), old=tuple(f.shape[1:3]), new=(gh, gw)))
-            for adapter, f in zip(self.input_adapter.input_adapters, features)
-        ]
-        cams = [adapter(t) for adapter, t in zip(self.token_adapter.input_adapters, cls_tokens[::-1])]
-        cls_cat = torch.cat(cams, dim=1)
+        device = features[0].device
+        with tracing.span("unidepth.decoder.camera", device):
+            # the common grid: the second-smallest level shape (1/16 for a
+            # ConvNeXt pyramid, every level's for a ViT)
+            level_shapes = sorted({tuple(f.shape[1:3]) for f in features}, reverse=True)
+            gh, gw = level_shapes[-2] if len(level_shapes) > 1 else level_shapes[0]
+            feats = [
+                adapter(flat_interpolate(f.reshape(b, -1, f.shape[-1]), old=tuple(f.shape[1:3]), new=(gh, gw)))
+                for adapter, f in zip(self.input_adapter.input_adapters, features)
+            ]
+            cams = [adapter(t) for adapter, t in zip(self.token_adapter.input_adapters, cls_tokens[::-1])]
+            cls_cat = torch.cat(cams, dim=1)
 
-        fc1, _, fc2, norm = self.level_embed_layer
-        le = layer_norm(norm, fc2(F.gelu(fc1(self.level_embeds.to(fc1.weight.dtype)))))
-        hidden = le.shape[-1]
-        level_embed = le.repeat_interleave(gh * gw, dim=0)[None].expand(b, -1, -1)
-        pos = position_embedding_sine(gh, gw, num_pos_feats=hidden // 2, normalize=True, device=le.device)
-        pos_embed = pos.reshape(1, gh * gw, hidden).repeat(1, len(feats), 1).expand(b, -1, -1)
+            fc1, _, fc2, norm = self.level_embed_layer
+            le = layer_norm(norm, fc2(F.gelu(fc1(self.level_embeds.to(fc1.weight.dtype)))))
+            n, hidden = le.shape
+            # each level's embedding over its grid's tokens, in level order
+            level_embed = le[:, None].expand(n, gh * gw, hidden).reshape(1, n * gh * gw, hidden).expand(b, -1, -1)
+            pos_embed = _sine_grid(gh, gw, hidden, le.device).repeat(len(feats), 1)[None].expand(b, -1, -1)
 
-        if skip_camera and K_gt is not None:
-            intrinsics, rays = K_gt, rays_gt
-        else:
-            intrinsics = self.camera_layer(feats, cls_cat, pos_embed + level_embed, (H, W))
-            rays = generate_rays(intrinsics, (H, W))[0] if rays_gt is None else rays_gt
-        outs, depth_features = self.depth_layer(feats, rays, pos_embed, level_embed, (gh, gw), (H, W))
+            if skip_camera and K_gt is not None:
+                intrinsics, rays = K_gt, rays_gt
+            else:
+                intrinsics = self.camera_layer(feats, cls_cat, pos_embed + level_embed, (H, W))
+                rays = generate_rays(intrinsics, (H, W))[0] if rays_gt is None else rays_gt
+        with tracing.span("unidepth.decoder.depth", device):
+            outs, depth_features = self.depth_layer(feats, rays, pos_embed, level_embed, (gh, gw), (H, W))
         return intrinsics, outs, depth_features

@@ -7,7 +7,10 @@ or ConvNeXt with ``max_cls``) and the V1 decoder, averages the three depth
 scales at the network shape, crops the pads, resizes depth back and
 back-projects points through the spherical z-buffer. Outputs are
 channel-last float32: ``depth`` (B, H, W, 1), ``points`` (B, H, W, 3) and
-``intrinsics`` (B, 3, 3).
+``intrinsics`` (B, 3, 3). On a card the encoder and the decoder replay CUDA
+graphs captured per input shape (``models/stage_graphs.py``); pre- and
+postprocessing run eagerly, and nothing in a call makes the host wait for
+the device.
 
 Compute dtype is the parameters' dtype: bf16 on the card, float32 on the
 CPU (``from_config``). Int8 serving (``ServingPrecisionMixin``) needs the
@@ -32,6 +35,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from unidepth_tpu_torch.geometry.rays import generate_rays, spherical_zbuffer_to_euclidean
+from unidepth_tpu_torch.models import stage_graphs
 from unidepth_tpu_torch.models.backbones.convnext import CONVNEXT_PRESETS, LAYER_SCALE_INIT, ConvNeXt, ConvNeXtBlock
 from unidepth_tpu_torch.models.backbones.dinov2 import VIT_PRESETS, DinoViT, ViTConfig
 from unidepth_tpu_torch.models.serving import ServingPrecisionMixin
@@ -40,6 +44,8 @@ from unidepth_tpu_torch.models.unidepthv2.model import compute_dtype, lecun_norm
 from unidepth_tpu_torch.nn.layers import LayerScale
 from unidepth_tpu_torch.nn.upsample import CvnxtBlock
 from unidepth_tpu_torch.ops.resize import resize
+from unidepth_tpu_torch.utils import tracing
+from unidepth_tpu_torch.utils.built_once import built_once
 from unidepth_tpu_torch.utils.constants import IMAGENET_DATASET_MEAN, IMAGENET_DATASET_STD
 
 V1_OUTPUT_IDX = {"vits14": (3, 6, 9, 12), "vitb14": (3, 6, 9, 12), "vitl14": (5, 12, 18, 24)}
@@ -61,6 +67,30 @@ def _v1_paddings(image_shape, network_shape):
     ch, cw = image_shape
     h, w = network_shape
     return (w - cw) // 2, w - cw - (w - cw) // 2, (h - ch) // 2, h - ch - (h - ch) // 2
+
+
+@built_once()
+def _input_scales(device: torch.device) -> tuple[torch.Tensor, ...]:
+    """On ``device``: the divisors of a 0..255 image and of any other (255
+    and 1), and the (2, 3) (shift, divisor) pairs of ImageNet's
+    normalisation (its mean and std) and of none (0 and 1)."""
+    return (torch.tensor(255.0, device=device), torch.tensor(1.0, device=device),
+            torch.tensor([IMAGENET_DATASET_MEAN, IMAGENET_DATASET_STD], device=device),
+            torch.tensor([[0.0, 0.0, 0.0], [1.0, 1.0, 1.0]], device=device))
+
+
+@built_once(maxsize=256)
+def _k_maps(ratio: float, pl: int, pt: int, device: torch.device) -> tuple[torch.Tensor, ...]:
+    """The (3, 3) scale and shift that take a K to the network shape (K *
+    scale + shift) and the pair that takes it back (K * scale - shift), for
+    the resize ``ratio`` and the left and top pads, on ``device``."""
+    inv = 1.0 / ratio
+    return (
+        torch.tensor([[ratio, 1.0, ratio], [1.0, ratio, ratio], [1.0, 1.0, 1.0]], device=device),
+        torch.tensor([[0.0, 0.0, pl], [0.0, 0.0, pt], [0.0, 0.0, 0.0]], device=device),
+        torch.tensor([[inv, 1.0, inv], [1.0, inv, inv], [1.0, 1.0, 1.0]], device=device),
+        torch.tensor([[0.0, 0.0, pl * inv], [0.0, 0.0, pt * inv], [0.0, 0.0, 0.0]], device=device),
+    )
 
 
 def _encoder_widths(encoder: nn.Module) -> tuple[tuple[int, ...], tuple[int, ...]]:
@@ -95,6 +125,7 @@ class UniDepthV1(ServingPrecisionMixin, nn.Module):
             input_dims, token_dims, hidden_dim, num_heads=num_heads, expansion=expansion, depths=tuple(decoder_depths)
         )
         self.image_shape = tuple(image_shape)
+        self._stage_graphs = stage_graphs.StageGraphs()
         self._init_serving()
 
     @classmethod
@@ -220,6 +251,7 @@ class UniDepthV1(ServingPrecisionMixin, nn.Module):
         for m in self.modules():
             if hasattr(m, "use_kernels"):
                 m.use_kernels = enabled
+        self._reset_serving_caches()  # the graphs captured the kernels' launches
         return self
 
     def encode_decode(self, image, rays_gt=None, K_gt=None, skip_camera: bool = False,
@@ -261,7 +293,49 @@ class UniDepthV1(ServingPrecisionMixin, nn.Module):
         channel-first, numpy or torch. Values above 5 are taken as 0..255 and
         scaled, values in [0, 1] are ImageNet-normalised, anything else is
         taken as normalised already. intrinsics: optional (3,3) / (B,3,3) K,
-        never written; with ``skip_camera`` it replaces the camera head."""
+        never written; with ``skip_camera`` it replaces the camera head.
+
+        On a card the encoder and the decoder replay CUDA graphs captured per
+        input shape (``models/stage_graphs.py``), and nothing in the call
+        makes the host wait for the device: the value range is judged on the
+        device, and the outputs are still being computed when it returns. A
+        pinned ``rgbs`` is uploaded asynchronously, so it must not change
+        until the outputs are read."""
+        device = next(self.parameters()).device
+        graphs = self._stage_graphs
+        with tracing.span("unidepth.infer", device), stage_graphs.serving(graphs):
+            with tracing.span("unidepth.infer.prepare", device):
+                x, K_net, rays_gt, (H, W), ratio, pads = self._prepare(rgbs, intrinsics)
+            nh, nw = self.image_shape
+            with tracing.span("unidepth.infer.encoder", device):
+                feats, cls_tokens = self._serving_encoder()(x)
+            with tracing.span("unidepth.infer.decoder", device):
+                K_pred, preds, _ = self.pixel_decoder(
+                    feats, cls_tokens, (nh, nw), rays_gt=rays_gt, skip_camera=skip_camera and K_net is not None,
+                    K_gt=K_net,
+                )
+            with tracing.span("unidepth.infer.postprocess", device):
+                pl, pr, pt, pb = pads
+                pred = sum(resize(d, (nh, nw), mode="bilinear", antialias=True) for d in preds) / len(preds)
+                pred = resize(pred[:, pt : nh - pb, pl : nw - pr], (H, W), mode="bilinear", antialias=True)
+                _, _, scale, shift = _k_maps(ratio, pl, pt, device)
+                K_out = K_pred * scale - shift
+                # with a given K the reference back-projects the original grid
+                # through the network-scaled K
+                _, angles = generate_rays(K_out if K_net is None else K_net, (H, W))
+                points = spherical_zbuffer_to_euclidean(torch.cat([angles.reshape(-1, H, W, 2), pred], dim=-1))
+                return graphs.detach({"intrinsics": K_out, "points": points, "depth": pred})
+
+    def _reset_serving_caches(self):
+        super()._reset_serving_caches()
+        self._stage_graphs.clear()  # captured over the weights, kernels and encoder these change
+
+    def _prepare(self, rgbs, intrinsics):
+        """``infer``'s input on the model's device: the image uploaded,
+        scaled by its value range, resized and padded into the network shape
+        in the model's dtype; a given K at the network shape and its rays
+        there (or None); the input's (H, W), the resize ratio and the
+        pads."""
         p = next(self.parameters())
         device, dtype = p.device, p.dtype
         rgb = torch.as_tensor(np.asarray(rgbs) if not torch.is_tensor(rgbs) else rgbs)
@@ -269,47 +343,37 @@ class UniDepthV1(ServingPrecisionMixin, nn.Module):
             rgb = rgb[None]
         if rgb.shape[1] == 3 and rgb.shape[-1] != 3:
             rgb = rgb.permute(0, 2, 3, 1)
-        rgb = rgb.to(device).float()
+        # convert after the copy: uint8 moves 4x fewer bytes
+        rgb = rgb.to(device, non_blocking=rgb.device.type == "cpu" and rgb.is_pinned()).float()
         B, H, W, _ = rgb.shape
-        mx, mn = rgb.max().item(), rgb.min().item()
-        if mx > 5.0:
-            rgb = rgb / 255.0
-            normalize = True
-        else:
-            normalize = mn >= 0.0 and mx <= 1.0
+        # the value range, judged on the device: above 5 it is 0..255, scaled
+        # and normalised; within [0, 1] normalised; otherwise as given
+        mn, mx = torch.aminmax(rgb)
+        wide = mx > 5.0
+        normalize = wide | ((mn >= 0.0) & (mx <= 1.0))
+        c255, c1, imagenet, identity = _input_scales(device)
+        sub, div = torch.where(normalize, imagenet, identity)
+        x = (rgb / torch.where(wide, c255, c1) - sub) / div
+
         K = None
         if intrinsics is not None:
             K = torch.as_tensor(np.asarray(intrinsics) if not torch.is_tensor(intrinsics) else intrinsics)
-            K = K.to(device=device, dtype=torch.float32)
+            K = K.to(torch.float32)
+            if K.device.type == "cpu" and device.type == "cuda":  # uploaded without a host wait
+                K = K.pin_memory()
+            K = K.to(device, non_blocking=K.is_pinned())
             K = (K[None] if K.ndim == 2 else K).expand(B, 3, 3)
 
         (sh, sw), ratio = _v1_shapes((H, W), self.image_shape)
-        pl, pr, pt, pb = _v1_paddings((sh, sw), self.image_shape)
-        nh, nw = self.image_shape
-        x = rgb
-        if normalize:
-            x = (x - torch.tensor(IMAGENET_DATASET_MEAN, device=device)) / torch.tensor(IMAGENET_DATASET_STD, device=device)
+        pads = _v1_paddings((sh, sw), self.image_shape)
+        pl, pr, pt, pb = pads
         x = resize(x, (sh, sw), mode="bilinear", align_corners=False, antialias=True)
-        x = F.pad(x, (0, 0, pl, pr, pt, pb))
+        if any(pads):
+            x = F.pad(x, (0, 0, pl, pr, pt, pb))
 
         K_net = rays_gt = None
         if K is not None:  # K at the network shape; the caller's tensor is not written
-            scale = torch.tensor([[ratio, 1.0, ratio], [1.0, ratio, ratio], [1.0, 1.0, 1.0]], device=device)
-            K_net = K * scale + torch.tensor([[0.0, 0.0, pl], [0.0, 0.0, pt], [0.0, 0.0, 0.0]], device=device)
-            rays_gt = generate_rays(K_net, (nh, nw))[0]
-
-        feats, cls_tokens = self._serving_encoder()(x.to(dtype))
-        K_pred, preds, _ = self.pixel_decoder(
-            feats, cls_tokens, (nh, nw), rays_gt=rays_gt, skip_camera=skip_camera and K is not None, K_gt=K_net
-        )
-        pred = sum(resize(d, (nh, nw), mode="bilinear", antialias=True) for d in preds) / len(preds)
-        pred = resize(pred[:, pt : nh - pb, pl : nw - pr], (H, W), mode="bilinear", antialias=True)
-
-        inv = 1.0 / ratio
-        K_out = K_pred * torch.tensor([[inv, 1.0, inv], [1.0, inv, inv], [1.0, 1.0, 1.0]], device=device)
-        K_out = K_out - torch.tensor([[0.0, 0.0, pl * inv], [0.0, 0.0, pt * inv], [0.0, 0.0, 0.0]], device=device)
-        # with a given K the reference back-projects the original grid through
-        # the network-scaled K
-        _, angles = generate_rays(K_net if K is not None else K_out, (H, W))
-        points = spherical_zbuffer_to_euclidean(torch.cat([angles.reshape(B, H, W, 2), pred], dim=-1))
-        return {"intrinsics": K_out, "points": points, "depth": pred}
+            scale, shift, _, _ = _k_maps(ratio, pl, pt, device)
+            K_net = K * scale + shift
+            rays_gt = generate_rays(K_net, self.image_shape)[0]
+        return x.to(dtype), K_net, rays_gt, (H, W), ratio, pads

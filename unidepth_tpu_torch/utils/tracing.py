@@ -30,9 +30,10 @@ under its name: a profiler trace then holds the span's host interval on the
 clock of the device operations, and each device operation can be put down to
 the span that launched it (``scripts_torch/profile_serve.py``).
 
-The serving path's spans: ``unidepth.infer`` (root) with
-``unidepth.infer.{prepare,encoder,decoder,postprocess}``; under the decoder
-``unidepth.decoder.{camera,prompt,pyramid,heads}``; the kernel wrappers'
+The serving path's spans (V2's and V1's ``infer()``): ``unidepth.infer``
+(root) with ``unidepth.infer.{prepare,encoder,decoder,postprocess}``; under
+V2's decoder ``unidepth.decoder.{camera,prompt,pyramid,heads}``, under V1's
+``unidepth.decoder.{camera,depth}``; the kernel wrappers'
 ``unidepth.kernel.{K1,K2,K2g,K2h,K3,K4,K5}`` (K2g: K2's gated SwiGLU body;
 K2h: the V2 heads' LayerNorm -> Linear pair).
 """
